@@ -7,13 +7,15 @@
 `encode_clip` runs the single-device GOP path of av1tpu.cli.encode_clip
 with partitions=False (the fast preset): scene detection, the per-scene q
 probe, the temporal filter, the keyframe with its CDEF strength search,
-then chunks of inter frames with deblock and CDEF, packed by the shared
-C++ entropy packer.  Prints one JSON stats line.
+then chunks of inter frames with deblock and CDEF, packed by the C++
+entropy packer (native/coding/pack.cpp, the one source shared with the JAX
+package).  Prints one JSON stats line.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -21,10 +23,109 @@ import time
 import numpy as np
 import torch
 
-from av1tpu.cli import (
-    KEY_Q_BOOST, _CapacityExceeded, _pad_plane, _StageClock, _wrap_tu,
-    _wrap_tu_inter,
+from av1tpu_torch.spec.bits import BitWriter
+from av1tpu_torch.spec.encode_frame import (
+    EncoderConfig, make_frame_header, make_frame_header_inter,
+    make_sequence_header,
 )
+from av1tpu_torch.spec.headers import (
+    write_frame_header_inter, write_frame_header_key, write_sequence_header,
+)
+from av1tpu_torch.spec.obu import (
+    OBU_FRAME, OBU_SEQUENCE_HEADER, build_obu, temporal_delimiter, write_ivf,
+)
+from av1tpu_torch.utils.yuv import read_y4m
+
+# keyframe quality boost (qindex steps below the scene q)
+KEY_Q_BOOST = 24
+
+
+class _StageClock:
+    """Accumulating per-stage wall-clock timers (stats["stage_seconds"])."""
+
+    def __init__(self):
+        self.acc: dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        t = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.acc[name] = (self.acc.get(name, 0.0)
+                              + time.perf_counter() - t)
+
+
+class _CapacityExceeded(RuntimeError):
+    """Compact-transport value list overflowed; retry with a larger cap."""
+
+    def __init__(self, count: int):
+        super().__init__(f"compact capacity exceeded ({count} values)")
+        self.count = count
+
+
+def _pad_plane(a: np.ndarray, h: int, w: int) -> np.ndarray:
+    out = np.zeros((h, w), np.int32)
+    ah, aw = a.shape
+    out[:ah, :aw] = a
+    if aw < w:
+        out[:ah, aw:] = out[:ah, aw - 1 : aw]
+    if ah < h:
+        out[ah:, :] = out[ah - 1 : ah, :]
+    return out
+
+
+def _cdef_cfg_kw(cdef):
+    """EncoderConfig kwargs for a coded strength tuple (None = disabled)."""
+    if cdef is None:
+        return {}
+    return {"enable_cdef": 1, "cdef_y_pri": cdef[0], "cdef_y_sec": cdef[1],
+            "cdef_uv_pri": cdef[2], "cdef_uv_sec": cdef[3]}
+
+
+def _wrap_tu(tile: bytes, coded_w: int, coded_h: int, render_w: int,
+             render_h: int, qindex: int, bit_depth: int = 8,
+             lf=(0, 0, 0, 0), cdf_save: bool = False,
+             cdef=None, tx_select: bool = False) -> bytes:
+    """A keyframe's temporal unit: delimiter, sequence header and the frame
+    OBU (key frame header + tile)."""
+    cfg = EncoderConfig(base_q_idx=qindex, bit_depth=bit_depth,
+                        loop_filter_level=tuple(lf),
+                        tx_mode_select=int(tx_select), **_cdef_cfg_kw(cdef))
+    seq = make_sequence_header(coded_w, coded_h, cfg)
+    fh = make_frame_header(seq, cfg)
+    if cdf_save:  # decoder saves end-of-frame CDFs into the ref slots
+        fh.disable_frame_end_update_cdf = 0
+    fh.render_width, fh.render_height = render_w, render_h
+    bw = BitWriter()
+    write_frame_header_key(seq, fh, bw)
+    bw.byte_align()
+    return (temporal_delimiter()
+            + build_obu(OBU_SEQUENCE_HEADER, write_sequence_header(seq))
+            + build_obu(OBU_FRAME, bw.bytes() + tile))
+
+
+def _wrap_tu_inter(tile: bytes, coded_w: int, coded_h: int, render_w: int,
+                   render_h: int, qindex: int, bit_depth: int = 8,
+                   lf=(0, 0, 0, 0), primary_ref: int | None = None,
+                   cdf_save: bool = False, cdef=None,
+                   golden: bool = False, refresh: bool = True) -> bytes:
+    """An inter frame's temporal unit: delimiter and the frame OBU."""
+    cfg = EncoderConfig(base_q_idx=qindex, bit_depth=bit_depth,
+                        loop_filter_level=tuple(lf), **_cdef_cfg_kw(cdef))
+    seq = make_sequence_header(coded_w, coded_h, cfg)
+    # golden: GOLDEN maps to slot 1, which holds the scene keyframe (the
+    # keyframe refreshes every slot; inter frames refresh only slot 0)
+    fh = make_frame_header_inter(seq, cfg, golden=golden, refresh=refresh)
+    if primary_ref is not None:  # CDFs carried from LAST's saved state
+        fh.primary_ref_frame = primary_ref
+    if cdf_save:
+        fh.disable_frame_end_update_cdf = 0
+    fh.render_width, fh.render_height = render_w, render_h
+    bw = BitWriter()
+    write_frame_header_inter(seq, fh, bw)
+    bw.byte_align()
+    return temporal_delimiter() + build_obu(OBU_FRAME, bw.bytes() + tile)
 
 
 def _unported(what: str):
@@ -57,8 +158,7 @@ def encode_clip(clip, qindex: int, chunk: int = 4, progress=None,
         raise _unported("the layered chunk (layers>1)")
     if metric != "psnr":
         raise _unported(f"metric {metric!r} (tpu_vmaf/ssim/msssim)")
-    from av1tpu.coding import Packer
-    from av1tpu_torch._build import packer_lib_path
+    from av1tpu_torch.coding.packer import Packer
     from av1tpu_torch.core.scenes import scene_scores, split_scenes
     from av1tpu_torch.models.cdef import (
         cdef_fused, select_strengths, skip8_host,
@@ -82,7 +182,7 @@ def encode_clip(clip, qindex: int, chunk: int = 4, progress=None,
     cw = (width + 63) & ~63
     ch = (height + 63) & ~63
     inter_cap = max(131072, (ch * cw) // 8)
-    packer = Packer(lib_path=packer_lib_path())
+    packer = Packer()
     clock = _StageClock()
     streams: list[bytes] = []
     t0 = time.perf_counter()
@@ -290,9 +390,6 @@ def encode_clip(clip, qindex: int, chunk: int = 4, progress=None,
 
 
 def cmd_encode(args) -> int:
-    from av1tpu.spec.obu import write_ivf
-    from av1tpu.utils.yuv import read_y4m
-
     if not args.input.lower().endswith(".y4m"):
         raise SystemExit("av1tpu_torch.cli takes y4m input only")
     clip = read_y4m(args.input)

@@ -1,0 +1,102 @@
+"""ctypes bridge to the C++ tile packer (native/coding/pack.cpp).
+
+Copy of the parts of av1tpu/coding/packer.py that the port calls: the
+CDF carry blob, the keyframe's compact pack and the inter frame's pack.
+The C++ source is shared with the JAX package; the port compiles its own
+copy of the library into av1tpu_torch/_build/ (av1tpu_torch._build).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+
+_I16P = ctypes.POINTER(ctypes.c_int16)
+_I32P = ctypes.POINTER(ctypes.c_int32)
+_U16P = ctypes.POINTER(ctypes.c_uint16)
+
+
+class Packer:
+    """Serialize compact level transport buffers into AV1 tile payloads."""
+
+    def __init__(self, lib_path: str | None = None):
+        if lib_path is None:
+            from av1tpu_torch._build import packer_lib_path
+            lib_path = packer_lib_path()
+        self._lib = ctypes.CDLL(lib_path)
+        fi = self._lib.pack_tile_inter
+        fi.restype = ctypes.c_size_t
+        fi.argtypes = [_U16P] + [_I16P] * 4 + [ctypes.c_int] * 4 + \
+                      [ctypes.POINTER(ctypes.c_uint8), ctypes.c_size_t,
+                       _I32P, _I32P]
+        self._fni = fi
+        fw = self._lib.av1pack_cdf_words
+        fw.restype = ctypes.c_int
+        fw.argtypes = []
+        self.cdf_words = int(fw())
+        f2u = self._lib.pack_tile_v2_uv
+        f2u.restype = ctypes.c_size_t
+        f2u.argtypes = [_U16P, _I16P, _I16P] + [ctypes.c_int] * 6 + \
+                       [ctypes.POINTER(ctypes.c_uint8), ctypes.c_size_t,
+                        _I32P, _I32P, _I16P]
+        self._fn2u = f2u
+
+    def new_cdf_blob(self) -> np.ndarray:
+        """Allocate a CDF carry blob (one frame's end-of-frame CDF save;
+        pass as cdf_out to a pack call, then as cdf_in to the next frame's
+        — the C++ equivalent of the decoder's ref-slot CDF save/load)."""
+        return np.zeros(self.cdf_words, np.int32)
+
+    @staticmethod
+    def _cdf_ptrs(cdf_in, cdf_out):
+        null = _I32P()
+        pi = cdf_in.ctypes.data_as(_I32P) if cdf_in is not None else null
+        po = cdf_out.ctypes.data_as(_I32P) if cdf_out is not None else null
+        return pi, po
+
+    def pack_tile_compact(self, bitmap: np.ndarray, vals: np.ndarray,
+                          height: int, width: int, qindex: int,
+                          modes: np.ndarray, uv_mode: int = 1,
+                          cdf_in: np.ndarray | None = None,
+                          cdf_out: np.ndarray | None = None) -> bytes:
+        """Pack a keyframe from the compact form: significance bitmap
+        (uint16 words) + nonzero values (int16) + per-block luma modes + a
+        frame-wide chroma mode (V_PRED default); DCT luma transforms, no
+        per-block tx depth.  height/width: padded luma dims (multiples of
+        64)."""
+        bm = np.ascontiguousarray(bitmap, np.uint16)
+        vv = np.ascontiguousarray(vals, np.int16)
+        mm = np.ascontiguousarray(modes, np.int16)
+        # worst case ~40 bits per coefficient (1.5 coefs per luma pixel)
+        cap = height * width * 8 + 65536
+        out = (ctypes.c_uint8 * cap)()
+        n = self._fn2u(bm.ctypes.data_as(_U16P), vv.ctypes.data_as(_I16P),
+                       mm.ctypes.data_as(_I16P), uv_mode, 0,
+                       height // 4, width // 4, qindex, 0, out, cap,
+                       *self._cdf_ptrs(cdf_in, cdf_out), _I16P())
+        if n == 0:
+            raise RuntimeError("pack_tile_v2 failed (buffer too small?)")
+        return bytes(bytearray(out)[:n])
+
+    def pack_tile_inter(self, bitmap: np.ndarray, vals: np.ndarray,
+                        mv: np.ndarray, height: int, width: int,
+                        qindex: int, cdf_in: np.ndarray | None = None,
+                        cdf_out: np.ndarray | None = None) -> bytes:
+        """Pack one inter tile of the single-reference LAST chain from the
+        compact form: significance bitmap + nonzero values + per-16x16-block
+        MV grid (r16, c16, 2) int 1/8-pel."""
+        bm = np.ascontiguousarray(bitmap, np.uint16)
+        vv = np.ascontiguousarray(vals, np.int16)
+        mv = np.asarray(mv)
+        mvr = np.ascontiguousarray(mv[..., 0].reshape(-1), np.int16)
+        mvc = np.ascontiguousarray(mv[..., 1].reshape(-1), np.int16)
+        cap = height * width * 8 + 65536
+        out = (ctypes.c_uint8 * cap)()
+        n = self._fni(bm.ctypes.data_as(_U16P), vv.ctypes.data_as(_I16P),
+                      mvr.ctypes.data_as(_I16P), mvc.ctypes.data_as(_I16P),
+                      None, height // 4, width // 4, qindex, 0, out, cap,
+                      *self._cdf_ptrs(cdf_in, cdf_out))
+        if n == 0:
+            raise RuntimeError("pack_tile_inter failed (buffer too small?)")
+        return bytes(bytearray(out)[:n])

@@ -14,8 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from av1tpu.spec.cdef import CDEF_DIRECTIONS, DIV_TABLE
 from av1tpu_torch.models.intra_v import to_blocks, unfuse
+from av1tpu_torch.spec.cdef import CDEF_DIRECTIONS, DIV_TABLE
 from av1tpu_torch.state import tables
 
 CDEF_VERY_LARGE = 0x4000

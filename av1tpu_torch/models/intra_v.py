@@ -5,7 +5,8 @@ only on the reconstructed bottom row of the row above, so a plane encodes as
 a loop over block rows with all columns batched; the first block row (which
 predicts from the left neighbour's top edge pixel) is a per-column loop.
 `_encode_plane` runs its forward transform + quantize through the hand
-kernel (kernels/transform_quant.py) on CUDA.
+kernel (kernels/transform_quant.py) on CUDA, with the U and V planes in one
+pass.
 
 Bit depth is an explicit argument everywhere (the JAX package infers it from
 a uint8/uint16 buffer dtype; 10-bit sources here are int32 tensors).
@@ -16,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from av1tpu_torch.kernels.transform_quant import transform_quantize
+from av1tpu_torch.kernels.transform_quant import TQPlane, transform_quantize
 from av1tpu_torch.ops.transforms import inverse_transform
 from av1tpu_torch.state import tables
 
@@ -28,10 +29,22 @@ Q_OFFSET_DC = 0.25
 def quantize_coefs(coefs: torch.Tensor, step: torch.Tensor,
                    cap: torch.Tensor) -> torch.Tensor:
     """Deadzone quantizer: sign(c) * floor(|c|/step + offset), clipped.
-    coefs: (..., n*n) float32 with the DC coefficient at index 0."""
+    coefs: (..., n*n) float32 with the DC coefficient at index 0.
+
+    The offsets row is made on every call, and on a GPU writing its DC
+    entry from the host waits for the stream.  That wait paces the
+    host-bound inter chain: a row kept on the device made the 48-frame
+    1080p encode about 1 s slower on an H100 (PERF.md)."""
     off = torch.full((coefs.shape[-1],), Q_OFFSET, dtype=torch.float32,
                      device=coefs.device)
     off[0] = Q_OFFSET_DC
+    return quantize_with_offsets(coefs, step, cap, off)
+
+
+def quantize_with_offsets(coefs: torch.Tensor, step: torch.Tensor,
+                          cap: torch.Tensor,
+                          off: torch.Tensor) -> torch.Tensor:
+    """quantize_coefs with a given (n*n,) float32 offsets row."""
     mag = torch.floor(coefs.abs() / step + off).to(torch.int32)
     lv = torch.sign(coefs).to(torch.int32) * mag
     return torch.clamp(lv, -cap, cap)
@@ -102,61 +115,61 @@ def _directional_pred(ae: torch.Tensor, dx: int, n: int) -> torch.Tensor:
 
 
 def to_blocks(plane: torch.Tensor, n: int) -> torch.Tensor:
-    """(H, W) plane -> (rows, cols, n, n) block view."""
-    h, w = plane.shape
-    return plane.reshape(h // n, n, w // n, n).permute(0, 2, 1, 3)
+    """(..., H, W) planes -> (..., rows, cols, n, n) block views."""
+    *lead, h, w = plane.shape
+    return plane.reshape(*lead, h // n, n, w // n, n).transpose(-3, -2)
 
 
 def from_blocks(b: torch.Tensor) -> torch.Tensor:
-    """(rows, cols, n, n) blocks -> (rows*n, cols*n) plane."""
-    rows, cols, n, _ = b.shape
-    return b.permute(0, 2, 1, 3).reshape(rows * n, cols * n)
+    """(..., rows, cols, n, n) blocks -> (..., rows*n, cols*n) planes."""
+    *lead, rows, cols, n, _ = b.shape
+    return b.transpose(-3, -2).reshape(*lead, rows * n, cols * n)
 
 
 def _encode_plane(src: torch.Tensor, qindex: int, n: int, base: int,
                   tx_type: int = 0, bit_depth: int = 8):
-    """Encode one plane with n x n blocks, V_PRED.  src: (H, W) int32 with
-    H, W multiples of n.  Returns (levels (rows, cols, n, n) int16, recon
-    (H, W) int32).  The forward transform + quantize is the hand kernel."""
-    h, w = src.shape
+    """Encode a stack of P planes with n x n blocks, V_PRED.  src: (P, H, W)
+    int32 with H, W multiples of n.  The planes share n, tx_type and
+    qindex and are coded independently; each forward transform + quantize
+    launch (the hand kernel) takes the blocks of all P planes.  Returns
+    (levels (P, rows, cols, n, n) int16, recon (P, H, W) int32)."""
+    p, h, w = src.shape
     dev = src.device
     rows, cols = h // n, w // n
     pix_max = (1 << bit_depth) - 1
-    fwdt = tables(dev).fwdt(n, tx_type)
     step, q, cap = _plane_params(qindex, n, bit_depth, dev)
-    step, q, cap = step[None], q[None], cap[None]
-    src_rows = to_blocks(src, n)
+    plane = TQPlane(tables(dev).fwdt(n, tx_type), step[None], q[None],
+                    cap[None])
+    src_rows = to_blocks(src, n)                    # (P, rows, cols, n, n)
 
     def encode_blocks(blocks, pred):
-        """blocks (B, n, n), pred broadcastable -> (levels i16, recon)."""
-        b = blocks.shape[0]
-        resid = (blocks - pred).reshape(b, n * n).to(torch.float32)
-        lv16, dq = transform_quantize(resid.contiguous(), fwdt, step, q, cap)
-        r = inverse_transform(dq.reshape(b, n, n), n, n, tx_type)
+        """blocks (..., n, n), pred broadcastable -> (levels i16, recon),
+        both (..., n, n)."""
+        resid = (blocks - pred).to(torch.float32)
+        lv16, dq = transform_quantize(resid.reshape(-1, n * n), plane)
+        r = inverse_transform(dq.reshape(resid.shape), n, n, tx_type)
         rec = torch.clamp(pred + r, 0, pix_max)
-        return lv16.reshape(b, n, n), rec
+        return lv16.reshape(resid.shape), rec
 
     # first block row: per-column loop (missing-above rule: 127-style base
     # for the corner, else the left neighbour's reconstructed top pixel)
-    edge = torch.tensor(base - 1, dtype=torch.int32, device=dev)
+    edge = torch.full((p, 1, 1), base - 1, dtype=torch.int32, device=dev)
     lv0, rec0 = [], []
     for c in range(cols):
-        lv, rec = encode_blocks(src_rows[0, c][None], edge)
-        edge = rec[0, 0, n - 1]
-        lv0.append(lv[0])
-        rec0.append(rec[0])
-    levels = [torch.stack(lv0)]
-    recs = [torch.stack(rec0)]
+        lv, rec = encode_blocks(src_rows[:, 0, c], edge)
+        edge = rec[:, :1, n - 1 :]
+        lv0.append(lv)
+        rec0.append(rec)
+    levels = [torch.stack(lv0, dim=1)]
+    recs = [torch.stack(rec0, dim=1)]
 
     # remaining rows: columns batched, the bottom row is the next predictor
-    bottom = recs[0][:, n - 1, :]
     for r in range(1, rows):
-        pred = bottom[:, None, :].expand(cols, n, n)
-        lv, rec = encode_blocks(src_rows[r], pred)
+        lv, rec = encode_blocks(src_rows[:, r], recs[-1][:, :, n - 1 :, :])
         levels.append(lv)
         recs.append(rec)
-        bottom = rec[:, n - 1, :]
-    return torch.stack(levels), from_blocks(torch.stack(recs))
+    return (torch.stack(levels, dim=1),
+            from_blocks(torch.stack(recs, dim=1)))
 
 
 def _encode_plane_rdo(src: torch.Tensor, qindex: int, n: int, base: int,
@@ -255,22 +268,23 @@ def encode_intra_v(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     """Full-frame intra encode.  y: (H, W) int32 (16-aligned), u/v: (H/2,
     W/2) int32.  Returns the dict of level grids (int16), reconstructions
     (int32) and per-block luma modes (int8).  rdo=True selects the luma
-    mode per block from {V, D45, D67}; chroma is V_PRED (ADST_DCT)."""
+    mode per block from {V, D45, D67}; chroma is V_PRED (ADST_DCT), U and V
+    in one pass."""
     base = 1 << (bit_depth - 1)
     if rdo:
         ly, ry, modes = _encode_plane_rdo(y, qindex, 16, base,
                                           bit_depth=bit_depth)
     else:
-        ly, ry = _encode_plane(y, qindex, 16, base, tx_type=0,
+        ly, ry = _encode_plane(y[None], qindex, 16, base, tx_type=0,
                                bit_depth=bit_depth)
+        ly, ry = ly[0], ry[0]
         modes = torch.full((y.shape[0] // 16, y.shape[1] // 16), 1,
                            dtype=torch.int8, device=y.device)
-    lu, ru = _encode_plane(u, qindex, 8, base, tx_type=1,
+    lc, rc = _encode_plane(torch.stack([u, v]), qindex, 8, base, tx_type=1,
                            bit_depth=bit_depth)
-    lv, rv = _encode_plane(v, qindex, 8, base, tx_type=1,
-                           bit_depth=bit_depth)
-    return {"levels_y": ly, "levels_u": lu, "levels_v": lv,
-            "recon_y": ry, "recon_u": ru, "recon_v": rv, "modes": modes}
+    return {"levels_y": ly, "levels_u": lc[0], "levels_v": lc[1],
+            "recon_y": ry, "recon_u": rc[0], "recon_v": rc[1],
+            "modes": modes}
 
 
 def unfuse(f: torch.Tensor, height: int, width: int):

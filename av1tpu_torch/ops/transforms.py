@@ -2,10 +2,11 @@
 
 PyTorch counterpart of av1tpu/ops/transforms_jax.py: the same butterfly
 structure and per-stage roundings as the numpy spec model
-(av1tpu/spec/transforms.py), batched over every leading axis.  int32
-throughout; Python-int weights keep the int32 dtype (torch, like JAX, does
-not promote a tensor for a Python scalar), and int32 products wrap exactly
-as they do in XLA.
+(av1tpu/spec/transforms.py), batched over every leading axis.  int32 on
+the encode path; Python-int weights keep the tensor's dtype (torch, like
+JAX, does not promote a tensor for a Python scalar), and int32 products
+wrap exactly as they do in XLA.  The forward matrices are built from the
+same butterflies in int64, as the spec model builds them.
 """
 
 from __future__ import annotations
@@ -15,9 +16,11 @@ import functools
 import numpy as np
 import torch
 
-from av1tpu.spec.transforms import COS128, SINPI, _forward_matrix
-
+# 12-bit cosine table: cos128(i) = round(cos(i*pi/128) * 4096) (spec cos128)
+COS128 = np.round(np.cos(np.arange(65) * np.pi / 128) * 4096).astype(np.int64)
 COS = [int(v) for v in COS128]
+# round(sin(i*pi/9) * sqrt2 * 4096) anchors of the 4-point ADST (spec sinpi)
+SINPI = [0, 1321, 2482, 3344, 3803]
 
 
 def _rs(x, n: int):
@@ -332,6 +335,15 @@ _TX_KIND = {0: ("d", "d"), 1: ("a", "d"), 2: ("d", "a"), 3: ("a", "a")}
 _ROW_SHIFT = {(4, 4): 0, (8, 8): 1, (16, 16): 2, (32, 32): 2, (64, 64): 2}
 
 
+def _inverse_2d(coefs: torch.Tensor, w: int, h: int,
+                tx_type: int) -> torch.Tensor:
+    """The 2D inverse on (..., h, w) integer coefficients of any width."""
+    vk, hk = _TX_KIND[tx_type]
+    t = _rs(_1D[(hk, w)](coefs), _ROW_SHIFT[(w, h)])
+    t = _1D[(vk, h)](t.transpose(-1, -2))
+    return _rs(t.transpose(-1, -2), 4)
+
+
 def inverse_transform(coefs: torch.Tensor, w: int, h: int,
                       tx_type: int = 0) -> torch.Tensor:
     """Normative 2D inverse transform.  coefs: (..., h, w) int32."""
@@ -339,14 +351,22 @@ def inverse_transform(coefs: torch.Tensor, w: int, h: int,
         raise ValueError("square transforms only")
     if coefs.dtype != torch.int32:
         raise TypeError(f"coefs must be int32, got {coefs.dtype}")
-    vk, hk = _TX_KIND[tx_type]
-    t = _rs(_1D[(hk, w)](coefs), _ROW_SHIFT[(w, h)])
-    t = _1D[(vk, h)](t.transpose(-1, -2))
-    return _rs(t.transpose(-1, -2), 4)
+    return _inverse_2d(coefs, w, h, tx_type)
 
 
 @functools.cache
 def forward_matrix(w: int, h: int, tx_type: int = 0) -> np.ndarray:
-    """Encoder forward transform as a (h*w, h*w) float32 numpy matrix (pinv
-    of the linearized normative inverse), shared with the JAX package."""
-    return _forward_matrix(w, h, tx_type).astype(np.float32)
+    """Encoder forward transform as a (h*w, h*w) float32 numpy matrix: the
+    pseudo-inverse of the normative inverse linearized on unit coefficients
+    of amplitude 1024 (int64 on the CPU), built as
+    av1tpu/spec/transforms.py:_forward_matrix builds it, so the two agree
+    bit for bit."""
+    if w != h:
+        raise ValueError("square transforms only")
+    n = h * w
+    amp = 1 << 10
+    units = (torch.eye(n, dtype=torch.int64) * amp).reshape(n, h, w)
+    resp = _inverse_2d(units, w, h, tx_type).reshape(n, n).numpy()
+    # column k is the response to unit coefficient k
+    m = np.ascontiguousarray(resp.T).astype(np.float64) / amp
+    return np.linalg.pinv(m).astype(np.float32)

@@ -4,9 +4,10 @@ An encoder has no learned weights: what it carries is constant tables (quant
 rows, forward transform matrices, sub-pel filter banks, the CDEF direction
 matrix, CDF-derived rate tables) plus the running state of a GOP chunk (the
 fused reference recon, the previous MV field, the scene's CDEF strengths).
-`tables(device)` builds every constant once per device from the numpy
-builders the JAX package also uses; `carry_from_numpy` turns state produced
-elsewhere (for instance by the JAX reference) into the port's tensors.
+`tables(device)` makes every constant once per device with the port's
+numpy table functions (copies of the JAX package's); `carry_from_numpy` turns
+state produced elsewhere (for instance by the JAX reference) into the
+port's tensors.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import functools
 import numpy as np
 import torch
 
-from av1tpu.spec import tables as spec_tables
+from av1tpu_torch.spec import tables as spec_tables
 
 
 class Tables:
@@ -69,6 +70,16 @@ class Tables:
             return self._t(a, torch.float32), self._t(w, torch.int32)
         return self._get("cdef_dirs", build)
 
+    def q_offsets(self, n2: int) -> torch.Tensor:
+        """(n2,) float32 deadzone rounding offsets, the DC one first."""
+        from av1tpu_torch.models.intra_v import Q_OFFSET, Q_OFFSET_DC
+
+        def build():
+            off = np.full((n2,), Q_OFFSET, np.float32)
+            off[0] = Q_OFFSET_DC
+            return self._t(off, torch.float32)
+        return self._get(("q_offsets", n2), build)
+
     def coef_gains(self, n: int) -> torch.Tensor:
         from av1tpu_torch.models.rdoq import coef_gains
         return self._get(("gains", n), lambda: self._t(coef_gains(n),
@@ -76,8 +87,8 @@ class Tables:
 
     def rate_tabs(self, n: int, ptype: int) -> torch.Tensor:
         """(4, 256) float32 coefficient-magnitude bits per quality bucket."""
-        from av1tpu.models.rates import coef_rate_tables
-        from av1tpu.spec.enums import tx_size_ctx
+        from av1tpu_torch.models.rates import coef_rate_tables
+        from av1tpu_torch.spec.enums import tx_size_ctx
         tx = {4: 0, 8: 1, 16: 2, 32: 3, 64: 4}[n]
         return self._get(("rate", n, ptype), lambda: self._t(
             coef_rate_tables(tx_size_ctx(tx), ptype), torch.float32))

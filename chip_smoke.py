@@ -11,14 +11,17 @@ exits non-zero:
    sources in this checkout;
 3. kernel vs plain: transform_quantize at the main path's shapes, held
    against its plain PyTorch version (levels may flip only at a rounding
-   boundary, by 1; dq exact), both timed with CUDA events (median of 50);
+   boundary, by 1; dq exact), both timed (time_tq): device time apart
+   from the host, the single-call event pair, the host time per call, and
+   the bound;
 4. parity: the port's encode_clip on the card and on the CPU, on a small
    two-scene clip;
 5. slice: the fast-preset GOP encode at 1920x1080 (one warm-up run, one
-   timed run) with the kernel's launch counter read around the timed run.
+   timed run) with the kernel's launch counter read around the timed run
+   (561 launches: three plane stacks of 187 steps).
 
 The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.  Imports nothing of JAX.
+{"ok": true, "device": {...}}.  Imports nothing of JAX or av1tpu.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import numpy as np
 QINDEX = 72
 CHUNK = 8
 FRAMES = 48
-SHAPES = ((120, 256), (1, 256), (120, 64), (1, 64))
+SHAPES = ((120, 256), (1, 256), (240, 64), (2, 64))
 
 
 def _phase(name: str, t0: float) -> None:
@@ -43,7 +46,7 @@ def _phase(name: str, t0: float) -> None:
 def moving_clip(w: int, h: int, n: int, seed: int, dy: int, dx: int):
     """Global pan: frame k is a window shifted k*(dy, dx) (the helper of
     tests/test_inter_pipeline.py, rebuilt here without JAX)."""
-    from av1tpu.utils.yuv import Clip, synthetic_clip
+    from av1tpu_torch.utils.yuv import Clip, synthetic_clip
 
     big = synthetic_clip(w + 96, h + 96, 1, seed=seed)
     ys, us, vs = [], [], []
@@ -60,7 +63,7 @@ def moving_clip(w: int, h: int, n: int, seed: int, dy: int, dx: int):
 def two_scene_clip():
     """The multi-scene clip of tests/test_cli_gop.py:77-86 (128x64, 10
     frames: a pan, then an inverted second pan)."""
-    from av1tpu.utils.yuv import Clip
+    from av1tpu_torch.utils.yuv import Clip
 
     a = moving_clip(128, 64, 5, seed=73, dy=1, dx=2)
     b = moving_clip(128, 64, 5, seed=99, dy=0, dx=3)
@@ -86,17 +89,97 @@ def _median_ms(torch, fn, n: int = 50) -> float:
     return float(np.median(times))
 
 
+# H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit)
+PEAK_FP32_FLOPS = 67e12      # fp32 outside the tensor cores
+PEAK_BYTES = 3.35e12         # HBM3
+# a sleep kernel long enough (~50 ms at the boost clock) for the host to
+# enqueue every timed batch below behind it
+SLEEP_CYCLES = 100_000_000
+
+
+def tq_bound_us(b: int, n2: int) -> tuple[float, str]:
+    """Least time of transform_quantize at (B, N2) on the card: the fp32
+    product's 2*B*N2^2 operations at the fp32 peak, or its bytes (resid,
+    fwdt, step, q, cap read once; int16 levels and int32 dq written once)
+    at the memory rate, whichever is larger."""
+    flops = 2 * b * n2 * n2
+    nbytes = 4 * b * n2 + 4 * n2 * n2 + 3 * 4 * n2 + (2 + 4) * b * n2
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e6,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def device_us(torch, fn, n: int) -> float:
+    """Device time of one fn() in microseconds, apart from the host: CUDA
+    events around n calls queued back to back behind a sleep kernel, so the
+    device runs them without waiting for the host; L2 stays warm, as in
+    the row loop that reuses one fwdt.  Raises if the host took longer to
+    enqueue the calls than the sleep lasted (the queue would have run dry)."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    s0, s1, e = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    s0.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    s1.record()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    enqueue_s = time.perf_counter() - t
+    e.record()
+    e.synchronize()
+    if enqueue_s * 1e3 >= s0.elapsed_time(s1):
+        raise RuntimeError("the host enqueued slower than the sleep kernel "
+                           "ran: the device time would hold host gaps")
+    return s1.elapsed_time(e) * 1e3 / n
+
+
+def host_us(torch, fn, n: int = 1000) -> float:
+    """Host time of one fn() in microseconds: perf_counter around n calls
+    with no sync between them."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt * 1e6 / n
+
+
+def time_tq(torch, kernel, plain, b: int, n2: int) -> dict:
+    """Phase 3's numbers at one shape: device_us (200 queued launches),
+    call_us (median of 50 event pairs around one call each, host gap
+    included) and host_us (1000 calls) for the kernel; the same for the
+    plain version unless it is None (30 queued calls: each launches about
+    14 kernels, and the device's launch queue holds about a thousand); and
+    the bound with the roofline share bound_us / device_us."""
+    bound, by = tq_bound_us(b, n2)
+    rec = {"b": b, "n2": n2,
+           "device_us": device_us(torch, kernel, 200),
+           "call_us": _median_ms(torch, kernel) * 1e3,
+           "host_us": host_us(torch, kernel)}
+    if plain is not None:
+        rec.update(plain_device_us=device_us(torch, plain, 30),
+                   plain_call_us=_median_ms(torch, plain) * 1e3,
+                   plain_host_us=host_us(torch, plain))
+    rec.update(bound_us=bound, bound_by=by, roofline=bound / rec["device_us"])
+    return rec
+
+
 def kernel_vs_plain(torch):
-    """Phase 3.  Returns the kernel's JSON record (times at (120, 256))."""
+    """Phase 3: transform_quantize against its plain version at SHAPES, and
+    timed (time_tq).  Returns the per-shape records."""
     from av1tpu_torch.kernels.transform_quant import (
-        count_level_flips, transform_quantize, transform_quantize_ref,
+        TQPlane, count_level_flips, transform_quantize, transform_quantize_ref,
     )
     from av1tpu_torch.models.intra_v import _plane_params
     from av1tpu_torch.state import tables
 
     dev = torch.device("cuda")
     rng = np.random.RandomState(2024)
-    rec = {"max_abs_err": 0}
+    recs = []
     for b, n2 in SHAPES:
         n = int(round(n2 ** 0.5))
         tx = 0 if n == 16 else 1       # luma DCT_DCT, chroma ADST_DCT
@@ -104,22 +187,20 @@ def kernel_vs_plain(torch):
             np.float32), device=dev)
         fwdt = tables(dev).fwdt(n, tx)
         step, q, cap = (t[None] for t in _plane_params(QINDEX, n, 8, dev))
-        lv, dq = transform_quantize(resid, fwdt, step, q, cap)
-        lv_ref, dq_ref = transform_quantize_ref(resid, fwdt, step, q, cap)
+        plane = TQPlane(fwdt, step, q, cap)
+        lv, dq = transform_quantize(resid, plane)
+        lv_ref, _ = transform_quantize_ref(resid, plane)
         torch.cuda.synchronize()
         flips = count_level_flips(lv, dq, lv_ref, resid, fwdt, step, q)
-        err = int((lv.int() - lv_ref.int()).abs().max())
-        ms = _median_ms(torch, lambda: transform_quantize(resid, fwdt, step,
-                                                          q, cap))
-        plain_ms = _median_ms(torch, lambda: transform_quantize_ref(
-            resid, fwdt, step, q, cap))
-        print(f"transform_quantize B={b} N2={n2}: flips={flips} "
-              f"max_abs_err={err} kernel_ms={ms:.5f} plain_ms={plain_ms:.5f}",
-              flush=True)
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        if (b, n2) == (120, 256):
-            rec["ms"], rec["plain_ms"] = ms, plain_ms
-    return rec
+        rec = time_tq(torch, lambda: transform_quantize(resid, plane),
+                      lambda: transform_quantize_ref(resid, plane), b, n2)
+        rec.update(flips=flips,
+                   max_abs_err=int((lv.int() - lv_ref.int()).abs().max()))
+        print(f"transform_quantize B={b} N2={n2}: " + " ".join(
+            f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in rec.items() if k not in ("b", "n2")), flush=True)
+        recs.append(rec)
+    return recs
 
 
 def parity(torch):
@@ -142,10 +223,13 @@ def parity(torch):
 
 
 def slice_1080p(torch):
-    """Phase 5.  Returns the kernel's launch count in the timed run."""
+    """Phase 5.  Returns the kernel's launch count in the timed run: one
+    launch per first-row column and per later block row, for the probe's
+    luma, the probe's U and V together and the keyframe's U and V together
+    (the keyframe's luma takes the RDO path, which has no kernel)."""
     import av1tpu_torch.models.inter_v as inter_v
     import av1tpu_torch.models.intra_v as intra_v
-    from av1tpu.utils.yuv import synthetic_clip
+    from av1tpu_torch.utils.yuv import synthetic_clip
     from av1tpu_torch.cli import encode_clip
     from av1tpu_torch.kernels.transform_quant import transform_quantize
 
@@ -185,7 +269,9 @@ def slice_1080p(torch):
           f"psnr_y={stats['psnr_y']} launches={launches} "
           f"max_memory_allocated={peak}", flush=True)
     assert len(streams) == FRAMES and all(len(s) > 0 for s in streams)
-    assert launches > 0, "transform_quantize never launched"
+    rows, cols = (1088 // 16, 1920 // 16)   # the padded 1080p block grid
+    assert stats["scenes"] == 1, stats["scenes"]
+    assert launches == 3 * (cols + rows - 1), launches
     assert seen["key"] == {"cuda"} and seen["carry"] == {"cuda"}, seen
     assert stats["psnr_y"] >= 30.0, stats["psnr_y"]
     return launches
@@ -216,7 +302,7 @@ def main() -> int:
     _phase("build", t)
 
     t = time.perf_counter()
-    rec = kernel_vs_plain(torch)
+    recs = kernel_vs_plain(torch)
     _phase("kernel_vs_plain", t)
 
     t = time.perf_counter()
@@ -227,12 +313,21 @@ def main() -> int:
     launches = slice_1080p(torch)
     _phase("slice_1080p", t)
 
+    main_rec = recs[0]                   # (120, 256): a luma block row
+    shape_key = [f"{r['b']}x{r['n2']}" for r in recs]
     print(json.dumps({"kernels": [{
         "name": "transform_quantize", "route": "cuda",
         "source": "av1tpu_torch/csrc/transform_quant.cu",
         "replaces": "av1tpu/kernels/transform_quant.py:64",
-        "launches": launches, "max_abs_err": rec["max_abs_err"],
-        "ms": rec["ms"], "plain_ms": rec["plain_ms"]}]}), flush=True)
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in recs),
+        "ms": main_rec["device_us"] / 1e3,
+        "plain_ms": main_rec["plain_device_us"] / 1e3,
+        "bound_ms": main_rec["bound_us"] / 1e3,
+        "bound_by": main_rec["bound_by"], "library_ms": None,
+        **{k: dict(zip(shape_key, (r[k] for r in recs)))
+           for k in ("device_us", "call_us", "host_us", "bound_us")}}]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,7 @@
 """Tests that need an NVIDIA GPU: the CUDA transform+quantize kernel agrees
-with its plain PyTorch version, and its wrapper rejects what the kernel
-does not take.  They skip where CUDA is absent.  This file imports no JAX,
-so it also runs on a GPU machine without it:
+with its plain PyTorch version at the main path's shapes, and its wrapper
+rejects what the kernel does not take.  They skip where CUDA is absent.
+This file imports no JAX, so it also runs on a GPU machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from av1tpu_torch.kernels.transform_quant import (
-    count_level_flips, transform_quantize, transform_quantize_ref,
+    TQPlane, count_level_flips, transform_quantize, transform_quantize_ref,
 )
 from av1tpu_torch.ops.transforms import forward_matrix
 
@@ -37,24 +37,45 @@ def dev():
 
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain(dev):
-    for n, b, seed, tx in ((16, 120, 0, 0), (16, 1, 2, 0), (8, 120, 3, 1),
-                           (8, 1, 4, 1), (8, 37, 1, 0)):
-        args = [torch.from_numpy(a).to(dev) for a in _case(n, b, seed, tx)]
+    # (120, 256) luma rows and (1, 256) the first row's column scan; (240,
+    # 64) and (2, 64) the U and V planes together; 37 rows a ragged tile
+    for n, b, seed, tx in ((16, 120, 0, 0), (16, 1, 2, 0), (8, 240, 3, 1),
+                           (8, 2, 4, 1), (8, 37, 1, 0), (16, 37, 5, 0)):
+        resid, *consts = [torch.from_numpy(a).to(dev)
+                          for a in _case(n, b, seed, tx)]
+        plane = TQPlane(*consts)
         before = transform_quantize.launches
-        lv, dq = transform_quantize(*args)
+        lv, dq = transform_quantize(resid, plane)
         torch.cuda.synchronize()
         assert transform_quantize.launches == before + 1
-        lv_ref, _ = transform_quantize_ref(*args)
-        count_level_flips(lv, dq, lv_ref, args[0], args[1], args[2], args[3])
+        lv_ref, _ = transform_quantize_ref(resid, plane)
+        count_level_flips(lv, dq, lv_ref, resid, *consts[:3])
 
 
 @pytest.mark.cuda
 def test_cuda_wrapper_rejects_bad_inputs(dev):
     resid, fwdt, step, q, cap = [torch.from_numpy(a).to(dev)
                                  for a in _case(8, 4, 0)]
+    plane = TQPlane(fwdt, step, q, cap)
     with pytest.raises(TypeError):
-        transform_quantize(resid.double(), fwdt, step, q, cap)
+        transform_quantize(resid.double(), plane)
     with pytest.raises(ValueError):
-        transform_quantize(resid.t().contiguous().t(), fwdt, step, q, cap)
+        transform_quantize(resid.t().contiguous().t(), plane)
     with pytest.raises(ValueError):
-        transform_quantize(resid, fwdt.cpu(), step, q, cap)
+        transform_quantize(resid[:, :32].contiguous(), plane)
+    with pytest.raises(ValueError):
+        transform_quantize(resid, TQPlane(fwdt.cpu(), step.cpu(), q.cpu(),
+                                          cap.cpu()))
+    # a per-plane constant of the wrong shape, type or device still raises
+    with pytest.raises(ValueError):
+        TQPlane(fwdt, step[:, :32], q, cap)
+    with pytest.raises(ValueError):
+        TQPlane(fwdt, step, q.reshape(-1), cap)
+    with pytest.raises(TypeError):
+        TQPlane(fwdt, step, q, cap.float())
+    with pytest.raises(ValueError):
+        TQPlane(fwdt, step, q.cpu(), cap)
+    # transform sizes the kernel does not take (4x4, 32x32)
+    _, *c4 = [torch.from_numpy(a).to(dev) for a in _case(4, 4, 0)]
+    with pytest.raises(ValueError):
+        TQPlane(*c4)

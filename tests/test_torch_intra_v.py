@@ -1,8 +1,11 @@
 """Port parity for the fast-preset intra pipeline: av1tpu_torch's
 encode_intra_v (rdo on and off) and encode_intra_v_key_recon (with the
 in-loop deblock) equal av1tpu.models.intra_v bit for bit: level grids,
-reconstructions, modes and the compact transport buffer."""
+reconstructions, modes and the compact transport buffer.  The port codes
+U and V in one _encode_plane pass; each plane equals its own pass and the
+reference's."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -67,3 +70,21 @@ def test_key_recon_capacity_truncates_like_jax(planes8):
     count = int(gbuf[0]) | (int(gbuf[1]) << 15)
     assert count > 64
     assert np.array_equal(gbuf.numpy(), np.asarray(wbuf))
+
+
+@pytest.mark.parametrize("bit_depth", [8, 10])
+def test_chroma_pair_matches_single_planes_and_jax(bit_depth):
+    _, u, v = _planes(bit_depth, 9)
+    base = 1 << (bit_depth - 1)
+    lv2, rec2 = port._encode_plane(torch.from_numpy(np.stack([u, v])), 90,
+                                   8, base, tx_type=1, bit_depth=bit_depth)
+    assert lv2.shape == (2, H // 16, W // 16, 8, 8)
+    assert rec2.shape == (2, H // 2, W // 2)
+    ref_plane = jax.jit(ref._encode_plane, static_argnums=(1, 2, 3, 4, 5))
+    for i, p in enumerate((u, v)):
+        lv1, rec1 = port._encode_plane(torch.from_numpy(p)[None], 90, 8,
+                                       base, tx_type=1, bit_depth=bit_depth)
+        assert torch.equal(lv2[i], lv1[0]) and torch.equal(rec2[i], rec1[0])
+        jlv, jrec = ref_plane(jnp.asarray(p), 90, 8, base, 1, bit_depth)
+        assert np.array_equal(lv2[i].numpy(), np.asarray(jlv))
+        assert np.array_equal(rec2[i].numpy(), np.asarray(jrec))

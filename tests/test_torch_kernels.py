@@ -11,7 +11,7 @@ import torch
 
 from av1tpu.kernels.transform_quant import transform_quantize as jax_tq
 from av1tpu_torch.kernels.transform_quant import (
-    count_level_flips, transform_quantize, transform_quantize_ref,
+    TQPlane, count_level_flips, transform_quantize, transform_quantize_ref,
 )
 from av1tpu_torch.ops.transforms import forward_matrix
 
@@ -34,8 +34,9 @@ def _case(n, b, seed, tx_type=0):
 def test_plain_matches_jax_kernel(n, b, seed, tx_type):
     args = _case(n, b, seed, tx_type)
     jlv, jdq = jax_tq(*(jnp.asarray(a) for a in args))
+    resid, *consts = (torch.from_numpy(a) for a in args)
     before = transform_quantize.launches
-    lv, dq = transform_quantize(*(torch.from_numpy(a) for a in args))
+    lv, dq = transform_quantize(resid, TQPlane(*consts))
     assert transform_quantize.launches == before   # CPU: plain version
     assert lv.dtype == torch.int16 and dq.dtype == torch.int32
     assert np.array_equal(lv.numpy(), np.asarray(jlv))
@@ -45,7 +46,7 @@ def test_plain_matches_jax_kernel(n, b, seed, tx_type):
 def test_flip_rule_accepts_boundary_flips_only():
     resid, fwdt, step, q, cap = (torch.from_numpy(a)
                                  for a in _case(8, 16, 5))
-    lv, dq = transform_quantize_ref(resid, fwdt, step, q, cap)
+    lv, dq = transform_quantize_ref(resid, TQPlane(fwdt, step, q, cap))
     assert count_level_flips(lv, dq, lv, resid, fwdt, step, q) == 0
     bad = lv.clone()
     bad[3, 5] += 1                     # away from any rounding boundary
@@ -53,3 +54,13 @@ def test_flip_rule_accepts_boundary_flips_only():
         count_level_flips(bad, bad.int() * q, lv, resid, fwdt, step, q)
     with pytest.raises(AssertionError):
         count_level_flips(lv, dq + 1, lv, resid, fwdt, step, q)
+
+
+def test_plane_constants_are_checked():
+    _, fwdt, step, q, cap = (torch.from_numpy(a) for a in _case(8, 1, 6))
+    with pytest.raises(ValueError):
+        TQPlane(fwdt, step[:, :32].contiguous(), q, cap)
+    with pytest.raises(TypeError):
+        TQPlane(fwdt, step, q.float(), cap)
+    with pytest.raises(ValueError):
+        TQPlane(fwdt.t(), step, q, cap)

@@ -1,0 +1,125 @@
+"""The port stands on its own.  In a subprocess whose import system refuses
+av1tpu, av1tpu.* and jax, every module of av1tpu_torch imports,
+chip_smoke.py and tools/profile_torch_slice.py import as modules,
+encode_clip runs on the CPU, and `python -m av1tpu_torch.cli encode` turns
+a y4m into an IVF.  A scan of the sources finds no import of either."""
+
+import json
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_SCRIPT = r'''
+import importlib, importlib.abc, importlib.util, json, os, pkgutil, runpy
+import sys, tempfile
+
+BLOCKED = ("av1tpu", "jax")
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ModuleNotFoundError(f"refused import of {name}")
+        return None
+
+
+def ours():
+    return sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+
+
+sys.meta_path.insert(0, Refuse())
+out = {"preloaded": ours()}
+import av1tpu_torch
+out["modules"] = []
+for m in pkgutil.walk_packages(av1tpu_torch.__path__, "av1tpu_torch."):
+    importlib.import_module(m.name)
+    out["modules"].append(m.name)
+for name, path in (("chip_smoke", "chip_smoke.py"),
+                   ("profile_torch_slice", "tools/profile_torch_slice.py")):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out[name] = callable(mod.main)
+
+from av1tpu_torch.cli import encode_clip
+from av1tpu_torch.utils.yuv import synthetic_clip, write_y4m
+
+streams, stats = encode_clip(synthetic_clip(128, 64, 6, seed=5), 100,
+                             chunk=4, metric="psnr", partitions=False,
+                             device="cpu")
+out["encode"] = {"tus": len(streams), "empty": sum(not s for s in streams),
+                 "psnr_y": stats["psnr_y"]}
+with tempfile.TemporaryDirectory() as d:
+    src, dst = os.path.join(d, "in.y4m"), os.path.join(d, "out.ivf")
+    write_y4m(src, synthetic_clip(96, 64, 3, seed=4))
+    sys.argv = ["av1tpu_torch.cli", "encode", "-i", src, "-o", dst,
+                "--qindex", "100", "--chunk", "2", "--device", "cpu"]
+    try:
+        runpy.run_module("av1tpu_torch.cli", run_name="__main__",
+                         alter_sys=True)
+    except SystemExit as e:
+        out["cli_rc"] = e.code
+    with open(dst, "rb") as f:
+        out["ivf"] = {"magic": f.read(4).decode(), "size": os.path.getsize(dst)}
+out["leaked"] = ours()
+print("RESULT " + json.dumps(out))
+'''
+
+
+@pytest.fixture(scope="module")
+def alone():
+    r = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-4000:]
+    line = [x for x in r.stdout.splitlines() if x.startswith("RESULT ")][-1]
+    out = json.loads(line[len("RESULT "):])
+    # modules a site hook imported before the finder are not the port's
+    assert set(out["leaked"]) <= set(out["preloaded"])
+    return out
+
+
+def test_every_port_module_imports_alone(alone):
+    mods = set(alone["modules"])
+    for m in ("av1tpu_torch.cli", "av1tpu_torch.coding.packer",
+              "av1tpu_torch.kernels.transform_quant",
+              "av1tpu_torch.models.rates", "av1tpu_torch.ops.transforms",
+              "av1tpu_torch.spec.encode_frame", "av1tpu_torch.spec.headers",
+              "av1tpu_torch.state", "av1tpu_torch.utils.yuv"):
+        assert m in mods, m
+
+
+def test_chip_scripts_import_alone(alone):
+    assert alone["chip_smoke"] and alone["profile_torch_slice"]
+
+
+def test_encode_clip_runs_alone(alone):
+    enc = alone["encode"]
+    assert enc["tus"] == 6 and enc["empty"] == 0
+    assert enc["psnr_y"] > 30.0
+
+
+def test_cli_module_encodes_alone(alone):
+    assert alone["cli_rc"] == 0
+    assert alone["ivf"]["magic"] == "DKIF" and alone["ivf"]["size"] > 32
+
+
+_IMPORT = re.compile(r"^\s*(import|from)\s+(av1tpu|jax)(\.|\s|$)")
+
+
+def test_no_av1tpu_or_jax_import_in_sources():
+    paths = [os.path.join(REPO, p) for p in
+             ("chip_smoke.py", "tools/profile_torch_slice.py",
+              "tools/tq_compare.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "av1tpu_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    offenders = []
+    for path in paths:
+        with open(path) as fh:
+            offenders += [f"{path}:{i}" for i, line in enumerate(fh, 1)
+                          if _IMPORT.match(line)]
+    assert offenders == []

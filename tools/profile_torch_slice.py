@@ -47,7 +47,7 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from av1tpu.utils.yuv import synthetic_clip
+    from av1tpu_torch.utils.yuv import synthetic_clip
     from av1tpu_torch.cli import encode_clip
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,15 +1,18 @@
-"""Command-line encoder on a GPU (port of av1tpu/cli.py, fast preset).
+"""Command-line encoder on a GPU (port of av1tpu/cli.py).
 
-    python -m av1tpu_torch.cli encode -i in.y4m -o out.ivf --preset fast \
-        --metric psnr [--qindex N] [--chunk K] [--target-quality T] \
-        [--device cuda]
+    python -m av1tpu_torch.cli encode -i in.y4m -o out.ivf \
+        [--preset quality|fast] --metric psnr [--qindex N] [--chunk K] \
+        [--target-quality T] [--device cuda]
 
-`encode_clip` runs the single-device GOP path of av1tpu.cli.encode_clip
-with partitions=False (the fast preset): scene detection, the per-scene q
-probe, the temporal filter, the keyframe with its CDEF strength search,
-then chunks of inter frames with deblock and CDEF, packed by the C++
-entropy packer (native/coding/pack.cpp, the one source shared with the JAX
-package).  Prints one JSON stats line.
+`encode_clip` runs the single-device GOP path of av1tpu.cli.encode_clip:
+scene detection, the per-scene q probe, the temporal filter, the keyframe
+with its CDEF strength search, then chunks of inter frames with deblock and
+CDEF, packed by the C++ entropy packer (native/coding/pack.cpp, the one
+source shared with the JAX package).  The quality preset (partitions=True)
+probes with the 64/32/16 partition intra, codes the keyframe with the
+13-mode wavefront pipeline and the inter frames with the partitioned step
+(8x8 sub-block MVs, LAST/GOLDEN, 32/64 merges, skip RDO); the fast preset
+(partitions=False) keeps the fixed 16x16 grid.  Prints one JSON stats line.
 """
 
 from __future__ import annotations
@@ -142,13 +145,10 @@ def encode_clip(clip, qindex: int, chunk: int = 4, progress=None,
                 device="cuda") -> tuple[list[bytes], dict]:
     """Encode a Clip into AV1 TUs: one keyframe per scene and inter frames
     in between.  Same signature, defaults and stats keys as
-    av1tpu.cli.encode_clip, plus the device to run on; only the fast
-    preset's single-device GOP branch is ported (partitions=False, gop=True,
-    workers=1, layers=1, metric="psnr"), and the rest raises
-    NotImplementedError.  Returns (per-frame OBU streams, stats)."""
-    if partitions:
-        raise _unported("the quality preset (partitions=True: intra_wave, "
-                        "intra_part, the partitioned inter step)")
+    av1tpu.cli.encode_clip, plus the device to run on; the single-device
+    GOP branch is ported for both presets (gop=True, workers=1, layers=1,
+    metric="psnr"), and the rest raises NotImplementedError.  Returns
+    (per-frame OBU streams, stats)."""
     if not gop:
         raise _unported("the all-intra chunk path (gop=False)")
     if workers > 1:
@@ -165,12 +165,13 @@ def encode_clip(clip, qindex: int, chunk: int = 4, progress=None,
     )
     from av1tpu_torch.models.cq import cq_search_multi, probe_quality_multi
     from av1tpu_torch.models.deblock import lf_levels
+    from av1tpu_torch.models import inter_v, intra_v, intra_wave
     from av1tpu_torch.models.inter_v import (
-        encode_gop_chunk, split_compact_inter,
+        fetch_inter_part_prefix, split_compact_inter,
+        split_compact_inter_part,
     )
-    from av1tpu_torch.models.intra_v import (
-        encode_intra_v_key_recon, fuse_planes, split_compact,
-    )
+    from av1tpu_torch.models.intra_v import fuse_planes, split_compact
+    from av1tpu_torch.models.intra_wave import split_compact_wave
     from av1tpu_torch.models.tfilter import temporal_filter_key
 
     dev = torch.device(device)
@@ -221,11 +222,12 @@ def encode_clip(clip, qindex: int, chunk: int = 4, progress=None,
             frames = _probe_frames(*seg, full=target_quality > 0)
         if target_quality > 0:
             q, score = cq_search_multi(frames, target_quality,
-                                       metric=metric, bit_depth=bd)
+                                       metric=metric, bit_depth=bd,
+                                       partitions=partitions)
         else:
             q = qindex
             score = probe_quality_multi(frames, q, metric=metric,
-                                        bit_depth=bd)
+                                        bit_depth=bd, partitions=partitions)
         scores.append(score)
         return q
 
@@ -242,29 +244,50 @@ def encode_clip(clip, qindex: int, chunk: int = 4, progress=None,
         return 10.0 * torch.log10(255.0 * 255.0 / mse)
 
     def pack_key(buf, q, lf, cdf_out, cdef):
-        count, bm, vals, modes = split_compact(buf, ch, cw)
-        if count > len(vals):
-            raise _CapacityExceeded(count)
-        tile = packer.pack_tile_compact(bm, vals, ch, cw, q, modes=modes,
-                                        uv_mode=1, cdf_out=cdf_out)
+        if partitions:
+            count, bm, vals, modes, txd = split_compact_wave(buf, ch, cw)
+            if count > len(vals):
+                raise _CapacityExceeded(count)
+            # the wavefront keyframe codes chroma DC_PRED (0), derives
+            # each luma block's tx_type from its mode and signals a
+            # per-block tx depth (TX_MODE_SELECT)
+            tile = packer.pack_tile_compact(bm, vals, ch, cw, q, modes=modes,
+                                            uv_mode=0, tx_from_mode=True,
+                                            cdf_out=cdf_out, txd=txd)
+        else:
+            count, bm, vals, modes = split_compact(buf, ch, cw)
+            if count > len(vals):
+                raise _CapacityExceeded(count)
+            tile = packer.pack_tile_compact(bm, vals, ch, cw, q, modes=modes,
+                                            uv_mode=1, cdf_out=cdf_out)
         return _wrap_tu(tile, cw, ch, width, height, q, bd,
                         lf=(lf[0], lf[0], lf[1], lf[2]), cdf_save=True,
-                        cdef=cdef)
+                        cdef=cdef, tx_select=partitions)
 
     ncoef = ch * cw + 2 * (ch // 2) * (cw // 2)
 
     def pack_inter_tile(buf, q, cdfs_c, cdef_s):
-        count, bm, vals, mv = split_compact_inter(buf, ch, cw)
-        if count > len(vals):
-            raise _CapacityExceeded(count)
-        tile = packer.pack_tile_inter(bm, vals, mv, ch, cw, q,
-                                      cdf_in=cdfs_c, cdf_out=cdfs_c)
+        if partitions:
+            (count, bm, vals, s16, s32, s64, ref16,
+             mv) = split_compact_inter_part(buf, ch, cw)
+            if count > len(vals):
+                raise _CapacityExceeded(count)
+            tile = packer.pack_tile_inter_part(
+                bm, vals, s32, s64, mv, ch, cw, q, cdf_in=cdfs_c,
+                cdf_out=cdfs_c, split16=s16,
+                refs=ref16 if ref16.any() else None)
+        else:
+            count, bm, vals, mv = split_compact_inter(buf, ch, cw)
+            if count > len(vals):
+                raise _CapacityExceeded(count)
+            tile = packer.pack_tile_inter(bm, vals, mv, ch, cw, q,
+                                          cdf_in=cdfs_c, cdf_out=cdfs_c)
         ilf = lf_levels(q)
         return _wrap_tu_inter(
             tile, cw, ch, width, height, q, bd,
             lf=(ilf[0], ilf[0], ilf[2], ilf[3]), primary_ref=0,
             cdf_save=True, cdef=tuple(int(x) for x in cdef_s),
-            golden=False, refresh=True)
+            golden=partitions, refresh=True)
 
     for s0, e0 in segments:
         planes0 = padded(s0)
@@ -274,7 +297,10 @@ def encode_clip(clip, qindex: int, chunk: int = 4, progress=None,
         # (transitive) reference
         key_q = max(q - key_q_boost, 1) if e0 - s0 > 1 else q
         lyk, _, luk, lvk = lf_levels(key_q)
-        key_lf = (lyk, luk, lvk)
+        # wavefront keyframes signal TX_MODE_SELECT: sub-tx edges are
+        # transform-block deblock edges the deblock pass does not model,
+        # so their in-loop filter is off (CDEF still runs)
+        key_lf = (0, 0, 0) if partitions else (lyk, luk, lvk)
         ly_i, _, lu_i, lv_i = lf_levels(q)
         inter_lf = (ly_i, lu_i, lv_i)
         fused0 = fuse_planes(*planes0, bit_depth=bd)
@@ -283,21 +309,36 @@ def encode_clip(clip, qindex: int, chunk: int = 4, progress=None,
         with clock("upload"):
             fused0_dev = upload(fused0)
         key_src = fused0_dev
+        key_gate = 0.0
+        inter_gate = 0.0
         if ntf > 0:
             with clock("tfilter"):
                 neigh = np.stack(
                     [fuse_planes(*padded(min(s0 + 1 + j, e0 - 1)),
                                  bit_depth=bd) if j < ntf else fused0
                      for j in range(7)])
-                # the sigmas feed only the quality preset's RDOQ gates
-                key_src, _, _ = temporal_filter_key(
+                key_src, key_sig, key_sig1 = temporal_filter_key(
                     fused0_dev, upload(neigh), ch, cw, bit_depth=bd)
+                # RDOQ noise floors (read by the quality preset only):
+                # keyframe coefficients inside the (3 sigma)^2 band
+                # explain noise only; inter frames code raw sources, 1.5x
+                # the per-frame sigma.  Python floats from float32
+                # scalars, as the reference makes them: a 1-ulp difference
+                # flips keep/zero at the gate boundary
+                key_gate = float((3.0 * key_sig) ** 2)
+                inter_gate = float((1.5 * key_sig1) ** 2)
         cdfs = packer.new_cdf_blob()
         while True:  # low-q keyframes can exceed the value capacity
             with clock("key_device"):
-                buf, ref = encode_intra_v_key_recon(
-                    key_src, key_q, ch, cw, cap=key_cap, lf=key_lf,
-                    bit_depth=bd)
+                if partitions:
+                    buf, ref = intra_wave.encode_intra_wave_key_recon(
+                        key_src, key_q, ch, cw, cap=key_cap, lf=key_lf,
+                        lam_scale=key_lam_scale, noise_gate=key_gate,
+                        bit_depth=bd)
+                else:
+                    buf, ref = intra_v.encode_intra_v_key_recon(
+                        key_src, key_q, ch, cw, cap=key_cap, lf=key_lf,
+                        bit_depth=bd)
                 buf_np = buf.cpu().numpy()
             # per-scene CDEF strength search on the keyframe
             with clock("cdef"):
@@ -334,16 +375,29 @@ def encode_clip(clip, qindex: int, chunk: int = 4, progress=None,
             with clock("upload"):
                 return k, upload(fused)
 
+        # GOLDEN = the scene keyframe's filtered recon (ref slot 1),
+        # device-resident and constant across the scene's inter chain
+        gld = ref if partitions else None
         nxt = prep(bases[0]) if bases else None
+        mv_carry = None  # temporal MV candidate chain (scene-local)
+        fetch_state: dict = {}  # prefix-fetch size predictor
         for bi, base in enumerate(bases):
             k, fused_dev = nxt
             ref_in = ref
+            mv_in = mv_carry
             first = True
             while True:
                 with clock("inter_dispatch"):
-                    bufs, ref = encode_gop_chunk(
-                        fused_dev, ref_in, q, ch, cw, cap=cap, lf=inter_lf,
-                        cdef_s=cdef_s, bit_depth=bd)
+                    if partitions:
+                        bufs, ref, mv_carry = inter_v.encode_gop_chunk_part(
+                            fused_dev, ref_in, q, ch, cw, cap=cap,
+                            lf=inter_lf, cdef_s=cdef_s, gld_fused=gld,
+                            prev_mv=mv_in, noise_gate=inter_gate,
+                            bit_depth=bd)
+                    else:
+                        bufs, ref = inter_v.encode_gop_chunk(
+                            fused_dev, ref_in, q, ch, cw, cap=cap,
+                            lf=inter_lf, cdef_s=cdef_s, bit_depth=bd)
                 if first:  # prefetch chunk N+1 behind N's compute
                     nxt = (prep(bases[bi + 1])
                            if bi + 1 < len(bases) else None)
@@ -354,7 +408,11 @@ def encode_clip(clip, qindex: int, chunk: int = 4, progress=None,
                 try:
                     for i in range(k):
                         with clock("inter_fetch"):
-                            buf = bufs[i].cpu().numpy()
+                            if partitions:  # the used prefix only
+                                buf = fetch_inter_part_prefix(
+                                    bufs[i], ch, cw, fetch_state)
+                            else:
+                                buf = bufs[i].cpu().numpy()
                         with clock("inter_pack"):
                             tus.append(pack_inter_tile(buf, q, cdfs_c,
                                                        cdef_s))
@@ -407,7 +465,7 @@ def cmd_encode(args) -> int:
     streams, stats = encode_clip(
         clip, args.qindex, chunk=args.chunk, progress=_progress,
         target_quality=args.target_quality, metric=args.metric,
-        partitions=False, device=args.device)
+        partitions=args.preset == "quality", device=args.device)
     write_ivf(args.output, streams, clip.width, clip.height)
     stats["output"] = args.output
     print(json.dumps(stats))
@@ -420,9 +478,11 @@ def main(argv=None) -> int:
     enc = sub.add_parser("encode", help="encode a y4m video to AV1 (IVF)")
     enc.add_argument("-i", "--input", required=True)
     enc.add_argument("-o", "--output", required=True)
-    enc.add_argument("--preset", choices=("fast",), default="fast",
-                     help="fast: fixed 16x16 grid (the quality preset is "
-                          "not ported yet)")
+    enc.add_argument("--preset", choices=("quality", "fast"),
+                     default="quality",
+                     help="quality: 13-mode wavefront keyframe + 64/32/16/8 "
+                          "partition RDO; fast: fixed 16x16 grid, V-family "
+                          "intra")
     enc.add_argument("--metric", choices=("psnr",), default="psnr")
     enc.add_argument("--qindex", type=int, default=72)
     enc.add_argument("--chunk", type=int, default=4,

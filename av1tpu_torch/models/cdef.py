@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from av1tpu_torch.models.intra_v import to_blocks, unfuse
+from av1tpu_torch.models.intra_v import rep2d, to_blocks, unfuse
 from av1tpu_torch.spec.cdef import CDEF_DIRECTIONS, DIV_TABLE
 from av1tpu_torch.state import tables
 
@@ -177,9 +177,6 @@ def cdef_planes(y, u, v, skip8, pri_y: int, sec_y: int, pri_uv: int,
                            device=y.device)
         var8 = dir8
 
-    def up(a, f):
-        return a.repeat_interleave(f, 0).repeat_interleave(f, 1)
-
     live = ~skip8
     out = []
     if pri_y > 0 or sec_y > 0:
@@ -190,18 +187,19 @@ def cdef_planes(y, u, v, skip8, pri_y: int, sec_y: int, pri_uv: int,
                                 ((pri_y << coeff_shift) * (4 + i) + 8) >> 4,
                                 0)
         par_y = (pri_y_blk >> coeff_shift) & 1
-        yy = _filter_plane(y32, up(dir8, 8), up(pri_y_blk, 8), up(par_y, 8),
-                           sec_y_eff, damping + coeff_shift, h, w)
-        out.append(torch.where(up(live, 8), yy, y32))
+        yy = _filter_plane(y32, rep2d(dir8, 8), rep2d(pri_y_blk, 8),
+                           rep2d(par_y, 8), sec_y_eff,
+                           damping + coeff_shift, h, w)
+        out.append(torch.where(rep2d(live, 8), yy, y32))
     else:
         out.append(y32)
 
     ch, cw = u.shape
     if pri_uv > 0 or sec_uv > 0:
-        dir_c = up(dir8, 4)
+        dir_c = rep2d(dir8, 4)
         pri_c = torch.full((ch, cw), pri_uv << coeff_shift,
                            dtype=torch.int32, device=y.device)
-        livec = up(live, 4)
+        livec = rep2d(live, 4)
         dmp_c = damping - 1 + coeff_shift
         for p in (u32, v32):
             pp = _filter_plane(p, dir_c, pri_c, pri_uv & 1, sec_uv_eff,
@@ -223,12 +221,42 @@ def skip16_from_levels(y16, u8, v8):
 
 def skip8_of(skip16):
     """Per-8x8-CDEF-unit skip: each 16-block's flag covers its 4 units."""
-    return skip16.repeat_interleave(2, 0).repeat_interleave(2, 1)
+    return rep2d(skip16, 2)
 
 
-def skip8_host(bitmap: np.ndarray, height: int, width: int) -> np.ndarray:
-    """Copy of av1tpu/models/cdef_tpu.py:skip8_host for the uniform grid
-    (no split maps): host-side skip8 from a compact significance bitmap."""
+def merge_skip16(skip16, split32, split64):
+    """Effective per-16-slot skip under 32/64 NONE merges: a merged
+    block's single coded skip covers every slot, and it is skip iff all
+    its slots' levels are zero."""
+    r16, c16 = skip16.shape
+    g32 = skip16.reshape(r16 // 2, 2, c16 // 2, 2).all(dim=3).all(dim=1)
+    s = torch.where(rep2d(~split32.to(torch.bool), 2), rep2d(g32, 2), skip16)
+    g64 = skip16.reshape(r16 // 4, 4, c16 // 4, 4).all(dim=3).all(dim=1)
+    return torch.where(rep2d(~split64.to(torch.bool), 4), rep2d(g64, 4), s)
+
+
+def skip8_split(skip16, split16, y16, u8, v8):
+    """Per-8x8-unit skip when 16-blocks may split into 8x8 sub-blocks:
+    each sub-block carries its own coded skip flag (its quadrant of the
+    union level slots is all-zero, the packer's rule), while unsplit
+    blocks keep the block flag."""
+    r16, c16 = skip16.shape
+
+    def q(a, n):
+        z = (a.reshape(r16, c16, 2, n, 2, n) == 0).all(dim=5).all(dim=3)
+        return z.permute(0, 2, 1, 3).reshape(2 * r16, 2 * c16)
+
+    s8sub = q(y16, 8) & q(u8, 4) & q(v8, 4)
+    return torch.where(rep2d(split16.to(torch.bool), 2), s8sub,
+                       skip8_of(skip16))
+
+
+def skip8_host(bitmap: np.ndarray, height: int, width: int,
+               split32=None, split64=None) -> np.ndarray:
+    """Copy of av1tpu/models/cdef_tpu.py:skip8_host: host-side skip8 from
+    a compact significance bitmap (the per-slot [y16 | u8 | v8] flat
+    layout).  Split maps (partitioned layouts) apply the 32/64 merge
+    rule."""
     r16, c16 = height // 16, width // 16
     nb = r16 * c16
     ncoef = nb * 256 + 2 * nb * 64
@@ -238,6 +266,10 @@ def skip8_host(bitmap: np.ndarray, height: int, width: int) -> np.ndarray:
     u_nz = sig[ny : ny + nb * 64].reshape(nb, 64).any(axis=1)
     v_nz = sig[ny + nb * 64 :].reshape(nb, 64).any(axis=1)
     s16 = (~(y_nz | u_nz | v_nz)).reshape(r16, c16)
+    if split32 is not None:
+        s16 = merge_skip16(torch.from_numpy(s16),
+                           torch.from_numpy(np.asarray(split32)),
+                           torch.from_numpy(np.asarray(split64))).numpy()
     return np.repeat(np.repeat(s16, 2, 0), 2, 1)
 
 

@@ -21,28 +21,34 @@ def _metric(metric: str):
 
 
 def probe_quality(y, u, v, qindex: int, metric: str = "psnr",
-                  bit_depth: int = 8):
-    """Encode at qindex (fast-preset intra, no RDO) and score the luma
-    recon against the source (10-bit scored in the 8-bit range).  Returns
-    a float32 0-dim tensor.  The quality preset's partition probe
-    (intra_part) is not ported."""
+                  bit_depth: int = 8, partitions: bool = False):
+    """Encode at qindex and score the luma recon against the source
+    (10-bit scored in the 8-bit range).  Returns a float32 0-dim tensor.
+    partitions=True probes with the 64/32/16 partition pipeline (the
+    quality preset), else the fast-preset intra without RDO."""
     fn = _metric(metric)
-    out = encode_intra_v(y, u, v, qindex, bit_depth=bit_depth)
+    if partitions:
+        from av1tpu_torch.models.intra_part import encode_intra_part
+        out = encode_intra_part(y, u, v, qindex, bit_depth=bit_depth)
+    else:
+        out = encode_intra_v(y, u, v, qindex, bit_depth=bit_depth)
     sh = bit_depth - 8
     return fn(y >> sh, out["recon_y"] >> sh)
 
 
 def probe_quality_multi(frames, qindex: int, metric: str = "psnr",
-                        bit_depth: int = 8) -> float:
+                        bit_depth: int = 8,
+                        partitions: bool = False) -> float:
     """Worst (minimum) probe score over sampled frames [(y, u, v), ...]."""
     return min(float(probe_quality(y, u, v, qindex, metric=metric,
-                                   bit_depth=bit_depth))
+                                   bit_depth=bit_depth,
+                                   partitions=partitions))
                for (y, u, v) in frames)
 
 
 def cq_search_multi(frames, target: float, metric: str = "psnr",
-                    qmin: int = 8, qmax: int = 255,
-                    bit_depth: int = 8) -> tuple[int, float]:
+                    qmin: int = 8, qmax: int = 255, bit_depth: int = 8,
+                    partitions: bool = False) -> tuple[int, float]:
     """Largest qindex whose worst sampled-frame score >= target (bisection;
     qmin if even qmin misses).  Returns (qindex, score)."""
     lo, hi = qmin, qmax
@@ -50,7 +56,8 @@ def cq_search_multi(frames, target: float, metric: str = "psnr",
     while lo <= hi:
         mid = (lo + hi) // 2
         score = probe_quality_multi(frames, mid, metric=metric,
-                                    bit_depth=bit_depth)
+                                    bit_depth=bit_depth,
+                                    partitions=partitions)
         if score >= target:
             best_q, best_score = mid, score
             lo = mid + 1
@@ -58,6 +65,7 @@ def cq_search_multi(frames, target: float, metric: str = "psnr",
             hi = mid - 1
     if best_score is None:
         best_score = probe_quality_multi(frames, qmin, metric=metric,
-                                         bit_depth=bit_depth)
+                                         bit_depth=bit_depth,
+                                         partitions=partitions)
         best_q = qmin
     return best_q, best_score

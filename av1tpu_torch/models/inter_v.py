@@ -1,9 +1,12 @@
-"""Inter-frame encode pipeline, fast preset (port of av1tpu/models/inter_v.py).
+"""Inter-frame encode pipeline (port of av1tpu/models/inter_v.py).
 
 Every 16x16 block searches motion in the previous reconstruction,
 motion-compensates with the normative 8-tap filters, and codes its residual
 (16x16 luma DCT, 8x8 chroma DCT, deadzone quantize + RDOQ), with a joint
-skip-vs-code RD choice per block.  The search is hierarchical:
+skip-vs-code RD choice per block.  The quality preset's partitioned step
+(`encode_inter_part`) adds per-8x8 sub-block MVs at motion boundaries, a
+per-block LAST/GOLDEN choice, and the merge of equal-MV blocks into 32x32
+and 64x64 blocks by pixel-domain RD.  The search is hierarchical:
 
   1. coarse: a SAD sweep over +-8 samples on 4x4-pooled luma, with the
      frame-dominant shift snap, a second-basin candidate and the top-K
@@ -20,7 +23,14 @@ reference narrows the streamed search tensors to uint8/int16, but every
 difference is widened before it is taken, so the values are the same.
 
 Scalar lambdas are float32 values computed on the host with numpy float32
-in the reference's order of operations and passed as Python floats.
+as the reference's compiled graph computes them (a chain of constant
+factors folded into one float32 constant, intra_v.fold_consts) and passed
+as Python floats.
+
+Every residual coder here prunes with rdoq.rd_zero, which reads the
+coefficients after the quantizer, so the inter step launches no hand
+kernel: these sites are the front half of the fused coder still to be
+written.
 """
 
 from __future__ import annotations
@@ -29,14 +39,19 @@ import numpy as np
 import torch
 
 from av1tpu_torch.models.intra_v import (
-    _plane_params, from_blocks, plane_params_np, quantize_coefs, sig_bitmap,
-    to_blocks, unfuse,
+    LAM_PIX, _plane_params, ac_squared, fold_consts, from_blocks, log2_rate,
+    pack_bits, plane_params_np, quantize_coefs, rep2d, sig_bitmap,
+    stable_partition, to_blocks, unfuse,
 )
 from av1tpu_torch.ops.transforms import inverse_transform
 from av1tpu_torch.state import tables
 
 f32 = np.float32
 
+_SPLIT_OVERHEAD_BITS = 12.0  # extra signaling of 4 sub-blocks vs 1 merged
+# merge-size lambda discount: excess distortion in a merged block compounds
+# down the reference chain, while the bit saving is one-time
+_REF_LAM_SCALE = 0.3
 _MV_BIAS = 0.3
 _COARSE_R = 8      # +-8 at quarter res = +-32 px, step 4 px
 _REFINE_R = 2      # +-2 px local refine
@@ -384,12 +399,15 @@ def _code_plane_inter(src: torch.Tensor, pred: torch.Tensor, qindex: int,
 
 
 def _search_mv(y: torch.Tensor, ref_y: torch.Tensor, lam: np.float32,
-               pix_max: int):
+               pix_max: int, prev_mv=None):
     """Full luma motion search (coarse + snap, refine around the coarse
-    winner and a second-basin candidate, the full-resolution global
-    candidate, then the quarter-pel sweep).  y/ref_y: (H, W) int32; lam:
-    float32 SAD-domain lambda.  Returns (mv8 1/8-pel, pred_y (rows, cols,
-    16, 16), src_b)."""
+    winner, a second-basin candidate and, where given, the co-located
+    previous frame's MV, the full-resolution global candidate, then the
+    quarter-pel sweep).  y/ref_y: (H, W) int32; lam: float32 SAD-domain
+    lambda; prev_mv: optional (rows, cols, 2) int32 full-pel MV field of
+    the previous frame.  Returns (mv8 1/8-pel, pred_y (rows, cols, 16, 16),
+    src_b, (p40, mv_px)): the 40x40 patches and the full-pel winner feed
+    the 8x8 sub-block stage's extended MC."""
     lam = f32(lam)
     src_q = _block_sad(y, 4) // 16          # 4x4 mean pool (exact ints /16)
     ref_q = _block_sad(ref_y, 4) // 16
@@ -398,8 +416,15 @@ def _search_mv(y: torch.Tensor, ref_y: torch.Tensor, lam: np.float32,
         f32(f32(lam * f32(14.0)) / f32(16.0)))
     src_b = to_blocks(y, 16)
 
+    bases = [coarse, coarse2]
+    if prev_mv is not None:
+        # temporal base: nearest 4-aligned point (the +-2 refine sweep
+        # then covers the exact previous MV), clipped to the coarse range
+        bases.append(torch.clamp(((prev_mv + 2) >> 2) << 2,
+                                 -4 * _COARSE_R, 4 * _COARSE_R))
+
     mv_px = best_sad = best_cost = base_f = None
-    for b in (coarse, coarse2):
+    for b in bases:
         m, sd, c = _refine_search(src_b, _patches_select(ref_y, b), b, lam)
         if mv_px is None:
             mv_px, best_sad, best_cost, base_f = m, sd, c, b
@@ -418,20 +443,18 @@ def _search_mv(y: torch.Tensor, ref_y: torch.Tensor, lam: np.float32,
     p40 = _patches40_select(ref_y, coarse_f, off_f)
     mv8, pred_y = _subpel_refine(src_b, p40[..., 8:32, 8:32], mv_px, lam,
                                  pix_max)
-    return mv8, pred_y, src_b
+    return mv8, pred_y, src_b, (p40, mv_px)
 
 
 def _rate_of(lv: torch.Tensor) -> torch.Tensor:
-    a = lv.to(torch.float32).abs()
-    return (torch.where(a > 0, 2.0, 0.0) + torch.log2(1.0 + a)).sum(
-        dim=(-2, -1))
+    return log2_rate(lv, (-2, -1))
 
 
 def inter_lambdas(qindex: int, bit_depth: int, device):
     """(lam, lamp) float32: the SAD-domain search lambda and the pixel-
     domain RD lambda, both from the 16x16 AC step."""
     ac = f32(plane_params_np(qindex, 16, bit_depth, device)[0][1])
-    lamp = f32(f32(ac * ac) * f32(0.0234))
+    lamp = f32(f32(ac * ac) * f32(LAM_PIX))
     return f32(np.sqrt(lamp)), lamp
 
 
@@ -447,7 +470,7 @@ def encode_inter_v(y, u, v, ref_y, ref_u, ref_v, qindex: int,
     dev = y.device
     lam, lamp = inter_lambdas(qindex, bit_depth, dev)
     pix_max = (1 << bit_depth) - 1
-    mv8, pred_y, src_b = _search_mv(y, ref_y, lam, pix_max)
+    mv8, pred_y, src_b, _ = _search_mv(y, ref_y, lam, pix_max)
     pred_u, pred_v = _chroma_mc_pair(ref_u, ref_v, mv8, pix_max)
 
     qctx = qctx_index(qindex)
@@ -560,3 +583,778 @@ def encode_gop_chunk(frames: torch.Tensor, ref_fused: torch.Tensor,
                                   cap, lf3, cs, bit_depth)
         bufs.append(buf)
     return bufs, ref
+
+
+# ----------------------------------------------------------------------
+# partitioned inter: 8x8 sub-block MVs at motion boundaries, LAST/GOLDEN
+# per block, and the merge of equal-MV 16-blocks into 32x32 / 64x64 NONE
+# blocks by pixel-domain RD
+# ----------------------------------------------------------------------
+
+_SUB8_NONPARENT_BITS = 10.0   # NEWMV diff / DRL cost of a sub-block MV
+_SUB8_HDR_BITS = 4.0          # per-sub-block skip+mode+ref signaling
+
+
+def _mc_ext32(P40: torch.Tensor, mv8: torch.Tensor, mv_px: torch.Tensor,
+              pix_max: int):
+    """Extended 32x32 normative luma MC per 16-block at its own 1/8-pel
+    MV: E[r, c][a, b] = MC of pixel (16r + a - 8, 16c + b - 8) at
+    mv8[r, c] (EIGHTTAP regular, InterRound0/1), so the [8:24, 8:24]
+    center equals the block's own prediction bit-exactly.  P40: patches
+    from _patches40_select at the full-pel search winner mv_px; mv8 =
+    8*mv_px + d with d in [-6, 6], so the integer part mv8 >> 3 is mv_px
+    or mv_px - 1 per axis, folded in as a +-1 read shift."""
+    dev = P40.device
+    sy = ((mv8[..., 0] >> 3) - mv_px[..., 0])[..., None, None]   # {-1, 0}
+    sx = ((mv8[..., 1] >> 3) - mv_px[..., 1])[..., None, None]
+    bank = tables(dev).subpel_bank()
+    tx = bank[((mv8[..., 1] & 7) << 1).long()]    # (rows, cols, 8)
+    ty = bank[((mv8[..., 0] & 7) << 1).long()]
+    hor = torch.zeros(P40.shape[:2] + (40, 32), dtype=torch.int32,
+                      device=dev)
+    for k in range(8):
+        rd = torch.where(sx < 0, P40[..., :, k : 32 + k],
+                         P40[..., :, 1 + k : 33 + k])
+        hor = hor + tx[..., k, None, None] * rd
+    hor = (hor + 4) >> 3                          # InterRound0
+    out = torch.zeros(P40.shape[:2] + (32, 32), dtype=torch.int32,
+                      device=dev)
+    for k in range(8):
+        rd = torch.where(sy < 0, hor[..., k : 32 + k, :],
+                         hor[..., 1 + k : 33 + k, :])
+        out = out + ty[..., k, None, None] * rd
+    return torch.clamp((out + 1024) >> 11, 0, pix_max)
+
+
+def _chroma_patches24_select(ref2: torch.Tensor, mv_int: torch.Tensor):
+    """Per-block 24x24 chroma reference patches (8-block + 4-px ring +
+    4-tap margins) of both planes: row j <-> ref[8R' + cmv + j - 8], reads
+    clamped to the plane (the reference's masked-select assembly over an
+    edge-padded plane equals this clamped gather)."""
+    return torch.stack([_gather_patches(ref2[0], mv_int, 8, 8),
+                        _gather_patches(ref2[1], mv_int, 8, 8)])
+
+
+def _chroma_ext16(ref_u: torch.Tensor, ref_v: torch.Tensor,
+                  mv8: torch.Tensor, pix_max: int):
+    """Extended 16x16 chroma MC of both planes with the normative 4-TAP
+    bank (the 4x4 chroma of 8x8 inter blocks): Ec[p, r, c][a, b] = MC of
+    chroma pixel (8r + a - 4, 8c + b - 4) at the block's mv8 (1/16-pel
+    chroma units), so the [4:12, 4:12] center is the block's own 4-tap
+    chroma prediction and the 4-px ring covers adjacent sub-blocks."""
+    dev = mv8.device
+    mv_int = torch.stack([mv8[..., 0] >> 4, mv8[..., 1] >> 4], -1)
+    fy = (mv8[..., 0] & 15).long()
+    fx = (mv8[..., 1] & 15).long()
+    patch = _chroma_patches24_select(torch.stack([ref_u, ref_v]), mv_int)
+    bank = tables(dev).subpel_bank4()
+    tx = bank[fx]                          # (rows, cols, 8)
+    ty = bank[fy]
+    hor = torch.zeros(patch.shape[:3] + (24, 16), dtype=torch.int32,
+                      device=dev)
+    for k in range(8):
+        hor = hor + (tx[None, :, :, k, None, None]
+                     * patch[..., :, k + 1 : k + 17])
+    hor = (hor + 4) >> 3                                    # InterRound0
+    out = torch.zeros(patch.shape[:3] + (16, 16), dtype=torch.int32,
+                      device=dev)
+    for k in range(8):
+        out = out + (ty[None, :, :, k, None, None]
+                     * hor[..., k + 1 : k + 17, :])
+    return torch.clamp((out + 1024) >> 11, 0, pix_max)     # InterRound1
+
+
+def _quads(b: torch.Tensor, n: int):
+    """(rows, cols, 2n, 2n) blocks -> (2*rows, 2*cols, n, n) quadrants."""
+    rows, cols = b.shape[:2]
+    return (b.reshape(rows, cols, 2, n, 2, n).permute(0, 2, 1, 4, 3, 5)
+            .reshape(2 * rows, 2 * cols, n, n))
+
+
+def _unquads(b: torch.Tensor, n: int):
+    """(2*rows, 2*cols, n, n) -> (rows, cols, 2n, 2n): inverse of _quads."""
+    rows, cols = b.shape[0] // 2, b.shape[1] // 2
+    return (b.reshape(rows, 2, cols, 2, n, n).permute(0, 2, 1, 4, 3, 5)
+            .reshape(rows, cols, 2 * n, 2 * n))
+
+
+def _sub8_stage(y, ref_y, ref_u, ref_v, mv16, pred_b16, p40, mv_px,
+                lam: np.float32, pix_max: int):
+    """Per-8x8 sub-block MV selection for motion boundaries.
+
+    Candidates per 8x8 sub-block: the parent 16-block's MV, the zero MV,
+    and the ADJACENT neighbor blocks' MVs (vertical neighbor for the
+    touching half, horizontal for the other axis).  All candidate
+    predictions are slices of ONE extended 32x32 luma MC pass (_mc_ext32,
+    reusing the search's 40x40 patches) and ONE extended 16x16 4-tap
+    chroma pass (_chroma_ext16).  At frame edges the neighbor candidates
+    degenerate to the parent.
+
+    Returns dict: mv8 (rows8, cols8, 2) 1/8-pel, pred (rows8, cols8, 8,
+    8) luma, pred_uv (2, rows8, cols8, 4, 4), mv_bits (rows8, cols8)."""
+    rows, cols = mv16.shape[:2]
+    lam = f32(lam)
+    src8 = _quads(to_blocks(y, 16), 8)
+    pred_p = _quads(pred_b16, 8)
+    mv_p = rep2d(mv16, 2)
+
+    E = _mc_ext32(p40, mv16, mv_px, pix_max)          # (rows, cols, 32, 32)
+    Ec = _chroma_ext16(ref_u, ref_v, mv16, pix_max)   # (2, rows, cols, 16, 16)
+
+    # ---- vertical-adjacent candidate: qr=0 reads the up neighbor's
+    # bottom ring, qr=1 the down neighbor's top ring; frame edges fall
+    # back to the parent's own quadrant (whose MV the shift also yields)
+    top = torch.cat([E[:1, :, 8:16, 8:24], E[:-1, :, 24:32, 8:24]], dim=0)
+    bot = torch.cat([E[1:, :, 0:8, 8:24], E[-1:, :, 16:24, 8:24]], dim=0)
+    vp = torch.stack([top, bot], dim=1).reshape(2 * rows, cols, 8, 16)
+    vpred = (vp.reshape(2 * rows, cols, 8, 2, 8).permute(0, 1, 3, 2, 4)
+             .reshape(2 * rows, 2 * cols, 8, 8))
+    mvu = torch.cat([mv16[:1], mv16[:-1]], 0)
+    mvd = torch.cat([mv16[1:], mv16[-1:]], 0)
+    vmv = (torch.stack([mvu, mvd], dim=1).reshape(2 * rows, cols, 2)
+           .repeat_interleave(2, dim=1))
+
+    # ---- horizontal-adjacent candidate (same along columns)
+    lef = torch.cat([E[:, :1, 8:24, 8:16], E[:, :-1, 8:24, 24:32]], dim=1)
+    rig = torch.cat([E[:, 1:, 8:24, 0:8], E[:, -1:, 8:24, 16:24]], dim=1)
+    hp = torch.stack([lef, rig], dim=2).reshape(rows, 2 * cols, 16, 8)
+    hpred = (hp.reshape(rows, 2 * cols, 2, 8, 8).permute(0, 2, 1, 3, 4)
+             .reshape(2 * rows, 2 * cols, 8, 8))
+    mvl = torch.cat([mv16[:, :1], mv16[:, :-1]], 1)
+    mvr = torch.cat([mv16[:, 1:], mv16[:, -1:]], 1)
+    hmv = (torch.stack([mvl, mvr], dim=2).reshape(rows, 2 * cols, 2)
+           .repeat_interleave(2, dim=0))
+
+    def sad8(pred):
+        return (src8 - pred).abs().sum(dim=(2, 3), dtype=torch.int32).to(
+            torch.float32)
+
+    best_cost = sad8(pred_p)
+    best_mv = mv_p                        # parent pays no extra signaling
+    best_pred = pred_p
+    best_idx = torch.zeros((2 * rows, 2 * cols), dtype=torch.int32,
+                           device=y.device)
+    cands = (
+        # candidate 1, zero MV: the co-located reference block, no filter
+        (1, torch.zeros_like(mv_p), to_blocks(ref_y, 8),
+         float(f32(lam * fold_consts(_MV_BIAS, 4.0)))),
+        (2, vmv, vpred, float(f32(lam * fold_consts(_MV_BIAS, 6.0)))),
+        (3, hmv, hpred, float(f32(lam * fold_consts(_MV_BIAS, 6.0)))))
+    for idx, mv_cand8, pred_cand, penalty in cands:
+        cost = sad8(pred_cand) + penalty
+        take = cost < best_cost
+        best_cost = torch.where(take, cost, best_cost)
+        best_idx = torch.where(take, idx, best_idx)
+        best_mv = torch.where(take[..., None], mv_cand8, best_mv)
+        best_pred = torch.where(take[..., None, None], pred_cand, best_pred)
+
+    # ---- chroma: slices of Ec / the reference, selected by winner index
+    def qc(a):
+        return torch.stack([_quads(a[0], 4), _quads(a[1], 4)])
+
+    pred_uv = qc(Ec[:, :, :, 4:12, 4:12])             # parent (4-tap)
+    zero_uv = qc(torch.stack([to_blocks(ref_u, 8), to_blocks(ref_v, 8)]))
+    ctop = torch.cat([Ec[:, :1, :, 4:8, 4:12],
+                      Ec[:, :-1, :, 12:16, 4:12]], dim=1)
+    cbot = torch.cat([Ec[:, 1:, :, 0:4, 4:12],
+                      Ec[:, -1:, :, 8:12, 4:12]], dim=1)
+    cv = torch.stack([ctop, cbot], dim=2).reshape(2, 2 * rows, cols, 4, 8)
+    cvpred = (cv.reshape(2, 2 * rows, cols, 4, 2, 4)
+              .permute(0, 1, 2, 4, 3, 5)
+              .reshape(2, 2 * rows, 2 * cols, 4, 4))
+    clef = torch.cat([Ec[:, :, :1, 4:12, 4:8],
+                      Ec[:, :, :-1, 4:12, 12:16]], dim=2)
+    crig = torch.cat([Ec[:, :, 1:, 4:12, 0:4],
+                      Ec[:, :, -1:, 4:12, 8:12]], dim=2)
+    ch = torch.stack([clef, crig], dim=3).reshape(2, rows, 2 * cols, 8, 4)
+    chpred = (ch.reshape(2, rows, 2 * cols, 2, 4, 4)
+              .permute(0, 1, 3, 2, 4, 5)
+              .reshape(2, 2 * rows, 2 * cols, 4, 4))
+    for i, cand in ((1, zero_uv), (2, cvpred), (3, chpred)):
+        m = (best_idx == i)[None, :, :, None, None]
+        pred_uv = torch.where(m, cand, pred_uv)
+
+    mv_bits = _SUB8_HDR_BITS + torch.where(best_idx != 0,
+                                           _SUB8_NONPARENT_BITS, 2.0)
+    return {"mv8": best_mv, "pred": best_pred, "pred_uv": pred_uv,
+            "mv_bits": mv_bits}
+
+
+def _join_blocks(b: torch.Tensor, f: int):
+    """(rows, cols, n, n) -> (rows/f, cols/f, n*f, n*f) by tiling."""
+    rows, cols, n = b.shape[0], b.shape[1], b.shape[2]
+    return (b.reshape(rows // f, f, cols // f, f, n, n)
+            .permute(0, 2, 1, 4, 3, 5)
+            .reshape(rows // f, cols // f, f * n, f * n))
+
+
+def _code_nn(src, pred, fwdt, step, q, dq_shift: int, cap, pix_max: int,
+             rm, qctx: int, lam: float, gains, noise_gate=None):
+    """Generic n x n DCT residual coding on (..., n, n) blocks.  Returns
+    (levels i32, recon, dist_pix f32, rate f32, dskip f32).  rm: the
+    rates.RateModel of the size (expected bits from the coefficient CDFs);
+    near-threshold levels whose bit cost exceeds their distortion value
+    are pruned (rdoq.rd_zero).  noise_gate: optional (k*sigma)^2 noise
+    floor, a Python float."""
+    from av1tpu_torch.models.rdoq import rd_zero
+
+    n = src.shape[-1]
+    sh = src.shape[:-2]
+    resid = (src - pred).reshape(-1, n * n).to(torch.float32)
+    coefs = resid @ fwdt
+    lv = quantize_coefs(coefs, step, cap)
+    lv = rd_zero(lv, coefs, q.to(torch.float32) * (0.5 ** dq_shift), lam,
+                 rm.tabs[qctx], gains, noise_gate=noise_gate)
+    dq = lv * q
+    if dq_shift:
+        dq = torch.sign(dq) * (dq.abs() >> dq_shift)
+    r = inverse_transform(dq.reshape(-1, n, n), n, n, 0)
+    rec = torch.clamp(pred.reshape(-1, n, n) + r, 0, pix_max)
+    e = rec - src.reshape(-1, n, n)
+    dist = (e * e).sum(dim=(1, 2)).to(torch.float32)
+    # skip distortion: recon == prediction (pred is already pixel-clipped
+    # MC output, so the residual energy is exact)
+    dskip = (resid * resid).sum(dim=1).reshape(sh)
+    lv = lv.reshape(sh + (n, n))
+    return lv, rec.reshape(sh + (n, n)), dist.reshape(sh), rm(lv, qctx), dskip
+
+
+def _skip_rdo(lam: float, yt, ut, vt, py, pu, pv):
+    """Joint skip-vs-code RD choice at one partition size.
+
+    AV1 signals one skip flag per block covering all three planes.
+    yt/ut/vt: (lv, rec, dist, rate, dskip) per plane from _code_nn;
+    py/pu/pv: the MC predictions.  Where dskip_total + lam*1 beats
+    dist_total + lam*rate_total, zero the levels (the packer then codes
+    skip=1, no residual), recon becomes the prediction, and the returned
+    dist/rate feed the merge RDO honestly."""
+    coded = (yt[2] + lam * yt[3] + ut[2] + lam * ut[3]
+             + vt[2] + lam * vt[3])
+    skipc = yt[4] + ut[4] + vt[4] + lam  # ~1 bit: the skip flag itself
+    m = skipc < coded
+    me = m[:, :, None, None]
+
+    def sel(t, p):
+        return (torch.where(me, 0, t[0]), torch.where(me, p, t[1]),
+                torch.where(m, t[4], t[2]), torch.where(m, 0.0, t[3]))
+
+    return m, sel(yt, py), sel(ut, pu), sel(vt, pv)
+
+
+def part_lambdas(qindex: int, bit_depth: int, device):
+    """(lam_full, lam, lam_split) float32 values of the partition RDO:
+    the full frame lambda (skip and coefficient-pruning decisions), the
+    reference-chain discounted one (merge-size choices) and the latter
+    times the split overhead bits."""
+    a2 = ac_squared(qindex, bit_depth, device)
+    return (f32(a2 * f32(LAM_PIX)),
+            f32(a2 * fold_consts(LAM_PIX, _REF_LAM_SCALE)),
+            f32(a2 * fold_consts(LAM_PIX, _REF_LAM_SCALE,
+                                 _SPLIT_OVERHEAD_BITS)))
+
+
+def _inter_partition(src_b, pred_b, src_cb, pred_cb, mv8, qindex: int,
+                     bit_depth: int, sub8=None, use_g=None,
+                     noise_gate=None):
+    """Partition RDO on top of the 16-grid search results.
+
+    src_b/pred_b: (rows, cols, 16, 16) luma; src_cb/pred_cb: pairs of
+    (rows, cols, 8, 8) chroma (u, v).  sub8: optional _sub8_stage output
+    (per-8x8 candidate MVs/preds) enabling 16->8x8 splits at motion
+    boundaries.  use_g: optional (rows, cols) bool, blocks referencing
+    GOLDEN (they never split to 8x8, and 32/64 merges require a uniform
+    reference).  Returns dict of per-size level grids, split maps and
+    recon planes (union-layout-ready)."""
+    from av1tpu_torch.models.rates import qctx_index
+    from av1tpu_torch.models.rdoq import rd_zero
+
+    dev = mv8.device
+    rows, cols = mv8.shape[:2]
+    rows32, cols32 = rows // 2, cols // 2
+    rows64, cols64 = rows // 4, cols // 4
+    pix_max = (1 << bit_depth) - 1
+    T = tables(dev)
+
+    fwd16t, fwd32t, fwd8t = T.fwdt(16, 0), T.fwdt(32, 0), T.fwdt(8, 0)
+    f64t = T.fwd64t()
+    step16, q16, cap16 = _plane_params(qindex, 16, bit_depth, dev)
+    step32, q32, cap32 = _plane_params(qindex, 32, bit_depth, dev)
+    step8, q8, cap8 = _plane_params(qindex, 8, bit_depth, dev)
+    lam_full, lam, lam_split = (float(x) for x in part_lambdas(
+        qindex, bit_depth, dev))
+    qctx = qctx_index(qindex)
+    rm16y, rm8c = T.rate_model(16, 0), T.rate_model(8, 1)
+    rm32y, rm16c = T.rate_model(32, 0), T.rate_model(16, 1)
+    rm64y, rm32c = T.rate_model(64, 0), T.rate_model(32, 1)
+
+    # MV equality maps (and reference uniformity: a merged block codes
+    # ONE ref, so all children must agree)
+    eq32 = (mv8.reshape(rows32, 2, cols32, 2, 2)
+            == mv8[::2, ::2][:, None, :, None, :]).all(dim=4).all(
+                dim=3).all(dim=1)
+    eq64 = (mv8.reshape(rows64, 4, cols64, 4, 2)
+            == mv8[::4, ::4][:, None, :, None, :]).all(dim=4).all(
+                dim=3).all(dim=1)
+    if use_g is not None:
+        g = use_g.to(torch.int32)
+        c32 = g.reshape(rows32, 2, cols32, 2).sum(dim=(1, 3))
+        eq32 = eq32 & ((c32 == 0) | (c32 == 4))
+        c64 = g.reshape(rows64, 4, cols64, 4).sum(dim=(1, 3))
+        eq64 = eq64 & ((c64 == 0) | (c64 == 16))
+
+    g8, g16 = T.coef_gains(8), T.coef_gains(16)
+    g32, g64 = T.coef_gains(32), T.coef_gains(64)
+
+    def code_uv(src_pair, pred_pair, fwdt, step, q, dq_shift, cap, rm,
+                gains):
+        """u and v coded in one _code_nn call (stacked leading axis)."""
+        t = _code_nn(torch.stack(list(src_pair)),
+                     torch.stack(list(pred_pair)), fwdt, step, q, dq_shift,
+                     cap, pix_max, rm, qctx, lam_full, gains, noise_gate)
+        return tuple(x[0] for x in t), tuple(x[1] for x in t)
+
+    # ---- 16 leaf (luma + chroma) ----
+    y16t = _code_nn(src_b, pred_b, fwd16t, step16, q16, 0, cap16, pix_max,
+                    rm16y, qctx, lam_full, g16, noise_gate)
+    cl = code_uv(src_cb, pred_cb, fwd8t, step8, q8, 0, cap8, rm8c, g8)
+    _, (lv16, rec16, d16, r16), (lu8, recu8, du8, ru8), \
+        (lv8, recv8, dv8, rv8) = _skip_rdo(lam_full, y16t, cl[0], cl[1],
+                                           pred_b, pred_cb[0], pred_cb[1])
+
+    # ---- 8x8 split (motion boundaries; TX_8X8 luma + TX_4X4 chroma) ----
+    if sub8 is not None:
+        fwd4t = T.fwdt(4, 0)
+        step4, q4, cap4 = _plane_params(qindex, 4, bit_depth, dev)
+        rm8y, rm4c = T.rate_model(8, 0), T.rate_model(4, 1)
+        src8 = _quads(src_b, 8)
+        sc4 = [_quads(s, 4) for s in src_cb]
+        pc4 = sub8["pred_uv"]              # (2, rows8, cols8, 4, 4)
+        y8t = _code_nn(src8, sub8["pred"], fwd8t, step8, q8, 0, cap8,
+                       pix_max, rm8y, qctx, lam_full, g8, noise_gate)
+        c4 = code_uv(sc4, (pc4[0], pc4[1]), fwd4t, step4, q4, 0, cap4,
+                     rm4c, T.coef_gains(4))
+        _, (l8y, rec8y, d8, r8), (l4u, rec4u, du4, ru4), \
+            (l4v, rec4v, dv4, rv4) = _skip_rdo(lam_full, y8t, c4[0], c4[1],
+                                               sub8["pred"], pc4[0], pc4[1])
+        cost8 = (d8 + du4 + dv4
+                 + lam * (r8 + ru4 + rv4 + sub8["mv_bits"]))
+        cost8s = cost8.reshape(rows, 2, cols, 2).sum(dim=(1, 3)) + lam_split
+        cost16leaf = d16 + du8 + dv8 + lam * (r16 + ru8 + rv8)
+        split16 = cost8s < cost16leaf
+        if use_g is not None:   # golden blocks never split (sub8
+            split16 = split16 & ~use_g  # candidates are all LAST-MC)
+    else:
+        split16 = torch.zeros((rows, cols), dtype=torch.bool, device=dev)
+
+    # split blocks can't join a 32/64 merge
+    eq32 = eq32 & ~split16.reshape(rows32, 2, cols32, 2).any(dim=3).any(dim=1)
+    eq64 = eq64 & ~split16.reshape(rows64, 4, cols64, 4).any(dim=3).any(dim=1)
+
+    # ---- 32 merge (luma 32 DCT shift1 + chroma 16 DCT) ----
+    s32 = _join_blocks(src_b, 2)
+    p32 = _join_blocks(pred_b, 2)
+    y32t = _code_nn(s32, p32, fwd32t, step32 * 0.5, q32, 1, cap32, pix_max,
+                    rm32y, qctx, lam_full, g32, noise_gate)
+    sc16 = [_join_blocks(s, 2) for s in src_cb]
+    pc16 = [_join_blocks(p, 2) for p in pred_cb]
+    cc = code_uv(sc16, pc16, fwd16t, step16, q16, 0, cap16, rm16c, g16)
+    _, (lv32, rec32, d32, r32), (lu16, recu16, du16, ru16), \
+        (lv16c, recv16, dv16, rv16) = _skip_rdo(lam_full, y32t, cc[0], cc[1],
+                                                p32, pc16[0], pc16[1])
+
+    def sum4(x, r2, c2):
+        return x.reshape(r2, 2, c2, 2).sum(dim=(1, 3))
+
+    d16s = (sum4(d16, rows32, cols32) + sum4(du8, rows32, cols32)
+            + sum4(dv8, rows32, cols32))
+    cost16 = (sum4(d16 + lam * r16, rows32, cols32)
+              + sum4(du8 + lam * ru8, rows32, cols32)
+              + sum4(dv8 + lam * rv8, rows32, cols32) + lam_split)
+    d32s = d32 + du16 + dv16
+    cost32 = (d32 + lam * r32 + du16 + lam * ru16 + dv16 + lam * rv16)
+    # distortion gate: merged blocks feed the reference chain, where excess
+    # distortion compounds frame over frame while the bit saving is
+    # one-time; only merge where quality is (near-)preserved
+    ch32 = eq32 & (cost32 < cost16) & (d32s <= d16s * 1.1 + 64.0)
+
+    # ---- 64 merge (luma TX_64X64, coded 32x32, shift2; chroma 32 shift1)
+    s64 = _join_blocks(src_b, 4)
+    p64 = _join_blocks(pred_b, 4)
+    resid64 = (s64 - p64).reshape(-1, 4096).to(torch.float32)
+    coef64 = resid64 @ f64t
+    lv64 = quantize_coefs(coef64, step32 * 0.25, cap32)
+    lv64 = rd_zero(lv64, coef64, q32.to(torch.float32) * 0.25, lam_full,
+                   rm64y.tabs[qctx], g64, noise_gate=noise_gate)
+    dq64 = torch.sign(lv64) * ((lv64.abs() * q32) >> 2)
+    full = torch.zeros((rows64 * cols64, 64, 64), dtype=torch.int32,
+                       device=dev)
+    full[:, :32, :32] = dq64.reshape(-1, 32, 32)
+    rec64 = torch.clamp(p64.reshape(-1, 64, 64)
+                        + inverse_transform(full, 64, 64, 0), 0, pix_max)
+    e64 = rec64 - s64.reshape(-1, 64, 64)
+    d64 = (e64 * e64).sum(dim=(1, 2)).to(torch.float32).reshape(rows64,
+                                                               cols64)
+    lv64 = lv64.reshape(rows64, cols64, 32, 32)
+    dsk64 = (resid64 * resid64).sum(dim=1).reshape(rows64, cols64)
+    y64t = (lv64, rec64.reshape(rows64, cols64, 64, 64), d64,
+            rm64y(lv64, qctx), dsk64)
+    sc32 = [_join_blocks(s, 4) for s in src_cb]
+    pc32 = [_join_blocks(p, 4) for p in pred_cb]
+    c32 = code_uv(sc32, pc32, fwd32t, step32 * 0.5, q32, 1, cap32, rm32c,
+                  g32)
+    _, (lv64, rec64q, d64, r64l), (lu32, recu32, du32, ru32), \
+        (lv32c, recv32, dv32, rv32) = _skip_rdo(lam_full, y64t, c32[0],
+                                                c32[1], p64, pc32[0],
+                                                pc32[1])
+    cost64 = d64 + lam * r64l + du32 + lam * ru32 + dv32 + lam * rv32
+    cost_sel32 = torch.where(ch32, cost32, cost16)
+    cost_sub = sum4(cost_sel32, rows64, cols64) + lam_split
+    d64s = d64 + du32 + dv32
+    d_sub = sum4(torch.where(ch32, d32s, d16s), rows64, cols64)
+    ch64 = eq64 & (cost64 < cost_sub) & (d64s <= d_sub * 1.1 + 256.0)
+
+    # ---- zero the losing branches ----
+    k32 = rep2d(ch64, 2)                      # per 32-region
+    k16 = rep2d(ch64, 4)                   # per 16-block
+    ch32 = ch32 & ~k32
+    c32_16 = rep2d(ch32, 2)
+    m16 = c32_16 | k16                     # 16 losing
+
+    def z16(a):
+        return torch.where(m16[:, :, None, None], 0, a)
+
+    def z32(a):
+        return torch.where(ch32[:, :, None, None], a, 0)
+
+    def z64(a):
+        return torch.where(ch64[:, :, None, None], a, 0)
+
+    # ---- split-16 union embed: 8x8/4x4 levels into the parent slots ----
+    if sub8 is not None:
+        se = split16[:, :, None, None]
+        s8 = rep2d(split16, 2)
+        s8e = s8[..., None, None]
+        lv16 = torch.where(se, _unquads(torch.where(s8e, l8y, 0), 8), lv16)
+        lu8 = torch.where(se, _unquads(torch.where(s8e, l4u, 0), 4), lu8)
+        lv8 = torch.where(se, _unquads(torch.where(s8e, l4v, 0), 4), lv8)
+
+    i16 = torch.int16
+    out = {
+        "lv16": z16(lv16).to(i16), "lu8": z16(lu8).to(i16),
+        "lv8": z16(lv8).to(i16),
+        "lv32": z32(lv32).to(i16), "lu16": z32(lu16).to(i16),
+        "lv16c": z32(lv16c).to(i16),
+        "lv64": z64(lv64).to(i16), "lu32": z64(lu32).to(i16),
+        "lv32c": z64(lv32c).to(i16),
+        "split32": ~ch32 & ~k32,    # True = split into 16s (given no 64)
+        "split64": ~ch64,           # True = split into 32-level
+    }
+
+    # ---- stitched recon planes ----
+    def plane_recon(recS, rec32m, rec64m, n):
+        """recS: (rows, cols, n, n); rec32m: (rows32, cols32, 2n, 2n);
+        rec64m: (rows64, cols64, 4n, 4n) -> (H, W) selected."""
+        as16_32 = (rec32m.reshape(rows32, cols32, 2, n, 2, n)
+                   .permute(0, 2, 1, 4, 3, 5).reshape(rows, cols, n, n))
+        as16_64 = (rec64m.reshape(rows64, cols64, 4, n, 4, n)
+                   .permute(0, 2, 1, 4, 3, 5).reshape(rows, cols, n, n))
+        sel = torch.where(k16[:, :, None, None], as16_64,
+                          torch.where(c32_16[:, :, None, None], as16_32,
+                                      recS))
+        return from_blocks(sel)
+
+    out["recon_y"] = plane_recon(rec16, rec32, rec64q, 16)
+    out["recon_u"] = plane_recon(recu8, recu16, recu32, 8)
+    out["recon_v"] = plane_recon(recv8, recv16, recv32, 8)
+
+    out["split16"] = split16
+    if sub8 is not None:
+        # recon override + per-8 MV transport for split blocks
+        my = rep2d(s8, 8)                  # luma pixel mask
+        mc = rep2d(s8, 4)                  # chroma pixel mask
+        out["recon_y"] = torch.where(my, from_blocks(rec8y), out["recon_y"])
+        out["recon_u"] = torch.where(mc, from_blocks(rec4u), out["recon_u"])
+        out["recon_v"] = torch.where(mc, from_blocks(rec4v), out["recon_v"])
+        out["mv8"] = torch.where(s8[..., None], sub8["mv8"], rep2d(mv8, 2))
+        # zeroed-where-unsplit grids for CDEF skip gating
+        out["lv8y"] = torch.where(s8e, l8y, 0).to(i16)
+        out["lu4"] = torch.where(s8e, l4u, 0).to(i16)
+        out["lv4"] = torch.where(s8e, l4v, 0).to(i16)
+    else:
+        out["mv8"] = rep2d(mv8, 2)
+    return out
+
+
+def encode_inter_part(y, u, v, ref_y, ref_u, ref_v, qindex: int,
+                      bit_depth: int = 8, sub8: bool = True,
+                      gld_y=None, gld_u=None, gld_v=None, prev_mv=None,
+                      noise_gate=None):
+    """Partitioned inter encode: 16-grid motion search, 16->8x8 splits at
+    motion boundaries, then 32/64 merge RDO.  Returns per-size level
+    grids, MV grids (per-16 "mv" + per-8 "mv8"), split maps, a per-16
+    reference map ("ref16": False=LAST, True=GOLDEN) and recon planes.
+
+    gld_y/u/v: optional GOLDEN reference planes (the scene keyframe's
+    in-loop-filtered recon, ref slot 1).  Blocks where the co-located
+    GOLDEN block beats the LAST motion-searched prediction switch to
+    ref=GOLDEN at the zero MV."""
+    dev = y.device
+    lam, _ = inter_lambdas(qindex, bit_depth, dev)
+    pix_max = (1 << bit_depth) - 1
+    mv8, pred_y, src_b, (p40, mv_px) = _search_mv(y, ref_y, lam, pix_max,
+                                                  prev_mv=prev_mv)
+    pred_u, pred_v = _chroma_mc_pair(ref_u, ref_v, mv8, pix_max)
+
+    s8 = None
+    if sub8:
+        # pure-LAST stage: golden overrides come after, and golden blocks
+        # never split (their candidates would mix references)
+        s8 = _sub8_stage(y, ref_y, ref_u, ref_v, mv8, pred_y, p40, mv_px,
+                         lam, pix_max)
+
+    use_g = None
+    if gld_y is not None:
+        gzy = to_blocks(gld_y, 16)
+        sad_l = (src_b - pred_y).abs().sum(dim=(2, 3)).to(torch.float32)
+        sad_g = (src_b - gzy).abs().sum(dim=(2, 3)).to(torch.float32)
+        # the ref flag costs ~2 bits and breaking the LAST MV field's
+        # coherence costs neighbors' stack quality: golden must win by a
+        # clear margin
+        use_g = sad_g + float(f32(lam * fold_consts(_MV_BIAS, 6.0))) < sad_l
+        ge = use_g[..., None, None]
+        mv8 = torch.where(use_g[..., None], 0, mv8)
+        pred_y = torch.where(ge, gzy, pred_y)
+        pred_u = torch.where(ge, to_blocks(gld_u, 8), pred_u)
+        pred_v = torch.where(ge, to_blocks(gld_v, 8), pred_v)
+
+    out = _inter_partition(src_b, pred_y, (to_blocks(u, 8), to_blocks(v, 8)),
+                           (pred_u, pred_v), mv8, qindex, bit_depth,
+                           sub8=s8, use_g=use_g, noise_gate=noise_gate)
+    out["mv"] = mv8
+    out["mv_px"] = mv_px               # full-pel per-16 winner: the next
+    # frame's temporal search candidate (golden blocks keep their
+    # searched LAST MV here: it is a search hint, not a coded value)
+    out["ref16"] = (use_g if use_g is not None else
+                    torch.zeros(mv8.shape[:2], dtype=torch.bool, device=dev))
+    return out
+
+
+def inter_part_sizes(height: int, width: int):
+    nb = (height // 16) * (width // 16)
+    nb32 = (height // 32) * (width // 32)
+    nb64 = (height // 64) * (width // 64)
+    ncoef = nb * 256 + 2 * nb * 64      # union layout: y16 | u8 | v8
+    return nb, nb32, nb64, ncoef
+
+
+def _gop_step_part_body(frame, ref_fused, qindex: int, height: int,
+                        width: int, cap: int, lf3=None, cdef_s=None,
+                        gld_fused=None, prev_mv=None, noise_gate=None,
+                        bit_depth: int = 8):
+    """One partitioned inter frame against the fused running recon, with
+    the prefix transport of inter_part_layout: [head(8) | L2 word bitmap |
+    packed split16/32/64 + ref16 flags | per-16 mv (y then x) | dynamic
+    stream].  The dynamic stream is a stable compaction of three keyed
+    sections in order: nonzero significance-bitmap words, nonzero
+    coefficient levels, and the 8x8 sub-MVs of split16 blocks; what was
+    not kept follows in its original order, as the reference's stable
+    key sort leaves it.  `cap` is unused (the stream always covers the
+    worst case and only its used prefix is fetched).  lf3: None or 3
+    loop-filter levels; cdef_s: None or 4 coded CDEF strengths; gld_fused:
+    optional fused GOLDEN reference.  Returns (int16 buffer, new fused
+    recon int32, mv_px (rows, cols, 2) for the next frame's search)."""
+    from av1tpu_torch.models.intra_part import (
+        _embed64, _merge_quads, _merge_tiles4,
+    )
+
+    yy, uu, vv = unfuse(frame, height, width)
+    ry, ru, rv = unfuse(ref_fused, height, width)
+    gkw = {}
+    if gld_fused is not None:
+        gy, gu, gv = unfuse(gld_fused, height, width)
+        gkw = {"gld_y": gy, "gld_u": gu, "gld_v": gv}
+    o = encode_inter_part(yy, uu, vv, ry, ru, rv, qindex,
+                          bit_depth=bit_depth, prev_mv=prev_mv,
+                          noise_gate=noise_gate, **gkw)
+    y16 = _embed64(_merge_quads(o["lv16"], o["lv32"], 16), o["lv64"])
+    u8 = _merge_tiles4(_merge_quads(o["lu8"], o["lu16"], 8), o["lu32"], 8)
+    v8 = _merge_tiles4(_merge_quads(o["lv8"], o["lv16c"], 8), o["lv32c"], 8)
+    flat = torch.cat([y16.reshape(-1), u8.reshape(-1), v8.reshape(-1)])
+
+    sig = flat != 0
+    rows, cols = height // 16, width // 16
+    nb = rows * cols
+    bitmap = pack_bits(sig)
+    w_nz = bitmap != 0
+    count = sig.sum(dtype=torch.int32)
+    countw = w_nz.sum(dtype=torch.int32)
+    ns = o["split16"].sum(dtype=torch.int32)
+    # L2: one bit per bitmap word
+    l2 = pack_bits(w_nz)
+    # per-16-block groups of 8 sub-MVs [y00 x00 y01 x01 y10 x10 y11 x11]
+    mvd = (o["mv8"].reshape(rows, 2, cols, 2, 2).permute(0, 2, 1, 3, 4)
+           .reshape(nb * 8))
+    keep = torch.cat([w_nz, sig, o["split16"].reshape(-1)
+                      .repeat_interleave(8)])
+    stream = torch.cat([bitmap, flat, mvd.to(torch.int16)])
+    dyn = stable_partition(stream, keep)
+    zero = torch.zeros((), dtype=torch.int32, device=frame.device)
+    head = torch.stack([count & 0x7FFF, count >> 15,
+                        countw & 0x7FFF, countw >> 15,
+                        ns & 0x7FFF, ns >> 15, zero, zero]).to(torch.int16)
+    buf = torch.cat([
+        head, l2, pack_bits(o["split16"]), pack_bits(o["split32"]),
+        pack_bits(o["split64"]), pack_bits(o["ref16"]),
+        o["mv"][..., 0].reshape(-1).to(torch.int16),
+        o["mv"][..., 1].reshape(-1).to(torch.int16), dyn])
+
+    rcy, rcu, rcv = o["recon_y"], o["recon_u"], o["recon_v"]
+    if lf3 is not None:
+        from av1tpu_torch.models.deblock import deblock_planes, edge_gates_j
+        v_on, h_on = edge_gates_j(o["split32"], o["split64"], rows, cols)
+        rcy, rcu, rcv = deblock_planes(rcy, rcu, rcv, v_on, h_on,
+                                       lf3[0], lf3[1], lf3[2], 0,
+                                       bit_depth, split16=o["split16"])
+    if cdef_s is not None:
+        from av1tpu_torch.models.cdef import (
+            cdef_planes, merge_skip16, skip8_split, skip16_from_levels,
+        )
+        s16 = merge_skip16(skip16_from_levels(y16, u8, v8), o["split32"],
+                           o["split64"])
+        rcy, rcu, rcv = cdef_planes(
+            rcy, rcu, rcv, skip8_split(s16, o["split16"], y16, u8, v8),
+            cdef_s[0], cdef_s[1], cdef_s[2], cdef_s[3], 3, bit_depth)
+    new_ref = torch.cat([rcy.reshape(-1), rcu.reshape(-1), rcv.reshape(-1)])
+    return buf, new_ref, o["mv_px"]
+
+
+def encode_gop_chunk_part(frames: torch.Tensor, ref_fused: torch.Tensor,
+                          qindex: int, height: int, width: int,
+                          cap: int = 131072, lf=None, cdef_s=None,
+                          gld_fused=None, prev_mv=None, noise_gate=None,
+                          bit_depth: int = 8):
+    """Partitioned GOP chunk: a Python loop over the chunk's frames that
+    carries the fused recon and the full-pel MV field on the device (the
+    reference scans the same step).  gld_fused: optional GOLDEN reference
+    (the scene keyframe's filtered recon), constant across the scene.
+    prev_mv: optional (rows, cols, 2) full-pel MV field carried from the
+    previous chunk's last frame (zeros for a scene's first chunk, as the
+    reference's scan starts).  Returns (list of K int16 buffers, ref, mv):
+    thread mv into the next chunk's prev_mv; fetch per-frame prefixes with
+    fetch_inter_part_prefix(bufs[k], ...)."""
+    lf3 = tuple(int(x) for x in lf) if (lf is not None and any(lf)) else None
+    cs = None if cdef_s is None else tuple(int(x) for x in cdef_s)
+    if prev_mv is None:
+        prev_mv = torch.zeros((height // 16, width // 16, 2),
+                              dtype=torch.int32, device=frames.device)
+    bufs = []
+    ref, pm = ref_fused, prev_mv
+    for k in range(frames.shape[0]):
+        buf, ref, pm = _gop_step_part_body(
+            frames[k], ref, qindex, height, width, cap, lf3, cs, gld_fused,
+            pm, noise_gate, bit_depth)
+        bufs.append(buf)
+    return bufs, ref, pm
+
+
+def inter_part_layout(height: int, width: int):
+    """Copy of av1tpu/models/inter_v.py:inter_part_layout: the prefix
+    transport's offsets.  The host needs only head+fixed plus the dynamic
+    prefix of length countw + count + 8*ns (nonzero bitmap words, nonzero
+    levels, split-block sub-MVs)."""
+    nb, nb32, nb64, ncoef = inter_part_sizes(height, width)
+    nwords = ncoef // 16
+    l2 = nwords // 16
+
+    def w(n):
+        return (n + 15) // 16
+
+    off_l2 = 8
+    off_s16 = off_l2 + l2
+    off_s32 = off_s16 + w(nb)
+    off_s64 = off_s32 + w(nb32)
+    off_ref = off_s64 + w(nb64)
+    off_mv = off_ref + w(nb)
+    fixed = off_mv + 2 * nb
+    total = fixed + nwords + ncoef + 8 * nb
+    return {"nb": nb, "nb32": nb32, "nb64": nb64, "ncoef": ncoef,
+            "nwords": nwords, "l2": l2, "off_l2": off_l2,
+            "off_s16": off_s16, "off_s32": off_s32, "off_s64": off_s64,
+            "off_ref": off_ref, "off_mv": off_mv, "fixed": fixed,
+            "total": total}
+
+
+def _unpackb(words: np.ndarray, n: int):
+    """Inverse of pack_bits on the host: int16 words -> (n,) bool."""
+    return np.unpackbits(words.view(np.uint16).view(np.uint8),
+                         bitorder="little")[:n].astype(bool)
+
+
+def inter_part_prefix_len(head: np.ndarray, height: int, width: int):
+    """Total prefix elements (head+fixed+dynamic) needed from a
+    partitioned inter buffer whose first 8 int16s are `head`."""
+    lay = inter_part_layout(height, width)
+    count = int(head[0]) | (int(head[1]) << 15)
+    countw = int(head[2]) | (int(head[3]) << 15)
+    ns = int(head[4]) | (int(head[5]) << 15)
+    return lay["fixed"] + countw + count + 8 * ns
+
+
+def fetch_inter_part_prefix(buf_dev: torch.Tensor, height: int, width: int,
+                            state: dict | None = None) -> np.ndarray:
+    """Fetch ONLY the used prefix of a partitioned inter buffer from the
+    device: one speculative fetch sized from the last frame's usage, plus
+    a tail fetch on undershoot.  The slices are cut on the device, so only
+    they are copied.  Returns an array split_compact_inter_part accepts."""
+    lay = inter_part_layout(height, width)
+    guess = lay["fixed"] + 98304
+    if state is not None:
+        guess = state.get("guess", guess)
+    first = buf_dev[: min(guess, lay["total"])].cpu().numpy()
+    need = inter_part_prefix_len(first[:8], height, width)
+    if need > len(first):
+        first = np.concatenate(
+            [first, buf_dev[len(first) : need].cpu().numpy()])
+    if state is not None:  # 1.5x headroom keeps refetches rare
+        state["guess"] = need + (need - lay["fixed"]) // 2 + 4096
+    return first[:need]
+
+
+def split_compact_inter_part(buf: np.ndarray, height: int, width: int):
+    """Copy of av1tpu/models/inter_v.py:split_compact_inter_part: host
+    split of the prefix transport -> (count, bitmap u16 dense, vals i16,
+    split16, split32, split64, ref16, mv (r8, c8, 2) i32 per-8-block).
+    `buf` may be the full buffer or just the used prefix."""
+    buf = np.asarray(buf)
+    lay = inter_part_layout(height, width)
+    nb, nb32, nb64 = lay["nb"], lay["nb32"], lay["nb64"]
+    nwords = lay["nwords"]
+    r16, c16 = height // 16, width // 16
+    count = int(buf[0]) | (int(buf[1]) << 15)
+    countw = int(buf[2]) | (int(buf[3]) << 15)
+    ns = int(buf[4]) | (int(buf[5]) << 15)
+    w_nz = _unpackb(buf[lay["off_l2"] : lay["off_s16"]], nwords)
+    split16 = _unpackb(buf[lay["off_s16"] : lay["off_s32"]],
+                       nb).reshape(r16, c16)
+    split32 = _unpackb(buf[lay["off_s32"] : lay["off_s64"]],
+                       nb32).reshape(height // 32, width // 32)
+    split64 = _unpackb(buf[lay["off_s64"] : lay["off_ref"]],
+                       nb64).reshape(height // 64, width // 64)
+    ref16 = _unpackb(buf[lay["off_ref"] : lay["off_mv"]],
+                     nb).reshape(r16, c16)
+    mv16 = np.asarray(buf[lay["off_mv"] : lay["fixed"]]).astype(np.int32)
+    dyn = buf[lay["fixed"] : lay["fixed"] + countw + count + 8 * ns]
+    bitmap = np.zeros(nwords, np.uint16)
+    bitmap[w_nz] = dyn[:countw].view(np.uint16)
+    vals = dyn[countw : countw + count]
+    # per-8 MV grid: parent per-16 MV everywhere, split blocks overridden
+    # by their transported sub-MVs
+    mv = np.stack([mv16[:nb], mv16[nb:]], axis=-1).reshape(r16, c16, 2)
+    mv8 = np.repeat(np.repeat(mv.reshape(r16, 1, c16, 1, 2), 2, 1), 2, 3)
+    if ns:
+        mvd = np.asarray(dyn[countw + count :]).astype(
+            np.int32).reshape(ns, 2, 2, 2)
+        ri, ci = np.nonzero(split16)
+        mv8[ri, :, ci, :, :] = mvd
+    mv8 = mv8.reshape(height // 8, width // 8, 2)
+    return count, bitmap, vals, split16, split32, split64, ref16, mv8

@@ -69,6 +69,29 @@ def _plane_params(qindex: int, n: int, bit_depth: int, device):
             torch.as_tensor(cap, device=device))
 
 
+# pixel-domain RD lambda = LAM_PIX * ac^2 (the partition, wavefront and
+# inter pipelines share it)
+LAM_PIX = 0.0234
+
+
+def ac_squared(qindex: int, bit_depth: int, device) -> np.float32:
+    """ac * ac in float32 for the 16x16 AC step: the base of every scalar
+    lambda."""
+    ac = np.float32(plane_params_np(qindex, 16, bit_depth, device)[0][1])
+    return np.float32(ac * ac)
+
+
+def fold_consts(*consts: float) -> np.float32:
+    """The one float32 constant that the reference's compiled graph
+    multiplies by where its source reads x * c1 * c2 * ...: XLA rewrites
+    (x * c1) * c2 into x * (c1 * c2) and folds the constants in float32,
+    left to right."""
+    out = np.float32(consts[0])
+    for c in consts[1:]:
+        out = np.float32(out * np.float32(c))
+    return out
+
+
 # above-right availability for 16x16 blocks in 64x64 superblocks (spec
 # BlockDecoded model), rows by block row % 4, cols by block col % 4
 _UR_MASK = np.array([[1, 1, 1, 1],
@@ -112,6 +135,19 @@ def _directional_pred(ae: torch.Tensor, dx: int, n: int) -> torch.Tensor:
     p = _rs_pred(g0 * (32 - shift) + g1 * shift)
     last = ae[:, 2 * n - 1][:, None, None]
     return torch.where(hit_max[None], last, p)
+
+
+def log2_rate(lv: torch.Tensor, dims) -> torch.Tensor:
+    """The log2 level-rate proxy, 2 + log2(1 + |l|) per nonzero level,
+    summed over dims (float32)."""
+    a = lv.to(torch.float32).abs()
+    return (torch.where(a > 0, 2.0, 0.0) + torch.log2(1.0 + a)).sum(dim=dims)
+
+
+def rep2d(a: torch.Tensor, f: int) -> torch.Tensor:
+    """Repeat each entry of the first two axes f times (a block map at a
+    finer grid)."""
+    return a.repeat_interleave(f, 0).repeat_interleave(f, 1)
 
 
 def to_blocks(plane: torch.Tensor, n: int) -> torch.Tensor:
@@ -302,12 +338,36 @@ def wrap16(x: torch.Tensor) -> torch.Tensor:
     return (((x + 32768) & 0xFFFF) - 32768).to(torch.int16)
 
 
+def pack_bits(b: torch.Tensor) -> torch.Tensor:
+    """Flags -> int16 words, 16 per word, LSB first, zero-padded to a whole
+    word (the reference shifts and sums in uint16 and bitcasts; here it is
+    int32 arithmetic wrapped to int16, so a word with bit 15 set comes out
+    negative with the same bits)."""
+    v = b.reshape(-1).to(torch.int32)
+    pad = (-v.shape[0]) % 16
+    if pad:
+        v = torch.cat([v, torch.zeros(pad, dtype=torch.int32,
+                                      device=v.device)])
+    shifts = torch.arange(16, dtype=torch.int32, device=v.device)
+    return wrap16((v.reshape(-1, 16) << shifts).sum(dim=1, dtype=torch.int32))
+
+
 def sig_bitmap(flat: torch.Tensor) -> torch.Tensor:
     """Significance bitmap: 1 bit per coefficient, 16 per int16 word, LSB
-    first (computed in int32, wrapped to int16)."""
-    sig = (flat != 0).to(torch.int32).reshape(-1, 16)
-    shifts = torch.arange(16, dtype=torch.int32, device=flat.device)
-    return wrap16((sig << shifts).sum(dim=1, dtype=torch.int32))
+    first."""
+    return pack_bits(flat != 0)
+
+
+def stable_partition(stream: torch.Tensor, keep: torch.Tensor):
+    """The elements of `stream` where `keep` is set, in order, then the
+    others, in order: what the reference's stable key sort (kept keys =
+    position, dropped keys all equal) produces, as one cumsum-scatter."""
+    k = keep.to(torch.int32)
+    n_keep = k.sum()
+    pos_keep = torch.cumsum(k, dim=0) - 1
+    pos_drop = n_keep + torch.cumsum(1 - k, dim=0) - 1
+    idx = torch.where(keep, pos_keep, pos_drop).to(torch.int64)
+    return torch.empty_like(stream).scatter_(0, idx, stream)
 
 
 def compact_values(flat: torch.Tensor, cap: int) -> tuple:

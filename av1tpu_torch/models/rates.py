@@ -1,8 +1,9 @@
 """CDF-derived rate model on tensors (port of av1tpu/models/rates.py).
 
-The numpy table functions (coef_rate_tables, txb_skip_bits, scan_rank,
-eob_bits_tables) are copies of the JAX package's, over the port's own copy
-of the default CDFs (av1tpu_torch.spec.tables); tests hold them equal.
+The numpy table functions (coef_rate_tables, txb_skip_bits,
+kf_mode_bits, scan_rank, eob_bits_tables) are copies of the JAX package's,
+over the port's own copy of the default CDFs (av1tpu_torch.spec.tables);
+tests hold them equal.
 """
 
 from __future__ import annotations
@@ -89,6 +90,17 @@ def txb_skip_bits(tx_ctx: int) -> np.ndarray:
         out[qctx, 0] = _avg_sym_bits(rows, 0)
         out[qctx, 1] = _avg_sym_bits(rows, 1)
     return out
+
+
+@functools.cache
+def kf_mode_bits() -> np.ndarray:
+    """(13,) float32: expected kf_y_mode bits per intra mode enum value,
+    averaged over the 5x5 neighbor-mode context grid."""
+    m = tables.mode_cdfs()["kf_y_mode"]  # (5, 5, vals)
+    rows = m.reshape(-1, m.shape[-1])
+    return np.array(
+        [float(np.mean([_sym_bits(r, s) for r in rows]))
+         for s in range(13)], np.float32)
 
 
 @functools.cache

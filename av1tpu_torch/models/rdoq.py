@@ -19,15 +19,15 @@ _KEEP_ALWAYS = 8
 
 @functools.cache
 def coef_gains(n: int, tx_type: int = 0) -> np.ndarray:
-    """Copy of av1tpu/models/rdoq.py:coef_gains for n <= 32 (numpy): (n*n,)
-    pixel-SSE gain of each coefficient = 1 / rownorm^2 of the forward
-    matrix.  (TX_64X64 is not on the port's path.)"""
-    from av1tpu_torch.ops.transforms import forward_matrix
+    """Copy of av1tpu/models/rdoq.py:coef_gains (numpy): (m,) pixel-SSE
+    gain of each coded coefficient = 1 / rownorm^2 of the forward matrix
+    (m = min(n, 32)^2: TX_64X64 codes the top-left 32x32)."""
+    from av1tpu_torch.ops.transforms import forward_matrix, fwd64
 
     if n == 64:
-        raise NotImplementedError("64x64 gains belong to the partitioned "
-                                  "path, not ported yet")
-    fwd = np.asarray(forward_matrix(n, n, tx_type), np.float64)
+        fwd = np.asarray(fwd64(), np.float64)
+    else:
+        fwd = np.asarray(forward_matrix(n, n, tx_type), np.float64)
     return (1.0 / (fwd * fwd).sum(axis=1)).astype(np.float32)
 
 

@@ -43,7 +43,7 @@ def _tf_neighbor(key_fused, neigh, acc, height: int, width: int,
     pix_max = (1 << bit_depth) - 1
     ky, ku, kv = unfuse(key_fused, height, width)
     nyp, nup, nvp = unfuse(neigh, height, width)
-    mv8, pred_y, _ = _search_mv(ky, nyp, np.float32(4.0), pix_max)
+    mv8, pred_y, _, _ = _search_mv(ky, nyp, np.float32(4.0), pix_max)
     pred_u, pred_v = _chroma_mc_pair(nup, nvp, mv8, pix_max)
     pred_yp, pred_up, pred_vp = (from_blocks(p)
                                  for p in (pred_y, pred_u, pred_v))

@@ -370,3 +370,17 @@ def forward_matrix(w: int, h: int, tx_type: int = 0) -> np.ndarray:
     # column k is the response to unit coefficient k
     m = np.ascontiguousarray(resp.T).astype(np.float64) / amp
     return np.linalg.pinv(m).astype(np.float32)
+
+
+@functools.cache
+def fwd64() -> np.ndarray:
+    """Forward transform for TX_64X64 as a (1024, 4096) float32 matrix: the
+    pseudo-inverse of the integer inverse linearized over the 1024 coded
+    (top-left 32x32) coefficients, the only ones the bitstream carries
+    (av1tpu/models/intra_part.py:_fwd64, built from the port's own int64
+    inverse)."""
+    units = torch.zeros((1024, 64, 64), dtype=torch.int64)
+    idx = torch.arange(1024)
+    units[idx, idx // 32, idx % 32] = 1 << 12  # scale for rounding fidelity
+    pixels = _inverse_2d(units, 64, 64, 0).reshape(1024, 4096).numpy()
+    return np.linalg.pinv((pixels / (1 << 12)).T).astype(np.float32)

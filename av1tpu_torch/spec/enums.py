@@ -1,6 +1,7 @@
 """AV1 enums and transform geometry the port reads (copy of the parts of
 av1tpu/spec/enums.py it calls): block and transform size constants, the
-coefficient CDF tx-size context and the default scan order."""
+coefficient CDF tx-size context, the default scan order and the intra
+prediction modes."""
 
 from __future__ import annotations
 
@@ -10,6 +11,21 @@ import os
 import numpy as np
 
 BLOCK_16X16 = 6
+
+# intra prediction modes (spec y_mode values)
+DC_PRED = 0
+V_PRED = 1
+H_PRED = 2
+D45_PRED = 3
+D135_PRED = 4
+D113_PRED = 5
+D157_PRED = 6
+D203_PRED = 7
+D67_PRED = 8
+SMOOTH_PRED = 9
+SMOOTH_V_PRED = 10
+SMOOTH_H_PRED = 11
+PAETH_PRED = 12
 
 TX_4X4 = 0
 TX_8X8 = 1

@@ -8,7 +8,9 @@ Shapes:
           coeff_br (4, 5, 2, 21 ctx, 4 syms), txb_skip (4, 5, 13 ctx, 2
           syms), eob_pt_{16..1024} (4, 2 plane, 2 ctx, N syms), and the
           other coefficient CDFs (inverted iCDF convention)
-  subpel: regular / smooth / sharp / bilinear (16 positions x 8 taps)
+  modes:  kf_y_mode (5, 5, 13 syms) and the other mode CDFs
+  subpel: regular / smooth / sharp / bilinear (16 positions x 8 taps), and
+          regular_4, the 4-tap bank stored 8 wide
 """
 
 from __future__ import annotations
@@ -33,6 +35,10 @@ def quant() -> dict[str, np.ndarray]:
 
 def coef_cdfs() -> dict[str, np.ndarray]:
     return _load("coef_cdfs.npz")
+
+
+def mode_cdfs() -> dict[str, np.ndarray]:
+    return _load("mode_cdfs.npz")
 
 
 def subpel_filters() -> dict[str, np.ndarray]:

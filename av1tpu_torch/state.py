@@ -51,6 +51,18 @@ class Tables:
         return self._get(("fwdt", n, tx_type), lambda: self._t(
             forward_matrix(n, n, tx_type).T, torch.float32))
 
+    def fwd64t(self) -> torch.Tensor:
+        """(4096, 1024) float32: transposed TX_64X64 forward matrix over
+        the 1024 coded coefficients (coefs = r @ fwd64t)."""
+        from av1tpu_torch.ops.transforms import fwd64
+        return self._get("fwd64t", lambda: self._t(fwd64().T, torch.float32))
+
+    def subpel_bank4(self) -> torch.Tensor:
+        """(16, 8) int32 4-tap regular bank (zero taps 0, 1, 6, 7), for
+        prediction blocks with a dimension <= 4."""
+        return self._get("subpel4", lambda: self._t(
+            spec_tables.subpel_filters()["regular_4"], torch.int32))
+
     def subpel_bank(self) -> torch.Tensor:
         """(16, 8) int32 EIGHTTAP-regular bank."""
         return self._get("subpel", lambda: self._t(self.subpel_bank_np(),
@@ -80,10 +92,22 @@ class Tables:
             return self._t(off, torch.float32)
         return self._get(("q_offsets", n2), build)
 
-    def coef_gains(self, n: int) -> torch.Tensor:
+    def coef_gains(self, n: int, tx_type: int = 0) -> torch.Tensor:
         from av1tpu_torch.models.rdoq import coef_gains
-        return self._get(("gains", n), lambda: self._t(coef_gains(n),
-                                                       torch.float32))
+        return self._get(("gains", n, tx_type), lambda: self._t(
+            coef_gains(n, tx_type), torch.float32))
+
+    def rate_model(self, n: int, ptype: int):
+        """The RateModel of one transform size / plane type on this
+        device."""
+        from av1tpu_torch.models.rates import RateModel
+        return self._get(("rm", n, ptype),
+                         lambda: RateModel(n, ptype, self.device))
+
+    def const(self, key, build):
+        """A module's own constant tensors on this device: `build(device)`
+        runs once per key."""
+        return self._get(("const", key), lambda: build(self.device))
 
     def rate_tabs(self, n: int, ptype: int) -> torch.Tensor:
         """(4, 256) float32 coefficient-magnitude bits per quality bucket."""

@@ -18,10 +18,23 @@ exits non-zero:
    two-scene clip;
 5. slice: the fast-preset GOP encode at 1920x1080 (one warm-up run, one
    timed run) with the kernel's launch counter read around the timed run
-   (561 launches: three plane stacks of 187 steps).
+   (561 launches: three plane stacks of 187 steps);
+6. quality parity: phase 4 again with the quality preset
+   (partitions=True: partition probe, wavefront keyframe, partitioned
+   inter step);
+7. quality slice: the quality-preset GOP encode of the same 1920x1080 clip
+   (one warm-up run, one timed run).  The kernel's launch counter is set
+   to 0 before the timed run and read after it: 120 launches, one per
+   16x16 column of the first block row of the one probed frame's luma
+   plane (the probe's first-row chain is the kernel's function; every
+   other residual coder of this path prunes with rd_zero, which reads the
+   coefficients, and so has no kernel yet).  Spies assert that the
+   keyframe recon, the inter carry (recon and MV field) and GOLDEN live on
+   the card, and the bytes must come out below the fast preset's.
 
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.  Imports nothing of JAX or av1tpu.
+The line before the last is the kernels' JSON record (launches summed over
+the two timed runs, with the count of each path beside it); the last line
+is {"ok": true, "device": {...}}.  Imports nothing of JAX or av1tpu.
 """
 
 from __future__ import annotations
@@ -203,17 +216,19 @@ def kernel_vs_plain(torch):
     return recs
 
 
-def parity(torch):
-    """Phase 4: the port on the card against the port on the CPU."""
+def parity(torch, partitions: bool = False):
+    """Phases 4 and 6: the port on the card against the port on the CPU,
+    fast preset or quality preset."""
     from av1tpu_torch.cli import encode_clip
 
     clip = two_scene_clip()
-    kw = dict(chunk=4, metric="psnr", partitions=False, scene_threshold=2.5,
-              gop=True)
+    kw = dict(chunk=4, metric="psnr", partitions=partitions,
+              scene_threshold=2.5, gop=True)
     s_gpu, st_gpu = encode_clip(clip, 120, device="cuda", **kw)
     s_cpu, st_cpu = encode_clip(clip, 120, device="cpu", **kw)
     same = sum(a == b for a, b in zip(s_gpu, s_cpu))
-    print(f"parity: tus gpu={len(s_gpu)} cpu={len(s_cpu)} identical={same} "
+    name = "quality parity" if partitions else "parity"
+    print(f"{name}: tus gpu={len(s_gpu)} cpu={len(s_cpu)} identical={same} "
           f"bytes gpu={st_gpu['bytes']} cpu={st_cpu['bytes']} "
           f"psnr_y gpu={st_gpu['psnr_y']} cpu={st_cpu['psnr_y']}", flush=True)
     assert len(s_gpu) == len(s_cpu) == clip.num_frames
@@ -222,16 +237,47 @@ def parity(torch):
     assert abs(st_gpu["bytes"] - st_cpu["bytes"]) <= 0.01 * st_cpu["bytes"]
 
 
-def slice_1080p(torch):
-    """Phase 5.  Returns the kernel's launch count in the timed run: one
-    launch per first-row column and per later block row, for the probe's
-    luma, the probe's U and V together and the keyframe's U and V together
-    (the keyframe's luma takes the RDO path, which has no kernel)."""
-    import av1tpu_torch.models.inter_v as inter_v
-    import av1tpu_torch.models.intra_v as intra_v
-    from av1tpu_torch.utils.yuv import synthetic_clip
+def _timed_slice(torch, clip, name: str, partitions: bool):
+    """One warm-up and one timed 1080p encode with the kernel's launch
+    count set to 0 just before the timed run and read just after.  Returns
+    (streams, stats, launches)."""
     from av1tpu_torch.cli import encode_clip
     from av1tpu_torch.kernels.transform_quant import transform_quantize
+
+    kw = dict(chunk=CHUNK, metric="psnr", gop=True, partitions=partitions,
+              device="cuda")
+    t = time.perf_counter()
+    encode_clip(clip, QINDEX, **kw)                      # warm-up
+    torch.cuda.synchronize()
+    print(f"{name} warm-up: {time.perf_counter() - t:.3f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    transform_quantize.launches = 0
+    streams, stats = encode_clip(clip, QINDEX, **kw)
+    torch.cuda.synchronize()
+    launches = transform_quantize.launches
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{name} stats:", json.dumps(stats), flush=True)
+    print(f"{name}: frames={clip.num_frames} fps={stats['encode_fps']} "
+          f"bytes={stats['bytes']} psnr_y={stats['psnr_y']} "
+          f"launches={launches} max_memory_allocated={peak}", flush=True)
+    assert len(streams) == clip.num_frames
+    assert all(len(s) > 0 for s in streams)
+    assert stats["scenes"] == 1, stats["scenes"]
+    assert stats["psnr_y"] >= 30.0, stats["psnr_y"]
+    return streams, stats, launches
+
+
+ROWS, COLS = 1088 // 16, 1920 // 16       # the padded 1080p block grid
+
+
+def slice_1080p(torch, clip):
+    """Phase 5.  Returns (the kernel's launch count in the timed run, the
+    stats): one launch per first-row column and per later block row, for
+    the probe's luma, the probe's U and V together and the keyframe's U
+    and V together (the keyframe's luma takes the RDO path, which has no
+    kernel)."""
+    import av1tpu_torch.models.inter_v as inter_v
+    import av1tpu_torch.models.intra_v as intra_v
 
     # record where the keyframe recon and the inter carry live
     seen = {"key": set(), "carry": set()}
@@ -250,30 +296,53 @@ def slice_1080p(torch):
 
     intra_v.encode_intra_v_key_recon = key_spy
     inter_v.encode_gop_chunk = gop_spy
-
-    clip = synthetic_clip(1920, 1080, FRAMES, seed=11)
-    kw = dict(chunk=CHUNK, metric="psnr", gop=True, partitions=False,
-              device="cuda")
-    t = time.perf_counter()
-    encode_clip(clip, QINDEX, **kw)                      # warm-up
-    torch.cuda.synchronize()
-    print(f"slice warm-up: {time.perf_counter() - t:.3f} s", flush=True)
-    torch.cuda.reset_peak_memory_stats()
-    transform_quantize.launches = 0
-    streams, stats = encode_clip(clip, QINDEX, **kw)
-    torch.cuda.synchronize()
-    launches = transform_quantize.launches
-    peak = torch.cuda.max_memory_allocated()
-    print("slice stats:", json.dumps(stats), flush=True)
-    print(f"slice: fps={stats['encode_fps']} bytes={stats['bytes']} "
-          f"psnr_y={stats['psnr_y']} launches={launches} "
-          f"max_memory_allocated={peak}", flush=True)
-    assert len(streams) == FRAMES and all(len(s) > 0 for s in streams)
-    rows, cols = (1088 // 16, 1920 // 16)   # the padded 1080p block grid
-    assert stats["scenes"] == 1, stats["scenes"]
-    assert launches == 3 * (cols + rows - 1), launches
+    try:
+        _, stats, launches = _timed_slice(torch, clip, "slice", False)
+    finally:
+        intra_v.encode_intra_v_key_recon = key_fn
+        inter_v.encode_gop_chunk = gop_fn
+    assert launches == 3 * (COLS + ROWS - 1), launches
     assert seen["key"] == {"cuda"} and seen["carry"] == {"cuda"}, seen
-    assert stats["psnr_y"] >= 30.0, stats["psnr_y"]
+    return launches, stats
+
+
+def quality_slice_1080p(torch, clip, fast_stats):
+    """Phase 7.  Returns the kernel's launch count in the timed run: one
+    launch per 16x16 column of the first block row of the probed frame's
+    luma plane (one frame is probed per scene at a fixed q)."""
+    import av1tpu_torch.models.inter_v as inter_v
+    import av1tpu_torch.models.intra_wave as intra_wave
+
+    seen = {"key": set(), "carry": set(), "mv": set(), "golden": set()}
+    key_fn, gop_fn = (intra_wave.encode_intra_wave_key_recon,
+                      inter_v.encode_gop_chunk_part)
+
+    def key_spy(*a, **k):
+        buf, recon = key_fn(*a, **k)
+        seen["key"].add(recon.device.type)
+        return buf, recon
+
+    def gop_spy(*a, **k):
+        seen["golden"].add(k["gld_fused"].device.type)
+        bufs, ref, mv = gop_fn(*a, **k)
+        seen["carry"].add(ref.device.type)
+        seen["mv"].add(mv.device.type)
+        return bufs, ref, mv
+
+    intra_wave.encode_intra_wave_key_recon = key_spy
+    inter_v.encode_gop_chunk_part = gop_spy
+    try:
+        _, stats, launches = _timed_slice(torch, clip, "quality slice", True)
+    finally:
+        intra_wave.encode_intra_wave_key_recon = key_fn
+        inter_v.encode_gop_chunk_part = gop_fn
+    assert launches == COLS, launches
+    assert all(v == {"cuda"} for v in seen.values()), seen
+    print(f"quality vs fast at {clip.num_frames} frames: bytes "
+          f"{stats['bytes']} vs {fast_stats['bytes']}, psnr_y "
+          f"{stats['psnr_y']} vs {fast_stats['psnr_y']}, fps "
+          f"{stats['encode_fps']} vs {fast_stats['encode_fps']}", flush=True)
+    assert stats["bytes"] < fast_stats["bytes"]
     return launches
 
 
@@ -309,9 +378,20 @@ def main() -> int:
     parity(torch)
     _phase("parity", t)
 
+    from av1tpu_torch.utils.yuv import synthetic_clip
+    clip = synthetic_clip(1920, 1080, FRAMES, seed=11)
+
     t = time.perf_counter()
-    launches = slice_1080p(torch)
+    launches_fast, fast_stats = slice_1080p(torch, clip)
     _phase("slice_1080p", t)
+
+    t = time.perf_counter()
+    parity(torch, partitions=True)
+    _phase("quality_parity", t)
+
+    t = time.perf_counter()
+    launches_quality = quality_slice_1080p(torch, clip, fast_stats)
+    _phase("quality_slice_1080p", t)
 
     main_rec = recs[0]                   # (120, 256): a luma block row
     shape_key = [f"{r['b']}x{r['n2']}" for r in recs]
@@ -319,7 +399,9 @@ def main() -> int:
         "name": "transform_quantize", "route": "cuda",
         "source": "av1tpu_torch/csrc/transform_quant.cu",
         "replaces": "av1tpu/kernels/transform_quant.py:64",
-        "launches": launches,
+        "launches": launches_fast + launches_quality,
+        "launches_by_path": {"fast": launches_fast,
+                             "quality": launches_quality},
         "max_abs_err": max(r["max_abs_err"] for r in recs),
         "ms": main_rec["device_us"] / 1e3,
         "plain_ms": main_rec["plain_device_us"] / 1e3,

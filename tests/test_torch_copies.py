@@ -25,6 +25,7 @@ from av1tpu_torch.ops.transforms import forward_matrix
 from av1tpu_torch.spec import enums as port_enums
 from av1tpu_torch.spec import tables as port_tables
 from av1tpu_torch.utils import yuv as port_yuv
+from tests.test_torch_threads import single_torch_thread  # noqa: F401
 
 # (coded w, coded h, render w, render h)
 SIZES = [(128, 64, 128, 64), (1920, 1088, 1920, 1080)]
@@ -104,6 +105,82 @@ def test_packer_copy():
         assert outs[0] == outs[1] and np.array_equal(*blobs)
 
 
+def test_packer_copy_quality_calls():
+    """The wavefront keyframe pack (modes, uv_mode=0, tx_from_mode, txd) and
+    the partitioned inter pack (split maps, per-8 MVs, refs) give the same
+    bytes and CDF blobs through both wrappers."""
+    from av1tpu_torch.models import intra_wave
+
+    ref, port = RefPacker(packer_lib_path()), Packer()
+    h, w = 64, 128
+    rng = np.random.RandomState(12)
+    planes = [rng.randint(0, 256, size=s).astype(np.int32)
+              for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
+    fused = torch.from_numpy(intra_v.fuse_planes(*planes))
+    ncoef = h * w * 3 // 2
+    buf, _ = intra_wave.encode_intra_wave_key_recon(fused, 60, h, w,
+                                                    cap=ncoef)
+    count, bm, vals, modes, txd = intra_wave.split_compact_wave(
+        buf.numpy(), h, w)
+    assert count <= len(vals) and txd.any()
+    blobs = [p.new_cdf_blob() for p in (ref, port)]
+    tiles = [p.pack_tile_compact(bm, vals, h, w, 60, modes=modes, uv_mode=0,
+                                 tx_from_mode=True, cdf_out=blob, txd=txd)
+             for p, blob in zip((ref, port), blobs)]
+    assert tiles[0] == tiles[1] and np.array_equal(*blobs)
+    # partitioned inter frames chained on the keyframe's CDFs
+    r16, c16 = h // 16, w // 16
+    for density, with_refs in ((0.002, False), (0.05, True)):
+        bm, vals = _sparse_levels(rng, ncoef, density)
+        split64 = rng.rand(r16 // 4, c16 // 4) < 0.5
+        split32 = (rng.rand(r16 // 2, c16 // 2) < 0.6) & np.repeat(
+            np.repeat(split64, 2, 0), 2, 1)
+        split16 = (rng.rand(r16, c16) < 0.3) & np.repeat(
+            np.repeat(split32, 2, 0), 2, 1)
+        mv16 = 2 * rng.randint(-16, 17, size=(r16 // 4, c16 // 4, 2))
+        mv = np.repeat(np.repeat(mv16, 8, 0), 8, 1)    # per-8, merge-uniform
+        refs = None
+        if with_refs:
+            refs = np.repeat(np.repeat(rng.rand(r16 // 4, c16 // 4) < 0.5,
+                                       4, 0), 4, 1) & ~split16
+            mv = np.where(np.repeat(np.repeat(refs, 2, 0), 2, 1)[..., None],
+                          0, mv)
+        outs = []
+        for p, blob in zip((ref, port), blobs):
+            outs.append(p.pack_tile_inter_part(
+                bm, vals, split32, split64, mv, h, w, 90, cdf_in=blob,
+                cdf_out=blob, refs=refs, split16=split16))
+        assert outs[0] == outs[1] and np.array_equal(*blobs)
+    with pytest.raises(ValueError):
+        port.pack_tile_inter_part(bm, vals, split32, split64, mv[::2, ::2],
+                                  h, w, 90, split16=split16)
+
+
+def test_quality_host_constant_copies():
+    """kf_mode_bits, the per-transform-type gains, the prediction
+    constants and the mode enums equal the reference's.  (The TX_64X64
+    forward matrix and its gains are held in
+    tests/test_torch_intra_part.py, which builds the reference's anyway.)"""
+    from av1tpu.models import rdoq as ref_rdoq
+    from av1tpu.spec import predict as ref_predict
+    from av1tpu_torch.models import rdoq as port_rdoq
+    from av1tpu_torch.spec import predict as port_predict
+
+    assert np.array_equal(port_rates.kf_mode_bits(), ref_rates.kf_mode_bits())
+    for n, t in [(n, t) for n in (4, 8, 16) for t in range(4)]:
+        assert np.array_equal(port_rdoq.coef_gains(n, t),
+                              ref_rdoq.coef_gains(n, t)), (n, t)
+    assert port_predict.DR_INTRA_DERIVATIVE == ref_predict.DR_INTRA_DERIVATIVE
+    assert port_predict.MODE_ANGLE == ref_predict.MODE_ANGLE
+    for n, wts in port_predict.SM_WEIGHTS.items():
+        assert np.array_equal(wts, ref_predict.SM_WEIGHTS[n])
+    for name in ("DC_PRED", "V_PRED", "H_PRED", "D45_PRED", "D135_PRED",
+                 "D113_PRED", "D157_PRED", "D203_PRED", "D67_PRED",
+                 "SMOOTH_PRED", "SMOOTH_V_PRED", "SMOOTH_H_PRED",
+                 "PAETH_PRED"):
+        assert getattr(port_enums, name) == getattr(ref_enums, name), name
+
+
 @pytest.mark.parametrize("tx_ctx", range(5))
 def test_rate_table_copies(tx_ctx):
     for ptype in (0, 1):
@@ -123,7 +200,8 @@ def test_rate_table_copies(tx_ctx):
                           ref_enums.default_scan(tx_ctx))
 
 
-@pytest.mark.parametrize("name", ["quant", "coef_cdfs", "subpel_filters"])
+@pytest.mark.parametrize("name", ["quant", "coef_cdfs", "subpel_filters",
+                                  "mode_cdfs"])
 def test_spec_table_copies(name):
     a, b = getattr(port_tables, name)(), getattr(ref_tables, name)()
     assert sorted(a) == sorted(b)

@@ -1,5 +1,6 @@
 """Port parity for the loop filters and the keyframe temporal filter:
-deblock_planes, cdef_planes, the CDEF strength search and
+deblock_planes (uniform grid and the split16 branch), edge_gates_j,
+cdef_planes, the CDEF strength search, the split-aware skip maps and
 temporal_filter_key of av1tpu_torch equal av1tpu's (filtered pixels bit
 for bit, noise sigmas to rtol 1e-6)."""
 
@@ -8,6 +9,10 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
+from av1tpu.models import cdef_tpu as jax_cdef
+from av1tpu.models import deblock_tpu as jax_deblock
 from av1tpu.models.cdef_tpu import cdef_sse_fused as jax_sse
 from av1tpu.models.cdef_tpu import cdef_tpu
 from av1tpu.models.cdef_tpu import select_strengths as jax_select
@@ -18,6 +23,7 @@ from av1tpu.utils.yuv import synthetic_clip
 from av1tpu_torch.models import cdef, deblock, tfilter
 from av1tpu_torch.models.intra_v import encode_intra_v
 from tests.test_inter_pipeline import moving_clip
+from tests.test_torch_threads import single_torch_thread  # noqa: F401
 
 H, W = 64, 128
 
@@ -52,6 +58,84 @@ def test_deblock_matches_jax(bit_depth, q, lvls, gates):
                                  bit_depth)
     for g, w in zip(got, want):
         assert np.array_equal(g.numpy(), np.asarray(w))
+
+
+def _split_maps(seed):
+    rows, cols = H // 16, W // 16
+    rng = np.random.RandomState(seed)
+    split64 = rng.rand(rows // 4, cols // 4) < 0.5
+    split32 = (rng.rand(rows // 2, cols // 2) < 0.5) & np.repeat(
+        np.repeat(split64, 2, 0), 2, 1)
+    split16 = (rng.rand(rows, cols) < 0.4) & np.repeat(
+        np.repeat(split32, 2, 0), 2, 1)
+    return split16, split32, split64
+
+
+@pytest.mark.parametrize("bit_depth,q,lvls,seed", [
+    (8, 90, (16, 0, 8), 6), (10, 120, (24, 12, 12), 7)])
+def test_deblock_split16_and_edge_gates_match_jax(bit_depth, q, lvls, seed):
+    rec, _ = _recon(bit_depth, q, seed=8)
+    rows, cols = H // 16, W // 16
+    split16, split32, split64 = _split_maps(seed)
+
+    @jax.jit
+    def jax_fn(y, u, v, s16, s32, s64):
+        v_on, h_on = jax_deblock.edge_gates_j(s32, s64, rows, cols)
+        return v_on, h_on, jax_deblock.deblock_planes(
+            y, u, v, v_on, h_on, *lvls, 0, bit_depth, split16=s16)
+
+    wv, wh, want = jax_fn(*(jnp.asarray(p) for p in rec),
+                          jnp.asarray(split16), jnp.asarray(split32),
+                          jnp.asarray(split64))
+    gv, gh = deblock.edge_gates_j(torch.from_numpy(split32),
+                                  torch.from_numpy(split64), rows, cols)
+    assert np.array_equal(gv.numpy(), np.asarray(wv))
+    assert np.array_equal(gh.numpy(), np.asarray(wh))
+    # the host-loop form of the reference agrees with both
+    hv, hh = jax_deblock.edge_gates(split32, split64, rows, cols)
+    assert np.array_equal(gv.numpy(), hv) and np.array_equal(gh.numpy(), hh)
+    got = deblock.deblock_planes(*(torch.from_numpy(p) for p in rec), gv, gh,
+                                 *lvls, 0, bit_depth,
+                                 split16=torch.from_numpy(split16))
+    for g, w, p in zip(got, want, rec):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+    assert not np.array_equal(got[0].numpy(), rec[0])   # it filtered
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_merge_skip16_and_skip8_split_match_jax(seed):
+    rows, cols = H // 16, W // 16
+    split16, split32, split64 = _split_maps(seed)
+    rng = np.random.RandomState(seed)
+
+    def sparse(shape, p):
+        return (rng.randint(-3, 4, size=shape)
+                * (rng.rand(*shape[:2], 1, 1) < p)
+                * (rng.rand(*shape) < 0.05)).astype(np.int16)
+
+    y16 = sparse((rows, cols, 16, 16), 0.5)
+    u8 = sparse((rows, cols, 8, 8), 0.3)
+    v8 = sparse((rows, cols, 8, 8), 0.3)
+    ty, tu, tv = (torch.from_numpy(a) for a in (y16, u8, v8))
+    w16 = jax_cdef.skip16_from_levels(jnp.asarray(y16), jnp.asarray(u8),
+                                      jnp.asarray(v8))
+    g16 = cdef.skip16_from_levels(ty, tu, tv)
+    assert np.array_equal(g16.numpy(), np.asarray(w16))
+    wm = jax_cdef.merge_skip16(w16, jnp.asarray(split32),
+                               jnp.asarray(split64))
+    gm = cdef.merge_skip16(g16, torch.from_numpy(split32),
+                           torch.from_numpy(split64))
+    assert np.array_equal(gm.numpy(), np.asarray(wm))
+    w8 = jax_cdef.skip8_split(wm, jnp.asarray(split16), jnp.asarray(y16),
+                              jnp.asarray(u8), jnp.asarray(v8))
+    g8 = cdef.skip8_split(gm, torch.from_numpy(split16), ty, tu, tv)
+    assert np.array_equal(g8.numpy(), np.asarray(w8))
+    # skip8_host with split maps, from the packed significance bitmap
+    flat = np.concatenate([a.ravel() for a in (y16, u8, v8)])
+    bitmap = np.packbits(flat != 0, bitorder="little").view(np.uint16)
+    for maps in ((None, None), (split32, split64)):
+        assert np.array_equal(cdef.skip8_host(bitmap, H, W, *maps),
+                              jax_cdef.skip8_host(bitmap, H, W, *maps))
 
 
 @pytest.mark.parametrize("bit_depth,strengths", [

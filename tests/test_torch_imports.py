@@ -8,6 +8,8 @@ import sys
 import numpy as np
 import pytest
 
+from tests.test_torch_threads import single_torch_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "av1tpu_torch")
 

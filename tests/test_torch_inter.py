@@ -20,6 +20,7 @@ from av1tpu.models import inter_v as ref
 from av1tpu_torch.models import inter_v as port
 from av1tpu_torch.state import carry_from_numpy
 from tests.test_inter_pipeline import moving_clip
+from tests.test_torch_threads import single_torch_thread  # noqa: F401
 
 H, W = 64, 128
 CAP = 4096
@@ -58,7 +59,7 @@ def _port_frame(frame, ref_fused, q, bd):
     ry, ru, rv = unfuse(ref_fused, H, W)
     pix_max = (1 << bd) - 1
     lam, _ = port.inter_lambdas(q, bd, frame.device)
-    mv8, pred_y, _ = port._search_mv(y, ry, lam, pix_max)
+    mv8, pred_y, _, _ = port._search_mv(y, ry, lam, pix_max)
     pu, pv = port._chroma_mc_pair(ru, rv, mv8, pix_max)
     o = port.encode_inter_v(y, u, v, ry, ru, rv, q, bit_depth=bd)
     buf, new_ref = port._gop_step_body(frame, ref_fused, q, H, W, CAP,

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from tests.test_torch_inter import run_chain
+from tests.test_torch_threads import single_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -14,6 +14,7 @@ import torch
 from av1tpu.models import intra_v as ref
 from av1tpu.utils.yuv import synthetic_clip
 from av1tpu_torch.models import intra_v as port
+from tests.test_torch_threads import single_torch_thread  # noqa: F401
 
 H, W = 64, 128
 

@@ -14,6 +14,7 @@ from av1tpu_torch.kernels.transform_quant import (
     TQPlane, count_level_flips, transform_quantize, transform_quantize_ref,
 )
 from av1tpu_torch.ops.transforms import forward_matrix
+from tests.test_torch_threads import single_torch_thread  # noqa: F401
 
 
 def _case(n, b, seed, tx_type=0):
@@ -64,3 +65,33 @@ def test_plane_constants_are_checked():
         TQPlane(fwdt, step, q.float(), cap)
     with pytest.raises(ValueError):
         TQPlane(fwdt.t(), step, q, cap)
+
+
+def test_probe_col_step_takes_the_wrapper_once_per_column(monkeypatch):
+    """The quality probe's first-row luma chain calls transform_quantize
+    once per 16x16 column at (1, 256); on the CPU each call returns what
+    transform_quantize_ref returns on the same row, and those levels are
+    the frame's first block row."""
+    from av1tpu.utils.yuv import synthetic_clip
+    from av1tpu_torch.models import intra_part
+
+    calls = []
+
+    def spy(resid, plane):
+        out = transform_quantize(resid, plane)
+        calls.append((resid.clone(), plane, out))
+        return out
+
+    monkeypatch.setattr(intra_part, "transform_quantize", spy)
+    y = torch.from_numpy(synthetic_clip(128, 64, 1, seed=3).y[0].astype(
+        np.int32))
+    before = transform_quantize.launches
+    lv16 = intra_part._encode_luma_part(y, 72)[0]
+    assert transform_quantize.launches == before   # CPU: plain version
+    assert len(calls) == 128 // 16
+    for c, (resid, plane, (lv, dq)) in enumerate(calls):
+        assert tuple(resid.shape) == (1, 256) and plane.n2 == 256
+        rlv, rdq = transform_quantize_ref(resid, plane)
+        assert torch.equal(lv, rlv) and torch.equal(dq, rdq)
+        assert torch.equal(lv16[0, c].reshape(1, 256), lv)
+    assert any(int(lv.abs().sum()) > 0 for _, _, (lv, _) in calls)

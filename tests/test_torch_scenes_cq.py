@@ -14,6 +14,7 @@ from av1tpu.utils.yuv import Clip, synthetic_clip
 from av1tpu_torch.core.scenes import scene_scores, split_scenes
 from av1tpu_torch.models.cq import cq_search_multi, probe_quality
 from tests.test_inter_pipeline import moving_clip
+from tests.test_torch_threads import single_torch_thread  # noqa: F401
 
 
 def _cut_clip():

@@ -18,6 +18,7 @@ from av1tpu.utils.yuv import Clip
 from av1tpu_torch._build import packer_lib_path
 from av1tpu_torch.cli import encode_clip, main
 from tests.test_inter_pipeline import moving_clip
+from tests.test_torch_threads import single_torch_thread  # noqa: F401
 
 KW = dict(metric="psnr", partitions=False, scene_threshold=2.5, gop=True)
 
@@ -62,7 +63,7 @@ def test_stats_match(encodes):
     assert gst["scenes"] == 2
 
 
-@pytest.mark.parametrize("kw", [dict(partitions=True), dict(gop=False),
+@pytest.mark.parametrize("kw", [dict(metric="ssim"), dict(gop=False),
                                 dict(workers=2), dict(layers=2),
                                 dict(metric="tpu_vmaf")])
 def test_unported_branches_raise(kw):

@@ -1,0 +1,235 @@
+"""The quality preset end to end: av1tpu_torch.cli.encode_clip(
+partitions=True) on the CPU emits TUs byte-identical to
+av1tpu.cli.encode_clip on the two-scene clip of tests/test_cli_gop.py, with
+equal stats.
+
+The reference runs at chunk 4 (each 5-frame scene is a keyframe and one full
+chunk) and the port at chunk 4 and at chunk 3.  Chunking is transparent to
+the stream: frame i depends on frames before it alone, whatever the chunk
+bounds.  So the port's chunk-3 run (a full chunk and a 1-frame tail per
+scene: the recon, the MV field and the CDF chain handed from chunk to chunk)
+must emit the reference's TUs too.  The reference is not run at chunk 3
+because it compiles its chunk graph a second time there (a carried MV field
+is another input structure than none), two minutes of one worker alone and
+far more inside the suite, which was cut at its time limit with it.
+
+The reference's quality graphs are the suite's slowest compile, so the tests
+below the slice hold the reference's jitted entry points (the probe, the
+wavefront keyframe, the partitioned chunk) at the slice's own shapes and
+static arguments: they reuse the executables that the slice compiled
+instead of compiling them again in another file."""
+
+import functools
+import json
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import av1tpu.coding
+from av1tpu.cli import encode_clip as jax_encode_clip
+from av1tpu.models import cq as ref_cq
+from av1tpu.models import inter_v as ref_inter
+from av1tpu.models import intra_wave as ref_wave
+from av1tpu.models.deblock_tpu import lf_levels
+from av1tpu.models.intra_v import fuse_planes
+from av1tpu.utils.yuv import Clip, synthetic_clip
+from av1tpu_torch._build import packer_lib_path
+from av1tpu_torch.cli import encode_clip, main
+from av1tpu_torch.models import cq as port_cq
+from av1tpu_torch.models import inter_v as port_inter
+from av1tpu_torch.models import intra_wave as port_wave
+from tests.test_inter_pipeline import moving_clip
+from tests.test_torch_threads import single_torch_thread  # noqa: F401
+
+H, W, Q = 64, 128, 120
+KW = dict(metric="psnr", partitions=True, scene_threshold=2.5, gop=True,
+          chunk=4)
+
+
+def _two_scene_clip():
+    a = moving_clip(W, H, 5, seed=73, dy=1, dx=2)
+    b = moving_clip(W, H, 5, seed=99, dy=0, dx=3)
+    return Clip(y=np.concatenate([a.y, 255 - b.y]),
+                u=np.concatenate([a.u, b.u]),
+                v=np.concatenate([a.v, b.v]))
+
+
+@pytest.fixture(scope="module")
+def encodes():
+    clip = _two_scene_clip()
+    # the reference's Packer() reads native/build/; hand it the port's
+    # packer build instead (same source, native/coding/pack.cpp)
+    packer = functools.partial(av1tpu.coding.Packer,
+                               lib_path=packer_lib_path())
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(av1tpu.coding, "Packer", packer)
+        want = jax_encode_clip(clip, Q, **KW)
+    got = encode_clip(clip, Q, device="cpu", **KW)
+    return want, got
+
+
+def test_quality_tus_byte_identical(encodes):
+    (ws, _), (gs, _) = encodes
+    assert len(gs) == len(ws) == 10
+    differing = [i for i, (a, b) in enumerate(zip(gs, ws)) if a != b]
+    assert differing == []
+
+
+def test_quality_stats_match(encodes):
+    (_, wst), (_, gst) = encodes
+    assert set(gst) == set(wst)
+    assert set(gst["stage_seconds"]) <= set(wst["stage_seconds"])
+    for k in ("frames", "bytes", "width", "height", "qindex", "scenes",
+              "keyframes", "psnr_y", "metric_score"):
+        assert gst[k] == wst[k], k
+    assert gst["scenes"] == 2
+
+
+def test_quality_chunk3_handover_emits_the_same_tus(encodes):
+    """A full chunk and a 1-frame tail per scene on the port's side: the
+    recon, the MV field and the CDF chain cross a chunk bound."""
+    (ws, _), _ = encodes
+    gs, gst = encode_clip(_two_scene_clip(), Q, device="cpu",
+                          **dict(KW, chunk=3))
+    assert [i for i, (a, b) in enumerate(zip(gs, ws)) if a != b] == []
+    assert len(gs) == len(ws) and gst["scenes"] == 2
+
+
+def test_quality_beats_fast_on_bytes(encodes):
+    _, (_, gst) = encodes
+    _, fast = encode_clip(_two_scene_clip(), Q, device="cpu",
+                          **dict(KW, partitions=False))
+    assert gst["bytes"] < fast["bytes"]
+
+
+def test_cli_quality_preset_writes_ivf(tmp_path, capsys):
+    from av1tpu.utils.yuv import write_y4m
+
+    src = tmp_path / "in.y4m"
+    out = tmp_path / "out.ivf"
+    write_y4m(str(src), synthetic_clip(W, H, 3, seed=4))
+    assert main(["encode", "-i", str(src), "-o", str(out), "--preset",
+                 "quality", "--metric", "psnr", "--qindex", "100", "--chunk",
+                 "2", "--device", "cpu"]) == 0
+    stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert stats["frames"] == 3 and stats["output"] == str(out)
+    data = out.read_bytes()
+    assert data[:4] == b"DKIF" and len(data) > stats["bytes"]
+
+
+# ---- the reference's jitted entry points at the slice's shapes ----
+
+def _planes(seed, n=1):
+    c = synthetic_clip(W, H, n, seed=seed)
+    return [[p[k].astype(np.int32) for p in (c.y, c.u, c.v)]
+            for k in range(n)]
+
+
+@pytest.mark.parametrize("q", [40, 150])
+def test_probe_quality_partitions_matches_jax(encodes, q):
+    """models/cq.py:probe_quality(partitions=True), to 1e-4 dB (log10 and
+    the mean's summation order)."""
+    planes = _planes(seed=q)[0]
+    want = float(ref_cq.probe_quality(*[jnp.asarray(p) for p in planes],
+                                      jnp.int32(q), metric="psnr",
+                                      bit_depth=8, partitions=True))
+    tp = [torch.from_numpy(p) for p in planes]
+    got = float(port_cq.probe_quality(*tp, q, metric="psnr", bit_depth=8,
+                                      partitions=True))
+    assert abs(got - want) <= 1e-4
+    assert port_cq.probe_quality_multi([tuple(tp)], q, metric="psnr",
+                                       bit_depth=8, partitions=True) == got
+
+
+@pytest.mark.parametrize("q,gate", [(40, 22.5), (110, 0.0)])
+def test_wave_key_recon_matches_jax(encodes, q, gate):
+    """encode_intra_wave_key_recon as the CLI calls it (lam_scale 0.3, no
+    deblock, the default transport capacity): compact buffer, its split
+    (count, bitmap, values, modes, tx depths) and the fused recon."""
+    fused = fuse_planes(*_planes(seed=q + 1)[0])
+    kw = dict(cap=163840, lf=(0, 0, 0), lam_scale=0.3, noise_gate=gate)
+    wbuf, wrec = ref_wave.encode_intra_wave_key_recon(
+        jnp.asarray(fused), q, H, W, **kw)
+    gbuf, grec = port_wave.encode_intra_wave_key_recon(
+        torch.from_numpy(fused), q, H, W, **kw)
+    assert gbuf.dtype == torch.int16 and grec.dtype == torch.int32
+    assert np.array_equal(gbuf.numpy(), np.asarray(wbuf))
+    assert np.array_equal(grec.numpy(), np.asarray(wrec))
+    a = ref_wave.split_compact_wave(np.asarray(wbuf), H, W)
+    b = port_wave.split_compact_wave(gbuf.numpy(), H, W)
+    assert a[0] == b[0] > 0
+    for x, z in zip(a[1:], b[1:]):
+        assert np.array_equal(x, z)
+    assert len(np.unique(b[3])) >= 2            # several modes
+    if q <= 60:
+        assert len(np.unique(b[4])) >= 2        # and tx depths
+
+
+LF = lf_levels(Q)[0:1] + lf_levels(Q)[2:]       # the slice's inter levels
+CDEF = (2, 1, 2, 1)
+GATE = 6.25
+
+
+@pytest.fixture(scope="module")
+def chunk(encodes):
+    """One 4-frame chunk as the CLI's first chunk of a scene (no carried MV
+    field), with GOLDEN, deblock, CDEF and the noise gate."""
+    f = _planes(seed=33, n=5)
+    key = [np.clip((p // 2) * 2 + 1, 0, 255).astype(np.int32) for p in f[0]]
+    ref0 = np.concatenate([p.ravel() for p in key]).astype(np.int32)
+    frames = np.stack([fuse_planes(*f[k]) for k in range(1, 5)])
+    wb, wref, wmv = ref_inter.encode_gop_chunk_part(
+        jnp.asarray(frames), jnp.asarray(ref0), Q, H, W, cap=131072, lf=LF,
+        cdef_s=jnp.asarray(np.asarray(CDEF, np.int32)),
+        gld_fused=jnp.asarray(ref0), prev_mv=None, noise_gate=GATE)
+    gb, gref, gmv = port_inter.encode_gop_chunk_part(
+        torch.from_numpy(frames), torch.from_numpy(ref0), Q, H, W,
+        cap=131072, lf=LF, cdef_s=CDEF, gld_fused=torch.from_numpy(ref0),
+        prev_mv=None, noise_gate=GATE)
+    return np.asarray(wb), np.asarray(wref), np.asarray(wmv), gb, gref, gmv
+
+
+@pytest.mark.parametrize("k", range(4))
+def test_gop_chunk_part_buffers_match_jax(chunk, k):
+    """Whole buffers are equal: the port's compaction reproduces the
+    reference's stable key sort, discarded tail included; so are the used
+    prefix, its fetch and its split."""
+    wb, _, _, gb, _, _ = chunk
+    g = gb[k].numpy()
+    assert g.dtype == np.int16 and g.shape == wb[k].shape
+    lay = port_inter.inter_part_layout(H, W)
+    assert lay == ref_inter.inter_part_layout(H, W)
+    assert len(g) == lay["total"]
+    need = port_inter.inter_part_prefix_len(g[:8], H, W)
+    assert need == ref_inter.inter_part_prefix_len(wb[k][:8], H, W)
+    assert np.array_equal(g[:need], wb[k][:need])      # the used prefix
+    assert np.array_equal(g, wb[k])                    # and the tail
+    a = ref_inter.split_compact_inter_part(wb[k], H, W)
+    state = {}
+    pre = port_inter.fetch_inter_part_prefix(gb[k], H, W, state)
+    assert len(pre) == need and state["guess"] >= need
+    b = port_inter.split_compact_inter_part(pre, H, W)
+    assert a[0] == b[0] > 0
+    for x, z in zip(a[1:], b[1:]):
+        assert x.dtype == z.dtype and np.array_equal(x, z)
+    # an undershooting guess refetches the tail
+    pre2 = port_inter.fetch_inter_part_prefix(gb[k], H, W,
+                                              {"guess": lay["fixed"] + 3})
+    assert np.array_equal(pre2, pre)
+
+
+def test_gop_chunk_part_carry_matches_jax(chunk):
+    _, wref, wmv, _, gref, gmv = chunk
+    assert gref.dtype == torch.int32 and gmv.dtype == torch.int32
+    assert np.array_equal(gref.numpy(), wref)
+    assert np.array_equal(gmv.numpy(), wmv)
+
+
+def test_gop_chunk_part_case_is_exercised(chunk):
+    splits = [ref_inter.split_compact_inter_part(chunk[0][k], H, W)
+              for k in range(4)]
+    assert any(s[6].any() for s in splits)          # GOLDEN blocks
+    assert any(s[3].any() for s in splits)          # 8x8 splits
+    assert any(not s[4].all() for s in splits)      # 32x32 merges

@@ -1,8 +1,9 @@
 """The port stands on its own.  In a subprocess whose import system refuses
 av1tpu, av1tpu.* and jax, every module of av1tpu_torch imports,
 chip_smoke.py and tools/profile_torch_slice.py import as modules,
-encode_clip runs on the CPU, and `python -m av1tpu_torch.cli encode` turns
-a y4m into an IVF.  A scan of the sources finds no import of either."""
+encode_clip runs both presets on the CPU, and `python -m av1tpu_torch.cli
+encode` (the quality preset by default) turns a y4m into an IVF.  A scan
+of the sources finds no import of either."""
 
 import json
 import os
@@ -11,6 +12,8 @@ import subprocess
 import sys
 
 import pytest
+
+from tests.test_torch_threads import single_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -54,6 +57,11 @@ streams, stats = encode_clip(synthetic_clip(128, 64, 6, seed=5), 100,
                              device="cpu")
 out["encode"] = {"tus": len(streams), "empty": sum(not s for s in streams),
                  "psnr_y": stats["psnr_y"]}
+streams, stats = encode_clip(synthetic_clip(128, 64, 3, seed=5), 100,
+                             chunk=2, metric="psnr", partitions=True,
+                             device="cpu")
+out["quality"] = {"tus": len(streams), "empty": sum(not s for s in streams),
+                  "psnr_y": stats["psnr_y"]}
 with tempfile.TemporaryDirectory() as d:
     src, dst = os.path.join(d, "in.y4m"), os.path.join(d, "out.ivf")
     write_y4m(src, synthetic_clip(96, 64, 3, seed=4))
@@ -73,8 +81,10 @@ print("RESULT " + json.dumps(out))
 
 @pytest.fixture(scope="module")
 def alone():
+    # one OpenMP thread: the suite's workers share the machine's cores
     r = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO,
-                       capture_output=True, text=True, timeout=300)
+                       env=dict(os.environ, OMP_NUM_THREADS="1"),
+                       capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stderr[-4000:]
     line = [x for x in r.stdout.splitlines() if x.startswith("RESULT ")][-1]
     out = json.loads(line[len("RESULT "):])
@@ -88,6 +98,8 @@ def test_every_port_module_imports_alone(alone):
     for m in ("av1tpu_torch.cli", "av1tpu_torch.coding.packer",
               "av1tpu_torch.kernels.transform_quant",
               "av1tpu_torch.models.rates", "av1tpu_torch.ops.transforms",
+              "av1tpu_torch.models.intra_part",
+              "av1tpu_torch.models.intra_wave", "av1tpu_torch.spec.predict",
               "av1tpu_torch.spec.encode_frame", "av1tpu_torch.spec.headers",
               "av1tpu_torch.state", "av1tpu_torch.utils.yuv"):
         assert m in mods, m
@@ -103,6 +115,12 @@ def test_encode_clip_runs_alone(alone):
     assert enc["psnr_y"] > 30.0
 
 
+def test_quality_preset_runs_alone(alone):
+    enc = alone["quality"]
+    assert enc["tus"] == 3 and enc["empty"] == 0
+    assert enc["psnr_y"] > 30.0
+
+
 def test_cli_module_encodes_alone(alone):
     assert alone["cli_rc"] == 0
     assert alone["ivf"]["magic"] == "DKIF" and alone["ivf"]["size"] > 32
@@ -114,7 +132,7 @@ _IMPORT = re.compile(r"^\s*(import|from)\s+(av1tpu|jax)(\.|\s|$)")
 def test_no_av1tpu_or_jax_import_in_sources():
     paths = [os.path.join(REPO, p) for p in
              ("chip_smoke.py", "tools/profile_torch_slice.py",
-              "tools/tq_compare.py")]
+              "tools/tq_compare.py", "tools/time_encode.py")]
     for root, _, files in os.walk(os.path.join(REPO, "av1tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     offenders = []

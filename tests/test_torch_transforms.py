@@ -9,6 +9,7 @@ import torch
 
 from av1tpu.ops.transforms_jax import inverse_transform as jax_inverse
 from av1tpu_torch.ops.transforms import inverse_transform
+from tests.test_torch_threads import single_torch_thread  # noqa: F401
 
 CASES = ([(n, 0) for n in (4, 8, 16, 32, 64)]
          + [(n, t) for n in (4, 8, 16) for t in (1, 2, 3)])

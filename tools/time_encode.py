@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Time the fast-preset 1080p encode of one checkout of av1tpu_torch on a GPU.
+"""Time the 1080p encode of one checkout of av1tpu_torch on a GPU.
 
-    python3 tools/time_encode.py [--root DIR] [--runs N]
+    python3 tools/time_encode.py [--root DIR] [--runs N] [--preset P]
 
 Imports av1tpu_torch from DIR (default: this checkout), encodes the clip
-of chip_smoke.py's phase 5 (synthetic 1920x1080, 48 frames, seed 11, q 72,
-chunk 8) once to warm up, then N times, and prints one JSON line per timed
+of chip_smoke.py's phases 5 and 7 (synthetic 1920x1080, 48 frames, seed 11,
+q 72, chunk 8) with the fast or the quality preset (default fast) once to
+warm up, then N times, and prints one JSON line per timed
 run: fps, seconds, bytes, PSNR-Y and the stage seconds.  Nothing else runs
 in the process, so two checkouts' runs differ only by their code.  To
 compare two commits on one card, unpack the older one with `git archive`
@@ -29,6 +30,7 @@ def main() -> int:
     ap.add_argument("--root", default=HERE,
                     help="checkout whose av1tpu_torch is timed")
     ap.add_argument("--runs", type=int, default=1)
+    ap.add_argument("--preset", choices=("fast", "quality"), default="fast")
     args = ap.parse_args()
     sys.path.insert(0, HERE)
     from chip_smoke import CHUNK, FRAMES, QINDEX
@@ -49,14 +51,15 @@ def main() -> int:
     from av1tpu_torch.cli import encode_clip
 
     clip = yuv.synthetic_clip(1920, 1080, FRAMES, seed=11)
-    kw = dict(chunk=CHUNK, metric="psnr", gop=True, partitions=False,
-              device="cuda")
+    kw = dict(chunk=CHUNK, metric="psnr", gop=True,
+              partitions=args.preset == "quality", device="cuda")
     encode_clip(clip, QINDEX, **kw)
     torch.cuda.synchronize()
     for _ in range(args.runs):
         _, st = encode_clip(clip, QINDEX, **kw)
         torch.cuda.synchronize()
-        print(json.dumps({"root": args.root, "fps": st["encode_fps"],
+        print(json.dumps({"root": args.root, "preset": args.preset,
+                          "fps": st["encode_fps"],
                           "seconds": st["encode_seconds"],
                           "bytes": st["bytes"], "psnr_y": st["psnr_y"],
                           "stage_seconds": st["stage_seconds"]}),

@@ -1,18 +1,27 @@
-"""Command-line encoder on a GPU (port of av1tpu/cli.py).
+"""Command-line encoder on a GPU (port of av1tpu/cli.py): the encode
+backend of the C++ daemon.
 
-    python -m av1tpu_torch.cli encode -i in.y4m -o out.ivf \
-        [--preset quality|fast] --metric psnr [--qindex N] [--chunk K] \
-        [--target-quality T] [--device cuda]
+    python3 -m av1tpu_torch.cli encode -i INPUT -o OUTPUT.ivf \
+        [--qindex N] [--workers W] [--chunk K] [--max-frames N] \
+        [--metric tpu_vmaf|ssim|psnr] [--target-quality T] \
+        [--preset quality|fast] [--layers 1|2] [--all-intra] [--device cuda]
 
-`encode_clip` runs the single-device GOP path of av1tpu.cli.encode_clip:
-scene detection, the per-scene q probe, the temporal filter, the keyframe
-with its CDEF strength search, then chunks of inter frames with deblock and
-CDEF, packed by the C++ entropy packer (native/coding/pack.cpp, the one
-source shared with the JAX package).  The quality preset (partitions=True)
-probes with the 64/32/16 partition intra, codes the keyframe with the
-13-mode wavefront pipeline and the inter frames with the partitioned step
-(8x8 sub-block MVs, LAST/GOLDEN, 32/64 merges, skip RDO); the fast preset
-(partitions=False) keeps the fixed 16x16 grid.  Prints one JSON stats line.
+The options, their defaults and the stats are the reference's, so the
+daemon's command template (native/daemon/encoder.cpp) runs with av1tpu
+replaced by av1tpu_torch.  `encode_clip` runs the single-device paths of
+av1tpu.cli.encode_clip: scene detection, the per-scene q probe (scored by
+--metric), the temporal filter, the keyframe with its CDEF strength search,
+then chunks of inter frames with deblock and CDEF (with --layers 2 every
+other frame is a non-reference frame at a coarser q), or with --all-intra
+every frame a keyframe; packed by the C++ entropy packer
+(native/coding/pack.cpp, the one source shared with the JAX package).  The
+quality preset (partitions=True) probes with the 64/32/16 partition intra,
+codes the keyframe with the 13-mode wavefront pipeline and the inter frames
+with the partitioned step (8x8 sub-block MVs, LAST/GOLDEN, 32/64 merges,
+skip RDO); the fast preset (partitions=False) keeps the fixed 16x16 grid.
+Non-y4m inputs and non-IVF outputs go through native/build/av1_tool, which
+this package does not build.  Prints progress lines and one JSON stats
+line.
 """
 
 from __future__ import annotations
@@ -20,7 +29,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
+import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -39,7 +51,10 @@ from av1tpu_torch.spec.obu import (
 )
 from av1tpu_torch.utils.yuv import read_y4m
 
-# keyframe quality boost (qindex steps below the scene q)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+AV1_TOOL = os.path.join(REPO, "native", "build", "av1_tool")
+
+# keyframe quality boost (qindex steps below the scene q); --key-q-boost
 KEY_Q_BOOST = 24
 
 
@@ -131,9 +146,10 @@ def _wrap_tu_inter(tile: bytes, coded_w: int, coded_h: int, render_w: int,
     return temporal_delimiter() + build_obu(OBU_FRAME, bw.bytes() + tile)
 
 
-def _unported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to av1tpu_torch yet (ROADMAP queue 1)")
+def _device_count(dev: torch.device) -> int:
+    """Devices a scene batch could shard across: the GPUs for a CUDA
+    device, 1 for the CPU."""
+    return torch.cuda.device_count() if dev.type == "cuda" else 1
 
 
 def encode_clip(clip, qindex: int, chunk: int = 4, progress=None,
@@ -143,33 +159,29 @@ def encode_clip(clip, qindex: int, chunk: int = 4, progress=None,
                 key_lam_scale: float = 0.3, key_tf: bool = True,
                 workers: int = 1, layers: int = 1, nr_q_delta: int = 12, *,
                 device="cuda") -> tuple[list[bytes], dict]:
-    """Encode a Clip into AV1 TUs: one keyframe per scene and inter frames
-    in between.  Same signature, defaults and stats keys as
-    av1tpu.cli.encode_clip, plus the device to run on; the single-device
-    GOP branch is ported for both presets (gop=True, workers=1, layers=1,
-    metric="psnr"), and the rest raises NotImplementedError.  Returns
-    (per-frame OBU streams, stats)."""
-    if not gop:
-        raise _unported("the all-intra chunk path (gop=False)")
-    if workers > 1:
-        raise _unported("the multi-device scene batch (workers>1, "
-                        "parallel/gop.py)")
-    if layers > 1:
-        raise _unported("the layered chunk (layers>1)")
-    if metric != "psnr":
-        raise _unported(f"metric {metric!r} (tpu_vmaf/ssim/msssim)")
+    """Encode a Clip into AV1 TUs.  Same signature, defaults and stats
+    keys as av1tpu.cli.encode_clip, plus the device to run on.  gop=True
+    codes one keyframe per scene and inter frames in between (layers=2
+    with partitions: every other inter frame a non-reference frame at
+    qindex + nr_q_delta); gop=False codes every frame as a keyframe.  With
+    target_quality > 0 a per-scene CQ bisection picks the coarsest qindex
+    whose probe scores the target on `metric`.  workers > 1 shards scenes
+    across devices only where there is more than one device and more than
+    one scene; that scene batch is not ported and raises
+    NotImplementedError.  Returns (per-frame OBU streams, stats)."""
     from av1tpu_torch.coding.packer import Packer
     from av1tpu_torch.core.scenes import scene_scores, split_scenes
     from av1tpu_torch.models.cdef import (
         cdef_fused, select_strengths, skip8_host,
     )
-    from av1tpu_torch.models.cq import cq_search_multi, probe_quality_multi
+    from av1tpu_torch.models.cq import cq_search_multi, probe_scores_multi
     from av1tpu_torch.models.deblock import lf_levels
-    from av1tpu_torch.models import inter_v, intra_v, intra_wave
+    from av1tpu_torch.models import inter_v, intra_part, intra_v, intra_wave
     from av1tpu_torch.models.inter_v import (
         fetch_inter_part_prefix, split_compact_inter,
         split_compact_inter_part,
     )
+    from av1tpu_torch.models.intra_part import split_compact_part
     from av1tpu_torch.models.intra_v import fuse_planes, split_compact
     from av1tpu_torch.models.intra_wave import split_compact_wave
     from av1tpu_torch.models.tfilter import temporal_filter_key
@@ -205,6 +217,11 @@ def encode_clip(clip, qindex: int, chunk: int = 4, progress=None,
                                 min_len=chunk, max_len=240)
     else:
         segments = [(0, n)]
+    if gop and workers > 1 and _device_count(dev) > 1 and len(segments) > 1:
+        raise NotImplementedError(
+            "workers>1 on several GPUs needs the multi-device scene batch, "
+            "parallel/gop.py:SceneBatchEncoder (ROADMAP queue 1), which is "
+            "not ported to av1tpu_torch yet")
 
     def padded(i):
         return (_pad_plane(clip.y[i].astype(np.int32), ch, cw),
@@ -217,18 +234,29 @@ def encode_clip(clip, qindex: int, chunk: int = 4, progress=None,
         return [tuple(torch.from_numpy(p).to(dev) for p in padded(i))
                 for i in idxs]
 
-    def select_q(seg):
+    def select_q(seg, probe_psnr=False):
+        """The scene's q (fixed, or the CQ search's), its probe score on
+        `metric` into `scores` and, with probe_psnr (all-intra, where no
+        recon is measured), the probe's PSNR into `psnrs`.  One probe
+        encode per frame serves every score at q."""
         with clock("probe"):
             frames = _probe_frames(*seg, full=target_quality > 0)
-        if target_quality > 0:
-            q, score = cq_search_multi(frames, target_quality,
-                                       metric=metric, bit_depth=bd,
-                                       partitions=partitions)
-        else:
-            q = qindex
-            score = probe_quality_multi(frames, q, metric=metric,
-                                        bit_depth=bd, partitions=partitions)
-        scores.append(score)
+            got = {}
+            if target_quality > 0:
+                q, got[metric] = cq_search_multi(
+                    frames, target_quality, metric=metric, bit_depth=bd,
+                    partitions=partitions)
+            else:
+                q = qindex
+            want = (metric, "psnr") if probe_psnr else (metric,)
+            missing = [m for m in dict.fromkeys(want) if m not in got]
+            if missing:
+                got.update(probe_scores_multi(frames, q, missing,
+                                              bit_depth=bd,
+                                              partitions=partitions))
+        scores.append(got[metric])
+        if probe_psnr:
+            psnrs.append(got["psnr"])
         return q
 
     ny_pad = ch * cw
@@ -243,8 +271,19 @@ def encode_clip(clip, qindex: int, chunk: int = 4, progress=None,
         mse = torch.clamp((e * e).sum() / ny_pad, min=1e-10)
         return 10.0 * torch.log10(255.0 * 255.0 / mse)
 
-    def pack_key(buf, q, lf, cdf_out, cdef):
-        if partitions:
+    def pack_key(buf, q, kind, lf, cdf_out=None, cdef=None):
+        """One keyframe TU.  kind: "wave" (the quality preset's GOP
+        keyframe), "part" (its all-intra frames) or "v" (the fast
+        preset's).  cdf_out: the CDF carry blob the frame's end state is
+        saved into (the inter chain loads it), None in all-intra."""
+        if kind == "part":
+            (count, bm, vals, m16, m32, sp,
+             sp64) = split_compact_part(buf, ch, cw)
+            if count > len(vals):
+                raise _CapacityExceeded(count)
+            tile = packer.pack_tile_part(bm, vals, m16, m32, sp, sp64,
+                                         ch, cw, q, cdf_out=cdf_out)
+        elif kind == "wave":
             count, bm, vals, modes, txd = split_compact_wave(buf, ch, cw)
             if count > len(vals):
                 raise _CapacityExceeded(count)
@@ -261,12 +300,17 @@ def encode_clip(clip, qindex: int, chunk: int = 4, progress=None,
             tile = packer.pack_tile_compact(bm, vals, ch, cw, q, modes=modes,
                                             uv_mode=1, cdf_out=cdf_out)
         return _wrap_tu(tile, cw, ch, width, height, q, bd,
-                        lf=(lf[0], lf[0], lf[1], lf[2]), cdf_save=True,
-                        cdef=cdef, tx_select=partitions)
+                        lf=(lf[0], lf[0], lf[1], lf[2]),
+                        cdf_save=cdf_out is not None, cdef=cdef,
+                        tx_select=kind == "wave")
 
     ncoef = ch * cw + 2 * (ch // 2) * (cw // 2)
 
-    def pack_inter_tile(buf, q, cdfs_c, cdef_s):
+    def pack_inter_tile(buf, q, cdfs_c, cdef_s, nonref: bool = False):
+        """One inter TU.  nonref: a non-reference frame of the 2-layer
+        pyramid, which refreshes no reference slot, leaves the CDF chain
+        alone and signals its in-loop filters off (the device did not run
+        them, so the decoder's output still equals the device recon)."""
         if partitions:
             (count, bm, vals, s16, s32, s64, ref16,
              mv) = split_compact_inter_part(buf, ch, cw)
@@ -274,7 +318,7 @@ def encode_clip(clip, qindex: int, chunk: int = 4, progress=None,
                 raise _CapacityExceeded(count)
             tile = packer.pack_tile_inter_part(
                 bm, vals, s32, s64, mv, ch, cw, q, cdf_in=cdfs_c,
-                cdf_out=cdfs_c, split16=s16,
+                cdf_out=None if nonref else cdfs_c, split16=s16,
                 refs=ref16 if ref16.any() else None)
         else:
             count, bm, vals, mv = split_compact_inter(buf, ch, cw)
@@ -282,148 +326,200 @@ def encode_clip(clip, qindex: int, chunk: int = 4, progress=None,
                 raise _CapacityExceeded(count)
             tile = packer.pack_tile_inter(bm, vals, mv, ch, cw, q,
                                           cdf_in=cdfs_c, cdf_out=cdfs_c)
-        ilf = lf_levels(q)
+        ilf = (0, 0, 0, 0) if nonref else lf_levels(q)
         return _wrap_tu_inter(
             tile, cw, ch, width, height, q, bd,
             lf=(ilf[0], ilf[0], ilf[2], ilf[3]), primary_ref=0,
-            cdf_save=True, cdef=tuple(int(x) for x in cdef_s),
-            golden=partitions, refresh=True)
+            cdf_save=not nonref,
+            cdef=(0, 0, 0, 0) if nonref else tuple(int(x) for x in cdef_s),
+            golden=partitions, refresh=not nonref)
 
-    for s0, e0 in segments:
-        planes0 = padded(s0)
-        q = select_q((s0, e0))
-        q_used.append(q)
-        # keyframe quality boost: the keyframe is every following frame's
-        # (transitive) reference
-        key_q = max(q - key_q_boost, 1) if e0 - s0 > 1 else q
-        lyk, _, luk, lvk = lf_levels(key_q)
-        # wavefront keyframes signal TX_MODE_SELECT: sub-tx edges are
-        # transform-block deblock edges the deblock pass does not model,
-        # so their in-loop filter is off (CDEF still runs)
-        key_lf = (0, 0, 0) if partitions else (lyk, luk, lvk)
-        ly_i, _, lu_i, lv_i = lf_levels(q)
-        inter_lf = (ly_i, lu_i, lv_i)
-        fused0 = fuse_planes(*planes0, bit_depth=bd)
-        ntf = min(7, e0 - s0 - 1) if key_tf else 0
-        key_cap = 163840
-        with clock("upload"):
-            fused0_dev = upload(fused0)
-        key_src = fused0_dev
-        key_gate = 0.0
-        inter_gate = 0.0
-        if ntf > 0:
-            with clock("tfilter"):
-                neigh = np.stack(
-                    [fuse_planes(*padded(min(s0 + 1 + j, e0 - 1)),
-                                 bit_depth=bd) if j < ntf else fused0
-                     for j in range(7)])
-                key_src, key_sig, key_sig1 = temporal_filter_key(
-                    fused0_dev, upload(neigh), ch, cw, bit_depth=bd)
-                # RDOQ noise floors (read by the quality preset only):
-                # keyframe coefficients inside the (3 sigma)^2 band
-                # explain noise only; inter frames code raw sources, 1.5x
-                # the per-frame sigma.  Python floats from float32
-                # scalars, as the reference makes them: a 1-ulp difference
-                # flips keep/zero at the gate boundary
-                key_gate = float((3.0 * key_sig) ** 2)
-                inter_gate = float((1.5 * key_sig1) ** 2)
-        cdfs = packer.new_cdf_blob()
-        while True:  # low-q keyframes can exceed the value capacity
-            with clock("key_device"):
-                if partitions:
-                    buf, ref = intra_wave.encode_intra_wave_key_recon(
-                        key_src, key_q, ch, cw, cap=key_cap, lf=key_lf,
-                        lam_scale=key_lam_scale, noise_gate=key_gate,
-                        bit_depth=bd)
-                else:
-                    buf, ref = intra_v.encode_intra_v_key_recon(
-                        key_src, key_q, ch, cw, cap=key_cap, lf=key_lf,
-                        bit_depth=bd)
-                buf_np = buf.cpu().numpy()
-            # per-scene CDEF strength search on the keyframe
-            with clock("cdef"):
-                _, key_bm, _, _ = split_compact(buf_np, ch, cw)
-                skip8 = torch.from_numpy(skip8_host(key_bm, ch, cw)).to(dev)
-                cdef_s = select_strengths(ref, fused0_dev, skip8, ch, cw,
-                                          bit_depth=bd)
-                ref = cdef_fused(ref, skip8, cdef_s, ch, cw, bit_depth=bd)
-            try:
-                with clock("pack_key"):
-                    streams.append(pack_key(buf_np, key_q, key_lf, cdfs,
-                                            tuple(int(x) for x in cdef_s)))
-                break
-            except _CapacityExceeded as e:  # retry, doubled transport
-                key_cap = min(max(key_cap * 2, e.count), ncoef)
-        with clock("psnr"):
-            psnrs.append(_recon_psnr(ref, fused0_dev))
-        if progress:
-            progress(s0 + 1, n)
-        cap = inter_cap
-        bases = list(range(s0 + 1, e0, chunk))
-
-        def prep(base):
-            """Pad + fuse + upload one chunk.  Called for chunk N+1 right
-            after chunk N's dispatch, so the host prep overlaps chunk N's
-            queued device work.  A tail chunk keeps its k < chunk frames:
-            the reference's padding to a full chunk only keeps one compiled
-            shape, and frame i's TU depends on frames 0..i alone."""
-            k = min(chunk, e0 - base)
-            with clock("host_prep"):
-                fused = np.stack([fuse_planes(*padded(base + i),
-                                              bit_depth=bd)
-                                  for i in range(k)])
+    if gop:
+        for s0, e0 in segments:
+            planes0 = padded(s0)
+            q = select_q((s0, e0))
+            q_used.append(q)
+            # keyframe quality boost: the keyframe is every following
+            # frame's (transitive) reference
+            key_q = max(q - key_q_boost, 1) if e0 - s0 > 1 else q
+            lyk, _, luk, lvk = lf_levels(key_q)
+            # wavefront keyframes signal TX_MODE_SELECT: sub-tx edges are
+            # transform-block deblock edges the deblock pass does not
+            # model, so their in-loop filter is off (CDEF still runs)
+            key_lf = (0, 0, 0) if partitions else (lyk, luk, lvk)
+            ly_i, _, lu_i, lv_i = lf_levels(q)
+            inter_lf = (ly_i, lu_i, lv_i)
+            fused0 = fuse_planes(*planes0, bit_depth=bd)
+            ntf = min(7, e0 - s0 - 1) if key_tf else 0
+            key_kind = "wave" if partitions else "v"
+            key_cap = 163840
             with clock("upload"):
-                return k, upload(fused)
-
-        # GOLDEN = the scene keyframe's filtered recon (ref slot 1),
-        # device-resident and constant across the scene's inter chain
-        gld = ref if partitions else None
-        nxt = prep(bases[0]) if bases else None
-        mv_carry = None  # temporal MV candidate chain (scene-local)
-        fetch_state: dict = {}  # prefix-fetch size predictor
-        for bi, base in enumerate(bases):
-            k, fused_dev = nxt
-            ref_in = ref
-            mv_in = mv_carry
-            first = True
-            while True:
-                with clock("inter_dispatch"):
+                fused0_dev = upload(fused0)
+            key_src = fused0_dev
+            key_gate = 0.0
+            inter_gate = 0.0
+            if ntf > 0:
+                with clock("tfilter"):
+                    neigh = np.stack(
+                        [fuse_planes(*padded(min(s0 + 1 + j, e0 - 1)),
+                                     bit_depth=bd) if j < ntf else fused0
+                         for j in range(7)])
+                    key_src, key_sig, key_sig1 = temporal_filter_key(
+                        fused0_dev, upload(neigh), ch, cw, bit_depth=bd)
+                    # RDOQ noise floors (read by the quality preset only):
+                    # keyframe coefficients inside the (3 sigma)^2 band
+                    # explain noise only; inter frames code raw sources,
+                    # 1.5x the per-frame sigma.  Python floats from float32
+                    # scalars, as the reference makes them: a 1-ulp
+                    # difference flips keep/zero at the gate boundary
+                    key_gate = float((3.0 * key_sig) ** 2)
+                    inter_gate = float((1.5 * key_sig1) ** 2)
+            cdfs = packer.new_cdf_blob()
+            while True:  # low-q keyframes can exceed the value capacity
+                with clock("key_device"):
                     if partitions:
-                        bufs, ref, mv_carry = inter_v.encode_gop_chunk_part(
-                            fused_dev, ref_in, q, ch, cw, cap=cap,
-                            lf=inter_lf, cdef_s=cdef_s, gld_fused=gld,
-                            prev_mv=mv_in, noise_gate=inter_gate,
+                        buf, ref = intra_wave.encode_intra_wave_key_recon(
+                            key_src, key_q, ch, cw, cap=key_cap, lf=key_lf,
+                            lam_scale=key_lam_scale, noise_gate=key_gate,
                             bit_depth=bd)
                     else:
-                        bufs, ref = inter_v.encode_gop_chunk(
-                            fused_dev, ref_in, q, ch, cw, cap=cap,
-                            lf=inter_lf, cdef_s=cdef_s, bit_depth=bd)
-                if first:  # prefetch chunk N+1 behind N's compute
-                    nxt = (prep(bases[bi + 1])
-                           if bi + 1 < len(bases) else None)
-                    first = False
-                tus = []
-                # chunk-local CDF chain, committed when the chunk packs
-                cdfs_c = cdfs.copy()
+                        buf, ref = intra_v.encode_intra_v_key_recon(
+                            key_src, key_q, ch, cw, cap=key_cap, lf=key_lf,
+                            bit_depth=bd)
+                    buf_np = buf.cpu().numpy()
+                # per-scene CDEF strength search on the keyframe
+                with clock("cdef"):
+                    _, key_bm, _, _ = split_compact(buf_np, ch, cw)
+                    skip8 = torch.from_numpy(
+                        skip8_host(key_bm, ch, cw)).to(dev)
+                    cdef_s = select_strengths(ref, fused0_dev, skip8, ch, cw,
+                                              bit_depth=bd)
+                    ref = cdef_fused(ref, skip8, cdef_s, ch, cw,
+                                     bit_depth=bd)
                 try:
-                    for i in range(k):
-                        with clock("inter_fetch"):
-                            if partitions:  # the used prefix only
-                                buf = fetch_inter_part_prefix(
-                                    bufs[i], ch, cw, fetch_state)
-                            else:
-                                buf = bufs[i].cpu().numpy()
-                        with clock("inter_pack"):
-                            tus.append(pack_inter_tile(buf, q, cdfs_c,
-                                                       cdef_s))
+                    with clock("pack_key"):
+                        streams.append(pack_key(
+                            buf_np, key_q, key_kind, key_lf, cdf_out=cdfs,
+                            cdef=tuple(int(x) for x in cdef_s)))
+                    break
+                except _CapacityExceeded as e:  # retry, doubled transport
+                    key_cap = min(max(key_cap * 2, e.count), ncoef)
+            with clock("psnr"):
+                psnrs.append(_recon_psnr(ref, fused0_dev))
+            if progress:
+                progress(s0 + 1, n)
+            cap = inter_cap
+            bases = list(range(s0 + 1, e0, chunk))
+
+            def prep(base):
+                """Pad + fuse + upload one chunk.  Called for chunk N+1
+                right after chunk N's dispatch, so the host prep overlaps
+                chunk N's queued device work.  A tail chunk keeps its k <
+                chunk frames: the reference's padding to a full chunk only
+                keeps one compiled shape, and frame i's TU depends on
+                frames 0..i alone."""
+                k = min(chunk, e0 - base)
+                with clock("host_prep"):
+                    fused = np.stack([fuse_planes(*padded(base + i),
+                                                  bit_depth=bd)
+                                      for i in range(k)])
+                with clock("upload"):
+                    return k, upload(fused)
+
+            # GOLDEN = the scene keyframe's filtered recon (ref slot 1),
+            # device-resident and constant across the scene's inter chain
+            gld = ref if partitions else None
+            nxt = prep(bases[0]) if bases else None
+            mv_carry = None  # temporal MV candidate chain (scene-local)
+            fetch_state: dict = {}  # prefix-fetch size predictor
+            layered = layers >= 2 and partitions
+            q_nr = min(q + nr_q_delta, 255)
+            for bi, base in enumerate(bases):
+                k, fused_dev = nxt
+                ref_in = ref
+                mv_in = mv_carry
+                pars = [0] * k
+                first = True
+                while True:
+                    with clock("inter_dispatch"):
+                        if layered:
+                            (bufs, pars, ref,
+                             mv_carry) = inter_v.encode_gop_chunk_layered(
+                                fused_dev, ref_in, q, q_nr, ch, cw, cap=cap,
+                                lf=inter_lf, cdef_s=cdef_s, gld_fused=gld,
+                                prev_mv=mv_in, start_parity=(base - s0) % 2,
+                                noise_gate=inter_gate, bit_depth=bd)
+                        elif partitions:
+                            bufs, ref, mv_carry = \
+                                inter_v.encode_gop_chunk_part(
+                                    fused_dev, ref_in, q, ch, cw, cap=cap,
+                                    lf=inter_lf, cdef_s=cdef_s,
+                                    gld_fused=gld, prev_mv=mv_in,
+                                    noise_gate=inter_gate, bit_depth=bd)
+                        else:
+                            bufs, ref = inter_v.encode_gop_chunk(
+                                fused_dev, ref_in, q, ch, cw, cap=cap,
+                                lf=inter_lf, cdef_s=cdef_s, bit_depth=bd)
+                    if first:  # prefetch chunk N+1 behind N's compute
+                        nxt = (prep(bases[bi + 1])
+                               if bi + 1 < len(bases) else None)
+                        first = False
+                    tus = []
+                    # chunk-local CDF chain, committed when the chunk packs
+                    cdfs_c = cdfs.copy()
+                    try:
+                        for i in range(k):
+                            with clock("inter_fetch"):
+                                if partitions:  # the used prefix only
+                                    buf = fetch_inter_part_prefix(
+                                        bufs[i], ch, cw, fetch_state)
+                                else:
+                                    buf = bufs[i].cpu().numpy()
+                            with clock("inter_pack"):
+                                nr = bool(pars[i])
+                                tus.append(pack_inter_tile(
+                                    buf, q_nr if nr else q, cdfs_c, cdef_s,
+                                    nonref=nr))
+                        break
+                    except _CapacityExceeded as e:
+                        cap = min(max(cap * 2, e.count), ncoef)
+                cdfs[:] = cdfs_c
+                streams.extend(tus)
+                # ref holds the recon of the chunk's last reference frame
+                last_ref = max((i for i in range(k) if not pars[i]),
+                               default=None)
+                if k == chunk and last_ref is not None:
+                    with clock("psnr"):
+                        psnrs.append(_recon_psnr(ref, fused_dev[last_ref]))
+                if progress:
+                    progress(base + k, n)
+    else:
+        plan: list[tuple[int, int, tuple | None]] = []  # (base, k, scene)
+        for s0, e0 in segments:
+            for base in range(s0, e0, chunk):
+                plan.append((base, min(chunk, e0 - base),
+                             (s0, e0) if base == s0 else None))
+        chunk_fn = (intra_part.encode_intra_part_chunk if partitions
+                    else intra_v.encode_intra_v_chunk)
+        for base, k, scene_seg in plan:
+            fused = np.stack([fuse_planes(*padded(base + i), bit_depth=bd)
+                              for i in range(k)])
+            if scene_seg or not q_used:
+                q = select_q(scene_seg or (base, base + k), probe_psnr=True)
+            q_used.append(q)
+            fused_dev = upload(fused)
+            cap = 163840
+            while True:
+                bufs = chunk_fn(fused_dev, q, ch, cw, cap=cap,
+                                bit_depth=bd).cpu().numpy()
+                try:
+                    tus = [pack_key(bufs[i], q, "part" if partitions
+                                    else "v", (0, 0, 0))
+                           for i in range(k)]
                     break
                 except _CapacityExceeded as e:
                     cap = min(max(cap * 2, e.count), ncoef)
-            cdfs[:] = cdfs_c
             streams.extend(tus)
-            if k == chunk:
-                with clock("psnr"):
-                    psnrs.append(_recon_psnr(ref, fused_dev[k - 1]))
             if progress:
                 progress(base + k, n)
 
@@ -438,35 +534,86 @@ def encode_clip(clip, qindex: int, chunk: int = 4, progress=None,
         "height": height,
         "qindex": round(sum(q_used) / len(q_used), 1),
         "scenes": len(segments),
-        "keyframes": len(segments),
+        "keyframes": len(segments) if gop else n,
         "psnr_y": round(sum(psnrs) / len(psnrs), 3),
-        "metric_score": round(sum(scores) / len(scores), 3),
+        metric if metric != "psnr" else "metric_score":
+            round(sum(scores) / len(scores), 3),
         "stage_seconds": {k: round(v, 3)
                           for k, v in sorted(clock.acc.items())},
     }
     return streams, stats
 
 
+def _to_y4m(path: str, tmpdir: str) -> str:
+    """The input as a y4m file: itself, or its decode by
+    native/build/av1_tool into tmpdir (a container or another codec)."""
+    if path.lower().endswith(".y4m"):
+        return path
+    if not os.path.exists(AV1_TOOL):
+        raise RuntimeError("native av1_tool not built; cannot demux " + path)
+    out = os.path.join(tmpdir, "source.y4m")
+    r = subprocess.run([AV1_TOOL, "decode", path, out, "--codec", "auto"],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError("source decode failed: " + r.stderr.strip())
+    return out
+
+
 def cmd_encode(args) -> int:
-    if not args.input.lower().endswith(".y4m"):
-        raise SystemExit("av1tpu_torch.cli takes y4m input only")
-    clip = read_y4m(args.input)
-    t_start = time.perf_counter()
+    from av1tpu_torch.utils.log import get_logger, profile_trace
 
-    def _progress(done: int, total: int) -> None:
-        dt = time.perf_counter() - t_start
-        print(json.dumps({
-            "progress": round(done / total, 4),
-            "frames_encoded": done,
-            "total_frames": total,
-            "fps": round(done / dt, 2) if dt > 0 else 0.0,
-        }), flush=True)
+    log = get_logger("cli")
+    with tempfile.TemporaryDirectory(dir=args.temp or None) as tmpdir:
+        clip = read_y4m(_to_y4m(args.input, tmpdir))
+        log.info("encoding %s: %dx%d %d frames %d-bit", args.input,
+                 clip.width, clip.height, clip.num_frames, clip.bit_depth)
+        if args.max_frames and clip.num_frames > args.max_frames:
+            clip.y = clip.y[: args.max_frames]
+            clip.u = clip.u[: args.max_frames]
+            clip.v = clip.v[: args.max_frames]
+        # per-chunk progress lines: the daemon reads them for its progress,
+        # FPS and ETA columns
+        t_start = time.perf_counter()
 
-    streams, stats = encode_clip(
-        clip, args.qindex, chunk=args.chunk, progress=_progress,
-        target_quality=args.target_quality, metric=args.metric,
-        partitions=args.preset == "quality", device=args.device)
-    write_ivf(args.output, streams, clip.width, clip.height)
+        def _progress(done: int, total: int) -> None:
+            dt = time.perf_counter() - t_start
+            print(json.dumps({
+                "progress": round(done / total, 4),
+                "frames_encoded": done,
+                "total_frames": total,
+                "fps": round(done / dt, 2) if dt > 0 else 0.0,
+            }), flush=True)
+
+        with profile_trace("encode_clip"):
+            streams, stats = encode_clip(
+                clip, args.qindex, chunk=args.chunk, progress=_progress,
+                target_quality=args.target_quality, metric=args.metric,
+                partitions=args.preset == "quality",
+                scene_threshold=args.scene_threshold,
+                gop=not args.all_intra, key_q_boost=args.key_q_boost,
+                key_lam_scale=args.key_lam_scale,
+                key_tf=not args.no_key_tf, workers=args.workers,
+                layers=args.layers, nr_q_delta=args.nr_q_delta,
+                device=args.device)
+        log.info("encoded %d frames in %.2fs (%.2f fps), %d scenes",
+                 stats["frames"], stats["encode_seconds"],
+                 stats["encode_fps"], stats["scenes"])
+        if args.output.lower().endswith(".ivf"):
+            write_ivf(args.output, streams, clip.width, clip.height)
+        else:
+            # container output: the new AV1 video muxed with every audio
+            # and subtitle stream of the original
+            ivf = os.path.join(tmpdir, "video.ivf")
+            write_ivf(ivf, streams, clip.width, clip.height)
+            src = "none" if args.input.lower().endswith(".y4m") else args.input
+            r = subprocess.run([AV1_TOOL, "mux", ivf, src, args.output],
+                               capture_output=True, text=True)
+            if r.returncode != 0:
+                raise RuntimeError("mux failed: " + r.stderr.strip())
+            mux_stats = json.loads(r.stdout.strip().splitlines()[-1])
+            stats["audio_streams"] = mux_stats["audio_streams"]
+            stats["subtitle_streams"] = mux_stats["subtitle_streams"]
+            stats["bytes"] = os.path.getsize(args.output)
     stats["output"] = args.output
     print(json.dumps(stats))
     return 0
@@ -475,22 +622,50 @@ def cmd_encode(args) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="av1tpu_torch", description=__doc__)
     sub = ap.add_subparsers(dest="cmd", required=True)
-    enc = sub.add_parser("encode", help="encode a y4m video to AV1 (IVF)")
+    enc = sub.add_parser("encode", help="encode a video to AV1 (IVF)")
     enc.add_argument("-i", "--input", required=True)
     enc.add_argument("-o", "--output", required=True)
-    enc.add_argument("--preset", choices=("quality", "fast"),
-                     default="quality",
-                     help="quality: 13-mode wavefront keyframe + 64/32/16/8 "
-                          "partition RDO; fast: fixed 16x16 grid, V-family "
-                          "intra")
-    enc.add_argument("--metric", choices=("psnr",), default="psnr")
     enc.add_argument("--qindex", type=int, default=72)
+    enc.add_argument("--workers", type=int, default=1,
+                     help="devices to shard the scene batch across "
+                          "(clamped to the GPU count; the batch across "
+                          "several GPUs is not ported yet)")
+    enc.add_argument("--key-q-boost", type=int, default=KEY_Q_BOOST,
+                     help="keyframe qindex boost below the scene q")
+    enc.add_argument("--key-lam-scale", type=float, default=0.3,
+                     help="keyframe RDO lambda multiplier (<1 biases the "
+                          "scene-long reference toward quality)")
+    enc.add_argument("--no-key-tf", action="store_true",
+                     help="disable motion-compensated temporal filtering "
+                          "of keyframes")
     enc.add_argument("--chunk", type=int, default=4,
-                     help="inter frames per chunk")
+                     help="frames per device chunk")
+    enc.add_argument("--layers", type=int, choices=(1, 2), default=1,
+                     help="temporal layers: 2 = alternate non-reference "
+                          "frames (refresh_frame_flags=0) coded at "
+                          "qindex + --nr-q-delta")
+    enc.add_argument("--nr-q-delta", type=int, default=12,
+                     help="qindex penalty of non-reference frames "
+                          "(--layers 2)")
+    enc.add_argument("--temp", default=None, help="temp directory")
+    enc.add_argument("--max-frames", type=int, default=0)
     enc.add_argument("--target-quality", type=float, default=0.0,
-                     help="per-scene CQ search target on --metric "
-                          "(0 = fixed --qindex)")
-    enc.add_argument("--device", default="cuda")
+                     help="per-scene CQ search: pick the qindex hitting "
+                          "this score on --metric (0 = fixed --qindex)")
+    enc.add_argument("--metric", choices=("tpu_vmaf", "ssim", "psnr"),
+                     default="tpu_vmaf")
+    enc.add_argument("--scene-threshold", type=float, default=2.5,
+                     help="scene-cut score threshold")
+    enc.add_argument("--all-intra", action="store_true",
+                     help="every frame a keyframe (default: one keyframe "
+                          "per scene + inter frames)")
+    enc.add_argument("--preset", choices=("fast", "quality"),
+                     default="quality",
+                     help="fast: fixed 16x16 grid, V-family intra; "
+                          "quality: 13-mode wavefront keyframe + "
+                          "64/32/16/8 partition RDO")
+    enc.add_argument("--device", default="cuda",
+                     help="torch device to encode on (the tests pass cpu)")
     enc.set_defaults(fn=cmd_encode)
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -2,7 +2,8 @@
 
 Copy of the parts of av1tpu/coding/packer.py that the port calls: the
 CDF carry blob, the keyframe's compact pack (fast and wavefront forms), the
-inter frame's pack and the partitioned inter frame's pack.
+partitioned keyframe's pack, the inter frame's pack and the partitioned
+inter frame's pack.
 The C++ source is shared with the JAX package; the port compiles its own
 copy of the library into av1tpu_torch/_build/ (av1tpu_torch._build).
 """
@@ -49,6 +50,12 @@ class Packer:
                        [ctypes.POINTER(ctypes.c_uint8), ctypes.c_size_t,
                         _I32P, _I32P, _I16P]
         self._fn2u = f2u
+        f3 = self._lib.pack_tile_v3
+        f3.restype = ctypes.c_size_t
+        f3.argtypes = [_U16P] + [_I16P] * 5 + [ctypes.c_int] * 4 + \
+                      [ctypes.POINTER(ctypes.c_uint8), ctypes.c_size_t,
+                       _I32P, _I32P]
+        self._fn3 = f3
 
     def new_cdf_blob(self) -> np.ndarray:
         """Allocate a CDF carry blob (one frame's end-of-frame CDF save;
@@ -95,6 +102,28 @@ class Packer:
                        *self._cdf_ptrs(cdf_in, cdf_out), tptr)
         if n == 0:
             raise RuntimeError("pack_tile_v2 failed (buffer too small?)")
+        return bytes(bytearray(out)[:n])
+
+    def pack_tile_part(self, bitmap: np.ndarray, vals: np.ndarray,
+                       modes16: np.ndarray, modes32: np.ndarray,
+                       split: np.ndarray, split64: np.ndarray,
+                       height: int, width: int, qindex: int,
+                       cdf_in: np.ndarray | None = None,
+                       cdf_out: np.ndarray | None = None) -> bytes:
+        """Pack a keyframe from the partition-RDO compact form (the union
+        layout of intra_part._part_compact_and_recon: bitmap, values, the
+        16x16 and 32x32 luma modes and the 32/64 split maps)."""
+        bm = np.ascontiguousarray(bitmap, np.uint16)
+        arrs = [np.ascontiguousarray(a, np.int16)
+                for a in (vals, modes16, modes32, split, split64)]
+        cap = height * width * 8 + 65536
+        out = (ctypes.c_uint8 * cap)()
+        n = self._fn3(bm.ctypes.data_as(_U16P),
+                      *(a.ctypes.data_as(_I16P) for a in arrs),
+                      height // 4, width // 4, qindex, 0, out, cap,
+                      *self._cdf_ptrs(cdf_in, cdf_out))
+        if n == 0:
+            raise RuntimeError("pack_tile_v3 failed (buffer too small?)")
         return bytes(bytearray(out)[:n])
 
     def pack_tile_inter(self, bitmap: np.ndarray, vals: np.ndarray,

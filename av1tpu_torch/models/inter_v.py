@@ -35,6 +35,8 @@ written.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -450,9 +452,11 @@ def _rate_of(lv: torch.Tensor) -> torch.Tensor:
     return log2_rate(lv, (-2, -1))
 
 
+@functools.cache
 def inter_lambdas(qindex: int, bit_depth: int, device):
     """(lam, lamp) float32: the SAD-domain search lambda and the pixel-
-    domain RD lambda, both from the 16x16 AC step."""
+    domain RD lambda, both from the 16x16 AC step (once per q: a layered
+    chunk alternates two)."""
     ac = f32(plane_params_np(qindex, 16, bit_depth, device)[0][1])
     lamp = f32(f32(ac * ac) * f32(LAM_PIX))
     return f32(np.sqrt(lamp)), lamp
@@ -841,6 +845,7 @@ def _skip_rdo(lam: float, yt, ut, vt, py, pu, pv):
     return m, sel(yt, py), sel(ut, pu), sel(vt, pv)
 
 
+@functools.cache
 def part_lambdas(qindex: int, bit_depth: int, device):
     """(lam_full, lam, lam_split) float32 values of the partition RDO:
     the full frame lambda (skip and coefficient-pruning decisions), the
@@ -1228,20 +1233,19 @@ def _gop_step_part_body(frame, ref_fused, qindex: int, height: int,
     return buf, new_ref, o["mv_px"]
 
 
-def encode_gop_chunk_part(frames: torch.Tensor, ref_fused: torch.Tensor,
-                          qindex: int, height: int, width: int,
-                          cap: int = 131072, lf=None, cdef_s=None,
-                          gld_fused=None, prev_mv=None, noise_gate=None,
-                          bit_depth: int = 8):
-    """Partitioned GOP chunk: a Python loop over the chunk's frames that
-    carries the fused recon and the full-pel MV field on the device (the
-    reference scans the same step).  gld_fused: optional GOLDEN reference
-    (the scene keyframe's filtered recon), constant across the scene.
-    prev_mv: optional (rows, cols, 2) full-pel MV field carried from the
-    previous chunk's last frame (zeros for a scene's first chunk, as the
-    reference's scan starts).  Returns (list of K int16 buffers, ref, mv):
-    thread mv into the next chunk's prev_mv; fetch per-frame prefixes with
-    fetch_inter_part_prefix(bufs[k], ...)."""
+def _gop_chunk_loop(frames: torch.Tensor, ref_fused: torch.Tensor, q_f,
+                    is_ref, mv_scale, height: int, width: int, cap: int,
+                    lf=None, cdef_s=None, gld_fused=None, prev_mv=None,
+                    noise_gate=None, bit_depth: int = 8):
+    """The reference's _gop_chunk_scan as a Python loop over the chunk's
+    frames, with the fused recon and the full-pel MV field carried on the
+    device.  Per frame: q_f its qindex, is_ref whether its recon becomes
+    the next frame's reference, mv_scale the temporal MV hint's scale (2
+    for a reference frame at distance 2).  A non-reference frame leaves
+    the recon carry unchanged, so its in-loop filters, whose output only
+    the carry would read, are not run (its TU signals them off).  The MV
+    carry takes each frame's field, halved after a scaled reference frame.
+    Returns (list of int16 buffers, ref, mv)."""
     lf3 = tuple(int(x) for x in lf) if (lf is not None and any(lf)) else None
     cs = None if cdef_s is None else tuple(int(x) for x in cdef_s)
     if prev_mv is None:
@@ -1250,11 +1254,58 @@ def encode_gop_chunk_part(frames: torch.Tensor, ref_fused: torch.Tensor,
     bufs = []
     ref, pm = ref_fused, prev_mv
     for k in range(frames.shape[0]):
-        buf, ref, pm = _gop_step_part_body(
-            frames[k], ref, qindex, height, width, cap, lf3, cs, gld_fused,
-            pm, noise_gate, bit_depth)
+        keep, msc = is_ref[k], mv_scale[k]
+        buf, new_ref, mvpx = _gop_step_part_body(
+            frames[k], ref, q_f[k], height, width, cap,
+            lf3 if keep else None, cs if keep else None, gld_fused,
+            pm * msc if msc != 1 else pm, noise_gate, bit_depth)
         bufs.append(buf)
+        if keep:
+            ref = new_ref
+            pm = mvpx >> 1 if msc > 1 else mvpx
+        else:
+            pm = mvpx
     return bufs, ref, pm
+
+
+def encode_gop_chunk_part(frames: torch.Tensor, ref_fused: torch.Tensor,
+                          qindex: int, height: int, width: int,
+                          cap: int = 131072, lf=None, cdef_s=None,
+                          gld_fused=None, prev_mv=None, noise_gate=None,
+                          bit_depth: int = 8):
+    """Partitioned GOP chunk, every frame a reference at qindex.
+    gld_fused: optional GOLDEN reference (the scene keyframe's filtered
+    recon), constant across the scene.  prev_mv: optional (rows, cols, 2)
+    full-pel MV field carried from the previous chunk's last frame (zeros
+    for a scene's first chunk, as the reference's scan starts).  Returns
+    (list of K int16 buffers, ref, mv): thread mv into the next chunk's
+    prev_mv; fetch per-frame prefixes with fetch_inter_part_prefix(bufs[k],
+    ...)."""
+    k = frames.shape[0]
+    return _gop_chunk_loop(frames, ref_fused, [qindex] * k, [1] * k, [1] * k,
+                           height, width, cap, lf, cdef_s, gld_fused, prev_mv,
+                           noise_gate, bit_depth)
+
+
+def encode_gop_chunk_layered(frames: torch.Tensor, ref_fused: torch.Tensor,
+                             qindex: int, q_nr: int, height: int, width: int,
+                             cap: int = 131072, lf=None, cdef_s=None,
+                             gld_fused=None, prev_mv=None,
+                             start_parity: int = 1, noise_gate=None,
+                             bit_depth: int = 8):
+    """2-layer low-delay pyramid chunk: odd-parity frames are
+    non-reference (refresh_frame_flags = 0 in their headers), coded at the
+    coarser q_nr against the running reference, and the recon and CDF
+    chains advance on even-parity frames only.  Reference frames then code
+    at temporal distance 2, seeded with a doubled temporal MV hint.
+    Returns (bufs, parities, ref, mv)."""
+    k = frames.shape[0]
+    pars = [(start_parity + i) % 2 for i in range(k)]
+    bufs, ref, pm = _gop_chunk_loop(
+        frames, ref_fused, [q_nr if p else qindex for p in pars],
+        [1 - p for p in pars], [1 if p else 2 for p in pars], height, width,
+        cap, lf, cdef_s, gld_fused, prev_mv, noise_gate, bit_depth)
+    return bufs, pars, ref, pm
 
 
 def inter_part_layout(height: int, width: int):

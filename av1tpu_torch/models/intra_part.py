@@ -528,3 +528,91 @@ def encode_intra_part(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
             "levels_u8": lu8, "levels_u16": lu16, "levels_u32": lu32,
             "levels_v8": lv8, "levels_v16": lv16c, "levels_v32": lv32c,
             "recon_y": ry, "recon_u": ru, "recon_v": rv}
+
+
+def _part_compact_and_recon(frame: torch.Tensor, qindex: int, height: int,
+                            width: int, cap: int, lf=None,
+                            bit_depth: int = 8):
+    """encode_intra_part of a fused [y | u | v] source, in the compact
+    transport of the union layout: the 32x32 (chroma 16x16) winners'
+    levels scattered into the losing branch's zeroed 16x16 (8x8) slots as
+    raster quadrants, the 64x64 winners into their superblock's top-left
+    slots, so that the transport has the fast path's size plus the meta
+    arrays.  Buffer: [count_lo, count_hi, bitmap, values (cap), modes16,
+    modes32, split, split64].  lf: optional (ly, lu, lv) levels; the recon
+    is then deblocked with the merged 32/64 interior edges gated off.
+    Returns (int16 buffer, fused int32 recon)."""
+    from av1tpu_torch.models.intra_v import compact_buffer, unfuse
+
+    o = encode_intra_part(*unfuse(frame, height, width), qindex,
+                          bit_depth=bit_depth)
+    y16 = _embed64(_merge_quads(o["levels_y16"], o["levels_y32"], 16),
+                   o["levels_y64"])
+    u8 = _merge_tiles4(_merge_quads(o["levels_u8"], o["levels_u16"], 8),
+                       o["levels_u32"], 8)
+    v8 = _merge_tiles4(_merge_quads(o["levels_v8"], o["levels_v16"], 8),
+                       o["levels_v32"], 8)
+    flat = torch.cat([y16.reshape(-1), u8.reshape(-1), v8.reshape(-1)])
+    buf = compact_buffer(flat, (o["modes16"], o["modes32"], o["split"],
+                                o["split64"]), cap)
+    rcy, rcu, rcv = o["recon_y"], o["recon_u"], o["recon_v"]
+    if lf is not None and any(lf):
+        from av1tpu_torch.models.deblock import deblock_planes, edge_gates_j
+        v_on, h_on = edge_gates_j(o["split"], o["split64"], height // 16,
+                                  width // 16)
+        rcy, rcu, rcv = deblock_planes(rcy, rcu, rcv, v_on, h_on,
+                                       lf[0], lf[1], lf[2], 0, bit_depth)
+    recon = torch.cat([rcy.reshape(-1), rcu.reshape(-1),
+                       rcv.reshape(-1)]).to(torch.int32)
+    return buf, recon
+
+
+def encode_intra_part_compact(frame: torch.Tensor, qindex: int, height: int,
+                              width: int, cap: int = 163840,
+                              bit_depth: int = 8) -> torch.Tensor:
+    """The compact transport buffer of _part_compact_and_recon."""
+    return _part_compact_and_recon(frame, qindex, height, width, cap,
+                                   bit_depth=bit_depth)[0]
+
+
+def encode_intra_key_recon(frame: torch.Tensor, qindex: int, height: int,
+                           width: int, cap: int = 163840, lf=None,
+                           bit_depth: int = 8):
+    """Partitioned keyframe: compact transport + fused int32 recon,
+    deblocked in-loop when lf gives (ly, lu, lv) levels."""
+    return _part_compact_and_recon(frame, qindex, height, width, cap, lf=lf,
+                                   bit_depth=bit_depth)
+
+
+def encode_intra_part_chunk(frames: torch.Tensor, qindex: int, height: int,
+                            width: int, cap: int = 163840,
+                            bit_depth: int = 8) -> torch.Tensor:
+    """All-intra chunk of the quality preset: (K, n_pixels) fused sources
+    -> (K, compact_len) int16, one encode_intra_part_compact per frame."""
+    return torch.stack([encode_intra_part_compact(f, qindex, height, width,
+                                                  cap, bit_depth)
+                        for f in frames])
+
+
+def part_sizes(height: int, width: int):
+    """Copy of av1tpu/models/intra_part.py:part_sizes: block counts at
+    16/32/64 and the union layout's coefficient count."""
+    r16, c16 = height // 16, width // 16
+    r32, c32 = height // 32, width // 32
+    r64, c64 = height // 64, width // 64
+    ncoef = r16 * c16 * 256 + 2 * r16 * c16 * 64  # union layout
+    return r16 * c16, r32 * c32, r64 * c64, ncoef
+
+
+def split_compact_part(buf: np.ndarray, height: int, width: int):
+    """Copy of av1tpu/models/intra_part.py:split_compact_part (host numpy):
+    (count, bitmap u16, vals i16, modes16, modes32, split, split64)."""
+    nb16, nb32, nb64, ncoef = part_sizes(height, width)
+    nwords = ncoef // 16
+    count = int(buf[0]) | (int(buf[1]) << 15)
+    bitmap = buf[2 : 2 + nwords].view(np.uint16)
+    tail = nb16 + 2 * nb32 + nb64
+    vals = buf[2 + nwords : len(buf) - tail]
+    meta = buf[len(buf) - tail :]
+    return (count, bitmap, vals, meta[:nb16], meta[nb16 : nb16 + nb32],
+            meta[nb16 + nb32 : nb16 + 2 * nb32], meta[nb16 + 2 * nb32 :])

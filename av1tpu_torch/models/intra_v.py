@@ -404,6 +404,15 @@ def _apply_lf(o: dict, lf, height: int, width: int, bit_depth: int):
     return o
 
 
+def compact_buffer(flat: torch.Tensor, meta, cap: int) -> torch.Tensor:
+    """The compact transport buffer [count_lo, count_hi, significance
+    bitmap, the first `cap` nonzero values, meta...] of the level list
+    `flat`, with the int16 meta arrays (modes, split maps) appended."""
+    head, vals = compact_values(flat, cap)
+    return torch.cat([head, sig_bitmap(flat), vals,
+                      *(m.reshape(-1).to(torch.int16) for m in meta)])
+
+
 def encode_intra_v_key_recon(frame: torch.Tensor, qindex: int, height: int,
                              width: int, cap: int = 163840, rdo: bool = True,
                              lf=None, bit_depth: int = 8):
@@ -416,12 +425,43 @@ def encode_intra_v_key_recon(frame: torch.Tensor, qindex: int, height: int,
     o = _apply_lf(o, lf, height, width, bit_depth)
     flat = torch.cat([o["levels_y"].reshape(-1), o["levels_u"].reshape(-1),
                       o["levels_v"].reshape(-1)])
-    head, vals = compact_values(flat, cap)
-    buf = torch.cat([head, sig_bitmap(flat), vals,
-                     o["modes"].reshape(-1).to(torch.int16)])
+    buf = compact_buffer(flat, (o["modes"],), cap)
     recon = torch.cat([o["recon_y"].reshape(-1), o["recon_u"].reshape(-1),
                        o["recon_v"].reshape(-1)]).to(torch.int32)
     return buf, recon
+
+
+def encode_intra_v_u8(frame: torch.Tensor, qindex: int, height: int,
+                      width: int, rdo: bool = True, bit_depth: int = 8):
+    """One fused source [y | u | v] in, one fused int16 buffer [levels y |
+    u | v | per-block luma modes] out."""
+    o = encode_intra_v(*unfuse(frame, height, width), qindex,
+                       bit_depth=bit_depth, rdo=rdo)
+    return torch.cat([o["levels_y"].reshape(-1), o["levels_u"].reshape(-1),
+                      o["levels_v"].reshape(-1),
+                      o["modes"].reshape(-1).to(torch.int16)])
+
+
+def encode_intra_v_compact(frame: torch.Tensor, qindex: int, height: int,
+                           width: int, cap: int = 163840, rdo: bool = True,
+                           bit_depth: int = 8):
+    """The compact transport of encode_intra_v_u8: [count_lo, count_hi,
+    significance bitmap, nonzero values (cap slots), modes].  Past `cap`
+    values the list is cut; the host retries with a larger cap."""
+    nblocks = (height // 16) * (width // 16)
+    full = encode_intra_v_u8(frame, qindex, height, width, rdo=rdo,
+                             bit_depth=bit_depth)
+    return compact_buffer(full[:-nblocks], (full[-nblocks:],), cap)
+
+
+def encode_intra_v_chunk(frames: torch.Tensor, qindex: int, height: int,
+                         width: int, cap: int = 163840, rdo: bool = True,
+                         bit_depth: int = 8):
+    """All-intra chunk of the fast preset: (K, n_pixels) fused sources ->
+    (K, compact_len) int16, one encode_intra_v_compact per frame."""
+    return torch.stack([encode_intra_v_compact(f, qindex, height, width,
+                                               cap, rdo, bit_depth)
+                        for f in frames])
 
 
 def split_compact(buf: np.ndarray, height: int, width: int):

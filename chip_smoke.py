@@ -31,17 +31,41 @@ exits non-zero:
    coefficients, and so has no kernel yet).  Spies assert that the
    keyframe recon, the inter carry (recon and MV field) and GOLDEN live on
    the card, and the bytes must come out below the fast preset's.
+8. modes parity: phase 4 again (quality preset) in the command's other
+   modes: the default metric, tpu_vmaf (its score within 1e-3, and once
+   more under torch.backends.cudnn.flags(allow_tf32=True): the metric
+   reads no global flag), the CQ search on tpu_vmaf (the same q), the
+   2-layer pyramid, and the all-intra chunks of both presets;
+9. the daemon's command at 1080p: native/daemon/encoder.cpp's template,
+   `encode -i IN.y4m -o OUT.ivf --qindex 72 --workers 4` with every other
+   option at its default (quality preset, chunk 4, tpu_vmaf), through
+   av1tpu_torch.cli.main on a 16-frame y4m: progress lines, the stats line
+   (tpu_vmaf in [0, 100], PSNR-Y >= 30 dB), 16 IVF frames, the keyframe
+   recon and the inter carry on the card, 120 launches per scene (the
+   probe's first-row luma chain).  Then the metric pass alone at 1088x1920
+   (tpu_vmaf, SSIM, PSNR), timed and held against the CPU;
+10. the same command with --layers 2: bytes at most 1.02 times phase 9's
+   (the bound tests/test_layers.py holds the reference to), PSNR-Y >= 30,
+   120 launches;
+11. the same command with --all-intra --max-frames 4, each preset: the
+   kernel launches equal the count derived from the code (fast: 187 per
+   frame, the keyframe's U+V stack, plus the probe's 374; quality: 120 per
+   frame plus the probe's 120).
 
 The line before the last is the kernels' JSON record (launches summed over
-the two timed runs, with the count of each path beside it); the last line
-is {"ok": true, "device": {...}}.  Imports nothing of JAX or av1tpu.
+the timed runs, with the count of each path beside it); the last line is
+{"ok": true, "device": {...}}.  Imports nothing of JAX or av1tpu.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -49,6 +73,9 @@ import numpy as np
 QINDEX = 72
 CHUNK = 8
 FRAMES = 48
+CLI_FRAMES = 16        # the daemon-command phases' 1080p clip
+INTRA_FRAMES = 4       # the all-intra phase's frames
+CQ_TARGET = 90.0       # tpu_vmaf target of the CQ parity run
 SHAPES = ((120, 256), (1, 256), (240, 64), (2, 64))
 
 
@@ -216,25 +243,54 @@ def kernel_vs_plain(torch):
     return recs
 
 
-def parity(torch, partitions: bool = False):
-    """Phases 4 and 6: the port on the card against the port on the CPU,
-    fast preset or quality preset."""
+def parity(torch, name: str, **kw):
+    """Phases 4, 6 and 8: the port on the card against the port on the CPU
+    on the two-scene clip, with encode_clip's arguments kw.  Returns the
+    card's and the CPU's (streams, stats)."""
     from av1tpu_torch.cli import encode_clip
 
     clip = two_scene_clip()
-    kw = dict(chunk=4, metric="psnr", partitions=partitions,
-              scene_threshold=2.5, gop=True)
+    kw = dict(dict(chunk=4, metric="psnr", partitions=False,
+                   scene_threshold=2.5, gop=True), **kw)
     s_gpu, st_gpu = encode_clip(clip, 120, device="cuda", **kw)
     s_cpu, st_cpu = encode_clip(clip, 120, device="cpu", **kw)
     same = sum(a == b for a, b in zip(s_gpu, s_cpu))
-    name = "quality parity" if partitions else "parity"
+    key = kw["metric"] if kw["metric"] != "psnr" else "metric_score"
     print(f"{name}: tus gpu={len(s_gpu)} cpu={len(s_cpu)} identical={same} "
           f"bytes gpu={st_gpu['bytes']} cpu={st_cpu['bytes']} "
-          f"psnr_y gpu={st_gpu['psnr_y']} cpu={st_cpu['psnr_y']}", flush=True)
+          f"psnr_y gpu={st_gpu['psnr_y']} cpu={st_cpu['psnr_y']} "
+          f"{key} gpu={st_gpu[key]} cpu={st_cpu[key]} "
+          f"qindex gpu={st_gpu['qindex']} cpu={st_cpu['qindex']}",
+          flush=True)
     assert len(s_gpu) == len(s_cpu) == clip.num_frames
     assert st_gpu["scenes"] == st_cpu["scenes"]
     assert abs(st_gpu["psnr_y"] - st_cpu["psnr_y"]) <= 0.05
     assert abs(st_gpu["bytes"] - st_cpu["bytes"]) <= 0.01 * st_cpu["bytes"]
+    if key == "tpu_vmaf":
+        assert abs(st_gpu[key] - st_cpu[key]) <= 1e-3, key
+    return (s_gpu, st_gpu), (s_cpu, st_cpu)
+
+
+def modes_parity(torch) -> None:
+    """Phase 8: the quality preset's other modes on the card against the
+    CPU (parity), and the default metric once more under cuDNN's TF32."""
+    from av1tpu_torch.cli import encode_clip
+
+    q_kw = dict(metric="tpu_vmaf", partitions=True)
+    (s_gpu, st_gpu), _ = parity(torch, "default metric parity", **q_kw)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        s_tf, st_tf = encode_clip(two_scene_clip(), 120, device="cuda",
+                                  chunk=4, **q_kw)
+    print(f"default metric under cudnn allow_tf32: tpu_vmaf "
+          f"{st_tf['tpu_vmaf']} (without {st_gpu['tpu_vmaf']}), identical "
+          f"tus {sum(a == b for a, b in zip(s_tf, s_gpu))}", flush=True)
+    assert abs(st_tf["tpu_vmaf"] - st_gpu["tpu_vmaf"]) <= 1e-3
+    (_, st_gpu), (_, st_cpu) = parity(
+        torch, "cq tpu_vmaf parity", target_quality=CQ_TARGET, **q_kw)
+    assert st_gpu["qindex"] == st_cpu["qindex"]
+    parity(torch, "layers 2 parity", partitions=True, layers=2)
+    parity(torch, "all-intra quality parity", partitions=True, gop=False)
+    parity(torch, "all-intra fast parity", partitions=False, gop=False)
 
 
 def _timed_slice(torch, clip, name: str, partitions: bool):
@@ -346,6 +402,154 @@ def quality_slice_1080p(torch, clip, fast_stats):
     return launches
 
 
+def run_cli(argv: list) -> tuple[list, dict]:
+    """av1tpu_torch.cli.main(argv) with its standard output captured and
+    echoed: (progress records, stats record)."""
+    from av1tpu_torch.cli import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    print(out.getvalue(), end="", flush=True)
+    assert rc == 0, rc
+    lines = [json.loads(x) for x in out.getvalue().splitlines()]
+    return lines[:-1], lines[-1]
+
+
+def ivf_frames(path: str) -> int:
+    with open(path, "rb") as f:
+        head = f.read(32)
+    assert head[:4] == b"DKIF", head[:4]
+    return int.from_bytes(head[24:28], "little")
+
+
+def _daemon_argv(y4m: str, ivf: str, *extra) -> list:
+    """native/daemon/encoder.cpp's default command after the module name:
+    encode -i {input} -o {output} --qindex {qindex} --workers {workers}
+    (the daemon's default workers = 4), then extra options."""
+    return ["encode", "-i", y4m, "-o", ivf, "--qindex", str(QINDEX),
+            "--workers", "4", *extra]
+
+
+def daemon_1080p(torch, y4m: str, tmp: str):
+    """Phase 9.  Returns (launches, stats)."""
+    import av1tpu_torch.models.inter_v as inter_v
+    import av1tpu_torch.models.intra_wave as intra_wave
+    from av1tpu_torch.kernels.transform_quant import transform_quantize
+
+    seen = {"key": set(), "carry": set(), "mv": set()}
+    key_fn, gop_fn = (intra_wave.encode_intra_wave_key_recon,
+                      inter_v.encode_gop_chunk_part)
+
+    def key_spy(*a, **k):
+        buf, recon = key_fn(*a, **k)
+        seen["key"].add(recon.device.type)
+        return buf, recon
+
+    def gop_spy(*a, **k):
+        bufs, ref, mv = gop_fn(*a, **k)
+        seen["carry"].add(ref.device.type)
+        seen["mv"].add(mv.device.type)
+        return bufs, ref, mv
+
+    ivf = os.path.join(tmp, "daemon.ivf")
+    intra_wave.encode_intra_wave_key_recon = key_spy
+    inter_v.encode_gop_chunk_part = gop_spy
+    try:
+        transform_quantize.launches = 0
+        progress, stats = run_cli(_daemon_argv(y4m, ivf))
+        torch.cuda.synchronize()
+        launches = transform_quantize.launches
+    finally:
+        intra_wave.encode_intra_wave_key_recon = key_fn
+        inter_v.encode_gop_chunk_part = gop_fn
+    print(f"daemon command: frames={stats['frames']} "
+          f"fps={stats['encode_fps']} bytes={stats['bytes']} "
+          f"psnr_y={stats['psnr_y']} tpu_vmaf={stats['tpu_vmaf']} "
+          f"launches={launches} progress_lines={len(progress)}", flush=True)
+    assert progress and progress[-1]["frames_encoded"] == CLI_FRAMES
+    assert progress[-1]["progress"] == 1.0
+    assert 0.0 <= stats["tpu_vmaf"] <= 100.0 and "metric_score" not in stats
+    assert stats["psnr_y"] >= 30.0, stats["psnr_y"]
+    assert stats["frames"] == ivf_frames(ivf) == CLI_FRAMES
+    assert launches == COLS * stats["scenes"], launches
+    assert all(v == {"cuda"} for v in seen.values()), seen
+    return launches, stats
+
+
+def metric_pass(torch, clip) -> dict:
+    """The metric pass alone on one padded 1080p luma plane and a noisy
+    copy: tpu_vmaf (4 VIF scales, the SSIM map, motion), SSIM and PSNR,
+    each timed on the card (median of 5 event pairs, after a warm-up) and
+    held against the CPU.  Returns {metric: ms}."""
+    from av1tpu_torch.cli import _pad_plane
+    from av1tpu_torch.metrics import quality
+
+    y = _pad_plane(clip.y[0].astype(np.int32), 1088, 1920)
+    noise = np.random.RandomState(5).randint(-6, 7, size=y.shape)
+    d = np.clip(y + noise, 0, 255).astype(np.int32)
+    out = {}
+    for name in ("tpu_vmaf", "ssim", "psnr"):
+        fn = getattr(quality, name)
+        ref_t, dis_t = (torch.from_numpy(a).cuda() for a in (y, d))
+        gpu = float(fn(ref_t, dis_t))
+        cpu = float(fn(torch.from_numpy(y), torch.from_numpy(d)))
+        out[name] = _median_ms(torch, lambda: fn(ref_t, dis_t), n=5)
+        print(f"metric pass {name} 1088x1920: {out[name]:.3f} ms on the "
+              f"card, gpu={gpu} cpu={cpu}", flush=True)
+        assert abs(gpu - cpu) <= (1e-3 if name == "tpu_vmaf" else 1e-5), name
+    return out
+
+
+def layered_1080p(torch, y4m: str, tmp: str, daemon_stats):
+    """Phase 10.  Returns the launches."""
+    from av1tpu_torch.kernels.transform_quant import transform_quantize
+
+    ivf = os.path.join(tmp, "layered.ivf")
+    transform_quantize.launches = 0
+    _, stats = run_cli(_daemon_argv(y4m, ivf, "--layers", "2"))
+    torch.cuda.synchronize()
+    launches = transform_quantize.launches
+    print(f"layers 2: fps={stats['encode_fps']} bytes={stats['bytes']} "
+          f"(1 layer {daemon_stats['bytes']}, ratio "
+          f"{stats['bytes'] / daemon_stats['bytes']:.4f}) "
+          f"psnr_y={stats['psnr_y']} (1 layer {daemon_stats['psnr_y']}) "
+          f"launches={launches}", flush=True)
+    assert stats["bytes"] <= 1.02 * daemon_stats["bytes"]
+    assert stats["psnr_y"] >= 30.0, stats["psnr_y"]
+    assert ivf_frames(ivf) == CLI_FRAMES
+    assert launches == COLS * stats["scenes"], launches
+    return launches
+
+
+def all_intra_1080p(torch, y4m: str, tmp: str, preset: str):
+    """Phase 11, one preset.  Returns the launches: per frame the fast
+    keyframe's U+V stack (COLS + ROWS - 1 steps; its luma takes the RDO
+    path, which has no kernel) or the quality frame's first-row luma
+    chain (COLS), plus one probe encode per scene (fast: luma and the U+V
+    stack, 2 * (COLS + ROWS - 1); quality: COLS), whose recon gives both
+    the metric score and the PSNR."""
+    from av1tpu_torch.kernels.transform_quant import transform_quantize
+
+    ivf = os.path.join(tmp, f"intra_{preset}.ivf")
+    transform_quantize.launches = 0
+    _, stats = run_cli(_daemon_argv(y4m, ivf, "--all-intra", "--max-frames",
+                                    str(INTRA_FRAMES), "--preset", preset))
+    torch.cuda.synchronize()
+    launches = transform_quantize.launches
+    per_frame, probe = ((COLS + ROWS - 1, 2 * (COLS + ROWS - 1))
+                        if preset == "fast" else (COLS, COLS))
+    want = INTRA_FRAMES * per_frame + stats["scenes"] * probe
+    print(f"all-intra {preset}: frames={stats['frames']} "
+          f"fps={stats['encode_fps']} bytes={stats['bytes']} "
+          f"psnr_y={stats['psnr_y']} tpu_vmaf={stats['tpu_vmaf']} "
+          f"launches={launches} (derived {want})", flush=True)
+    assert stats["keyframes"] == stats["frames"] == ivf_frames(ivf)
+    assert stats["frames"] == INTRA_FRAMES
+    assert launches == want, (launches, want)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -375,10 +579,10 @@ def main() -> int:
     _phase("kernel_vs_plain", t)
 
     t = time.perf_counter()
-    parity(torch)
+    parity(torch, "parity")
     _phase("parity", t)
 
-    from av1tpu_torch.utils.yuv import synthetic_clip
+    from av1tpu_torch.utils.yuv import synthetic_clip, write_y4m
     clip = synthetic_clip(1920, 1080, FRAMES, seed=11)
 
     t = time.perf_counter()
@@ -386,30 +590,55 @@ def main() -> int:
     _phase("slice_1080p", t)
 
     t = time.perf_counter()
-    parity(torch, partitions=True)
+    parity(torch, "quality parity", partitions=True)
     _phase("quality_parity", t)
 
     t = time.perf_counter()
     launches_quality = quality_slice_1080p(torch, clip, fast_stats)
     _phase("quality_slice_1080p", t)
 
+    t = time.perf_counter()
+    modes_parity(torch)
+    _phase("modes_parity", t)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        y4m = os.path.join(tmp, "in.y4m")
+        write_y4m(y4m, synthetic_clip(1920, 1080, CLI_FRAMES, seed=11))
+
+        t = time.perf_counter()
+        launches_daemon, daemon_stats = daemon_1080p(torch, y4m, tmp)
+        metric_ms = metric_pass(torch, clip)
+        _phase("daemon_1080p", t)
+
+        t = time.perf_counter()
+        launches_layered = layered_1080p(torch, y4m, tmp, daemon_stats)
+        _phase("layered_1080p", t)
+
+        t = time.perf_counter()
+        launches_intra = {p: all_intra_1080p(torch, y4m, tmp, p)
+                          for p in ("fast", "quality")}
+        _phase("all_intra_1080p", t)
+
+    by_path = {"fast": launches_fast, "quality": launches_quality,
+               "daemon": launches_daemon, "layered": launches_layered,
+               "all_intra_fast": launches_intra["fast"],
+               "all_intra_quality": launches_intra["quality"]}
     main_rec = recs[0]                   # (120, 256): a luma block row
     shape_key = [f"{r['b']}x{r['n2']}" for r in recs]
     print(json.dumps({"kernels": [{
         "name": "transform_quantize", "route": "cuda",
         "source": "av1tpu_torch/csrc/transform_quant.cu",
         "replaces": "av1tpu/kernels/transform_quant.py:64",
-        "launches": launches_fast + launches_quality,
-        "launches_by_path": {"fast": launches_fast,
-                             "quality": launches_quality},
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
         "max_abs_err": max(r["max_abs_err"] for r in recs),
         "ms": main_rec["device_us"] / 1e3,
         "plain_ms": main_rec["plain_device_us"] / 1e3,
         "bound_ms": main_rec["bound_us"] / 1e3,
         "bound_by": main_rec["bound_by"], "library_ms": None,
         **{k: dict(zip(shape_key, (r[k] for r in recs)))
-           for k in ("device_us", "call_us", "host_us", "bound_us")}}]}),
-        flush=True)
+           for k in ("device_us", "call_us", "host_us", "bound_us")}}],
+        "metric_pass_ms": metric_ms}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -67,3 +67,54 @@ def test_fwd64_and_its_gains_bit_for_bit():
     assert a.dtype == b.dtype == np.float32 and a.shape == (1024, 4096)
     assert np.array_equal(a.view(np.int32), b.view(np.int32))
     assert np.array_equal(coef_gains(64), ref_gains(64))
+
+
+def test_part_compact_and_recon_matches_jax(pair):
+    """The quality preset's all-intra frame: the union-layout compact
+    buffer, its split and the fused recon against the reference's
+    _part_compact_and_recon called eagerly, so that its inner
+    encode_intra_part reuses the fixture's executable (cap 96 cuts the
+    10-bit value list).  encode_intra_key_recon adds the in-loop deblock
+    with the merge-gated edges: held as the port's edge_gates_j and
+    deblock_planes (both held against the reference in
+    tests/test_torch_filters.py) on that recon, which spares the reference's
+    eager deblock its many small compiles."""
+    from av1tpu.models.intra_v import fuse_planes
+    from av1tpu_torch.models.deblock import deblock_planes, edge_gates_j
+
+    want_o, got_o, planes, q, bd = pair
+    h, w = planes[0].shape
+    cap = 163840 if bd == 8 else 96
+    fused = fuse_planes(*planes, bit_depth=bd)
+    wbuf, wrec = ref._part_compact_and_recon(jnp.asarray(fused), q, h, w,
+                                             cap)
+    src = torch.from_numpy(fused.astype(np.uint8 if bd == 8 else np.int32))
+    gbuf, grec = port._part_compact_and_recon(src, q, h, w, cap,
+                                              bit_depth=bd)
+    assert gbuf.dtype == torch.int16 and grec.dtype == torch.int32
+    assert np.array_equal(gbuf.numpy(), np.asarray(wbuf))
+    assert np.array_equal(grec.numpy(), np.asarray(wrec))
+    assert port.part_sizes(h, w) == ref.part_sizes(h, w)
+    a = ref.split_compact_part(np.asarray(wbuf), h, w)
+    b = port.split_compact_part(gbuf.numpy(), h, w)
+    assert a[0] == b[0] > 0 and (a[0] > cap) == (bd == 10)
+    for x, z in zip(a[1:], b[1:]):
+        assert x.dtype == z.dtype and np.array_equal(x, z)
+    chunk = port.encode_intra_part_chunk(src[None], q, h, w, cap=cap,
+                                         bit_depth=bd)
+    assert torch.equal(chunk[0], gbuf) and chunk.shape[0] == 1
+    assert torch.equal(port.encode_intra_part_compact(
+        src, q, h, w, cap=cap, bit_depth=bd), gbuf)
+
+    lf = (12, 6, 6)
+    kbuf, krec = port.encode_intra_key_recon(src, q, h, w, cap=cap, lf=lf,
+                                             bit_depth=bd)
+    assert torch.equal(kbuf, gbuf)
+    v_on, h_on = edge_gates_j(torch.from_numpy(got_o["split"]),
+                              torch.from_numpy(got_o["split64"]), h // 16,
+                              w // 16)
+    planes_lf = deblock_planes(*(torch.from_numpy(got_o[k]) for k in
+                                 ("recon_y", "recon_u", "recon_v")),
+                               v_on, h_on, *lf, 0, bd)
+    assert torch.equal(krec, torch.cat([p.reshape(-1) for p in planes_lf]))
+    assert not torch.equal(krec, grec)          # the deblock ran

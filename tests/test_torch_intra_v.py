@@ -89,3 +89,30 @@ def test_chroma_pair_matches_single_planes_and_jax(bit_depth):
         jlv, jrec = ref_plane(jnp.asarray(p), 90, 8, base, 1, bit_depth)
         assert np.array_equal(lv2[i].numpy(), np.asarray(jlv))
         assert np.array_equal(rec2[i].numpy(), np.asarray(jrec))
+
+
+@pytest.mark.parametrize("q,cap", [(40, 163840), (160, 64)])
+def test_intra_v_compact_and_chunk_match_jax(planes8, q, cap, monkeypatch):
+    """encode_intra_v_compact (the fast all-intra frame's transport; cap 64
+    cuts the value list) against the reference's.  The reference is
+    reached through the jitted functions' __wrapped__ bodies, so that its
+    inner encode_intra_v(rdo=True) hits the executable that
+    test_encode_intra_v_matches_jax compiled (same shapes, bit depth and a
+    Python-int q) instead of compiling the whole frame again."""
+    monkeypatch.setattr(ref, "encode_intra_v_u8",
+                        ref.encode_intra_v_u8.__wrapped__)
+    fused = ref.fuse_planes(*planes8)
+    want = np.asarray(ref.encode_intra_v_compact.__wrapped__(
+        jnp.asarray(fused), q, H, W, cap, True))
+    got = port.encode_intra_v_compact(torch.from_numpy(fused), q, H, W,
+                                      cap=cap)
+    assert got.dtype == torch.int16
+    assert np.array_equal(got.numpy(), want)
+    a = ref.split_compact(want, H, W)
+    assert (a[0] > cap) == (cap == 64)
+    chunk = port.encode_intra_v_chunk(
+        torch.from_numpy(np.stack([fused, fused[::-1].copy()])), q, H, W,
+        cap=cap)
+    assert chunk.shape == (2, len(want))
+    assert np.array_equal(chunk[0].numpy(), want)
+    assert not np.array_equal(chunk[1].numpy(), want)

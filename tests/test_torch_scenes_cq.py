@@ -65,6 +65,26 @@ def test_cq_search_matches_jax():
 
 
 def test_unported_metric_raises():
+    """The reference's three probe metrics are ported; another name (the
+    reference has no MS-SSIM probe) raises."""
+    from av1tpu_torch.models.cq import METRICS
+
+    assert sorted(METRICS) == ["psnr", "ssim", "tpu_vmaf"]
     p = [torch.from_numpy(x) for x in _planes(8, 12)]
-    with pytest.raises(NotImplementedError):
-        probe_quality(*p, 60, metric="ssim")
+    with pytest.raises(ValueError):
+        probe_quality(*p, 60, metric="msssim")
+
+
+def test_probe_scores_share_one_encode():
+    """probe_scores_multi scores one probe encode per frame on several
+    metrics: the same numbers as one probe_quality_multi call each, the
+    worst frame's for each metric."""
+    from av1tpu_torch.models.cq import probe_quality_multi, probe_scores_multi
+
+    frames = [[torch.from_numpy(x) for x in _planes(8, s)] for s in (12, 13)]
+    got = probe_scores_multi(frames, 90, ("tpu_vmaf", "ssim", "psnr"))
+    for m, v in got.items():
+        assert v == probe_quality_multi(frames, 90, metric=m), m
+        assert v == min(float(probe_quality(*f, 90, metric=m))
+                        for f in frames)
+    assert 0.0 < got["tpu_vmaf"] <= 100.0 and 0.0 < got["ssim"] <= 1.0

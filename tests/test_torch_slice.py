@@ -63,13 +63,49 @@ def test_stats_match(encodes):
     assert gst["scenes"] == 2
 
 
+def _small_two_scene_clip():
+    """Two 3-frame scenes at 64x64 (scenes at chunk 2)."""
+    a = moving_clip(64, 64, 3, seed=73, dy=1, dx=2)
+    return Clip(y=np.concatenate([a.y, 255 - a.y]),
+                u=np.concatenate([a.u, a.u]), v=np.concatenate([a.v, a.v]))
+
+
+@pytest.fixture(scope="module")
+def psnr_run():
+    return encode_clip(_small_two_scene_clip(), 120, device="cpu",
+                       **dict(KW, chunk=2))
+
+
 @pytest.mark.parametrize("kw", [dict(metric="ssim"), dict(gop=False),
                                 dict(workers=2), dict(layers=2),
                                 dict(metric="tpu_vmaf")])
-def test_unported_branches_raise(kw):
-    args = dict(KW, chunk=4, **kw)
-    with pytest.raises(NotImplementedError):
-        encode_clip(_two_scene_clip(), 120, device="cpu", **args)
+def test_unported_branches_raise(kw, psnr_run, monkeypatch):
+    """Every single-device branch of the reference's encode_clip is ported:
+    with the fast preset at a fixed q, another metric (filed under its own
+    name), a worker count on one device or --layers 2 (which the reference
+    applies with partitions only) emits the PSNR run's TUs, and gop=False
+    codes every frame as a keyframe.  The one branch still unported, the
+    scene batch over several devices, raises wherever the reference would
+    take it (GOP mode, more than one device and scene)."""
+    import av1tpu_torch.cli as cli
+
+    args = dict(KW, chunk=2, **kw)
+    clip = _small_two_scene_clip()
+    gs, gst = encode_clip(clip, 120, device="cpu", **args)
+    metric = args["metric"]
+    assert (metric if metric != "psnr" else "metric_score") in gst
+    assert gst["scenes"] == 2
+    if args["gop"]:
+        assert gs == psnr_run[0]
+    else:
+        assert gst["keyframes"] == len(gs) == 6
+    monkeypatch.setattr(cli, "_device_count", lambda dev: 2)
+    many = dict(args, workers=2)
+    if args["gop"]:
+        with pytest.raises(NotImplementedError, match="SceneBatchEncoder"):
+            encode_clip(clip, 120, device="cpu", **many)
+    else:
+        assert encode_clip(clip, 120, device="cpu", **many)[0] == gs
 
 
 def test_cli_encode_writes_ivf(tmp_path, capsys):

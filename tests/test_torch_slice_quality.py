@@ -17,10 +17,19 @@ The reference's quality graphs are the suite's slowest compile, so the tests
 below the slice hold the reference's jitted entry points (the probe, the
 wavefront keyframe, the partitioned chunk) at the slice's own shapes and
 static arguments: they reuse the executables that the slice compiled
-instead of compiling them again in another file."""
+instead of compiling them again in another file.  So do the other modes of
+the command on the same clip: the 2-layer pyramid (the chunk scan takes
+per-frame q, reference flags and MV scales as array inputs, so the
+reference runs the slice's executable), the default metric at the slice's
+fixed q, and the CQ search (the probe compiled with an int32 q).  The
+all-intra run compiles the reference's partitioned chunk, the one whole-frame
+compile the file adds."""
 
 import functools
 import json
+import os
+import re
+import shlex
 
 import jax.numpy as jnp
 import numpy as np
@@ -43,6 +52,7 @@ from av1tpu_torch.models import intra_wave as port_wave
 from tests.test_inter_pipeline import moving_clip
 from tests.test_torch_threads import single_torch_thread  # noqa: F401
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W, Q = 64, 128, 120
 KW = dict(metric="psnr", partitions=True, scene_threshold=2.5, gop=True,
           chunk=4)
@@ -56,16 +66,37 @@ def _two_scene_clip():
                 v=np.concatenate([a.v, b.v]))
 
 
-@pytest.fixture(scope="module")
-def encodes():
-    clip = _two_scene_clip()
-    # the reference's Packer() reads native/build/; hand it the port's
-    # packer build instead (same source, native/coding/pack.cpp)
+def _jax_encode(clip, **kw):
+    """av1tpu.cli.encode_clip with the port's packer build: the reference's
+    Packer() reads native/build/, which the tests do not build (same
+    source, native/coding/pack.cpp)."""
     packer = functools.partial(av1tpu.coding.Packer,
                                lib_path=packer_lib_path())
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(av1tpu.coding, "Packer", packer)
-        want = jax_encode_clip(clip, Q, **KW)
+        return jax_encode_clip(clip, Q, **dict(KW, **kw))
+
+
+def _differing(gs, ws):
+    assert len(gs) == len(ws)
+    return [i for i, (a, b) in enumerate(zip(gs, ws)) if a != b]
+
+
+# stats that differ between two runs of one encode only by the clock
+_TIMED = ("encode_seconds", "encode_fps", "stage_seconds")
+
+
+def _same_stats(gst, wst):
+    assert set(gst) == set(wst)
+    assert set(gst["stage_seconds"]) <= set(wst["stage_seconds"])
+    for k in set(wst) - set(_TIMED):
+        assert gst[k] == wst[k], k
+
+
+@pytest.fixture(scope="module")
+def encodes():
+    clip = _two_scene_clip()
+    want = _jax_encode(clip)
     got = encode_clip(clip, Q, device="cpu", **KW)
     return want, got
 
@@ -73,8 +104,7 @@ def encodes():
 def test_quality_tus_byte_identical(encodes):
     (ws, _), (gs, _) = encodes
     assert len(gs) == len(ws) == 10
-    differing = [i for i, (a, b) in enumerate(zip(gs, ws)) if a != b]
-    assert differing == []
+    assert _differing(gs, ws) == []
 
 
 def test_quality_stats_match(encodes):
@@ -97,6 +127,94 @@ def test_quality_chunk3_handover_emits_the_same_tus(encodes):
     assert len(gs) == len(ws) and gst["scenes"] == 2
 
 
+@pytest.fixture(scope="module")
+def layered(encodes):
+    """--layers 2 on both sides (chunk 4): per scene the keyframe, then
+    non-reference, reference, non-reference, reference."""
+    kw = dict(layers=2, nr_q_delta=12)
+    return (_jax_encode(_two_scene_clip(), **kw),
+            encode_clip(_two_scene_clip(), Q, device="cpu", **dict(KW, **kw)))
+
+
+def test_layered_tus_and_stats_match_jax(layered, encodes):
+    (ws, wst), (gs, gst) = layered
+    assert _differing(gs, ws) == []
+    _same_stats(gst, wst)
+    # the pyramid's frames differ from the single-layer stream's, the
+    # keyframes do not
+    one_layer = encodes[0][0]
+    assert _differing(ws, one_layer) == [1, 2, 3, 4, 6, 7, 8, 9]
+
+
+def test_layered_chunk3_handover_emits_the_same_tus(layered):
+    """Chunks of 3 and a 1-frame tail: the parity, the recon, the MV field
+    and the CDF chain cross a chunk bound."""
+    (ws, _), _ = layered
+    gs, gst = encode_clip(_two_scene_clip(), Q, device="cpu",
+                          **dict(KW, chunk=3, layers=2))
+    assert _differing(gs, ws) == [] and gst["scenes"] == 2
+
+
+def test_default_metric_emits_the_psnr_runs_tus(encodes):
+    """The CLI's default metric, tpu_vmaf, at a fixed q: the metric changes
+    the stats alone, and the score is filed under its name.  The score is
+    the reference metric of the port's probe recon (the probe encode is
+    held bit for bit above)."""
+    from av1tpu.metrics.quality import tpu_vmaf as ref_vmaf
+    from av1tpu_torch.cli import _pad_plane
+
+    (ws, wst), _ = encodes
+    kw = {k: v for k, v in KW.items() if k != "metric"}
+    gs, gst = encode_clip(_two_scene_clip(), Q, device="cpu", **kw)
+    assert _differing(gs, ws) == []
+    assert "tpu_vmaf" in gst and "metric_score" not in gst
+    _same_stats({k: v for k, v in gst.items() if k != "tpu_vmaf"},
+                {k: v for k, v in wst.items() if k != "metric_score"})
+    clip = _two_scene_clip()
+    per_scene = []
+    for mid in (2, 7):      # each 5-frame scene probes its middle frame
+        planes = [_pad_plane(p[mid].astype(np.int32), *s) for p, s in
+                  ((clip.y, (H, W)), (clip.u, (H // 2, W // 2)),
+                   (clip.v, (H // 2, W // 2)))]
+        rec = port_cq._probe_recon(*[torch.from_numpy(p) for p in planes],
+                                   Q, 8, True)
+        per_scene.append(float(ref_vmaf(jnp.asarray(planes[0]),
+                                        jnp.asarray(rec.numpy()))))
+    assert 0.0 < gst["tpu_vmaf"] <= 100.0
+    assert abs(gst["tpu_vmaf"] - sum(per_scene) / 2) <= 1e-3 + 5e-4
+
+
+def test_cq_search_partitions_matches_jax(encodes):
+    """cq_search_multi over the first scene's three sampled frames (the
+    CLI's target_quality probe set), partitions=True, PSNR: the same q, and
+    the score to 1e-4 dB."""
+    from av1tpu_torch.cli import _pad_plane
+
+    clip = _two_scene_clip()
+    frames = [[_pad_plane(p[i].astype(np.int32), *s) for p, s in
+               ((clip.y, (H, W)), (clip.u, (H // 2, W // 2)),
+                (clip.v, (H // 2, W // 2)))] for i in (0, 2, 4)]
+    want = ref_cq.cq_search_multi(
+        [tuple(jnp.asarray(p) for p in f) for f in frames], 40.0,
+        metric="psnr", bit_depth=8, partitions=True)
+    got = port_cq.cq_search_multi(
+        [tuple(torch.from_numpy(p) for p in f) for f in frames], 40.0,
+        metric="psnr", bit_depth=8, partitions=True)
+    assert got[0] == want[0] and Q < got[0] < 255
+    assert abs(got[1] - want[1]) <= 1e-4
+
+
+def test_all_intra_quality_tus_and_stats_match_jax(encodes):
+    """gop=False with the quality preset: every frame a partitioned
+    keyframe, a probe per scene (its PSNR is the stats' psnr_y)."""
+    ws, wst = _jax_encode(_two_scene_clip(), gop=False)
+    gs, gst = encode_clip(_two_scene_clip(), Q, device="cpu",
+                          **dict(KW, gop=False))
+    assert _differing(gs, ws) == []
+    _same_stats(gst, wst)
+    assert gst["keyframes"] == 10 and gst["scenes"] == 2
+
+
 def test_quality_beats_fast_on_bytes(encodes):
     _, (_, gst) = encodes
     _, fast = encode_clip(_two_scene_clip(), Q, device="cpu",
@@ -117,6 +235,42 @@ def test_cli_quality_preset_writes_ivf(tmp_path, capsys):
     assert stats["frames"] == 3 and stats["output"] == str(out)
     data = out.read_bytes()
     assert data[:4] == b"DKIF" and len(data) > stats["bytes"]
+
+
+def _daemon_argv(y4m, ivf, qindex=72, workers=4):
+    """native/daemon/encoder.cpp's default command template with av1tpu
+    replaced by av1tpu_torch, as the daemon expands it."""
+    with open(os.path.join(REPO, "native", "daemon", "encoder.cpp")) as f:
+        src = f.read()
+    body = src[src.index("std::string default_encode_cmd()"):]
+    tmpl = "".join(re.findall(r'"([^"]*)"', body[: body.index(";")]))
+    cmd = (tmpl.replace("{input}", shlex.quote(y4m))
+           .replace("{output}", shlex.quote(ivf))
+           .replace("{qindex}", str(qindex))
+           .replace("{workers}", str(workers)))
+    argv = shlex.split(cmd)
+    assert argv[:4] == ["python3", "-m", "av1tpu.cli", "encode"]
+    return argv[3:]
+
+
+def test_daemon_command_runs_with_the_reference_defaults(tmp_path, capsys):
+    """The daemon's command: quality preset, chunk 4, tpu_vmaf, --workers 4
+    on one device (the single-device path); progress lines, then the
+    stats line with the score filed under tpu_vmaf."""
+    from av1tpu.utils.yuv import write_y4m
+
+    y4m, ivf = str(tmp_path / "in.y4m"), str(tmp_path / "out.ivf")
+    write_y4m(y4m, synthetic_clip(96, 64, 3, seed=21))
+    assert main(_daemon_argv(y4m, ivf) + ["--device", "cpu"]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    progress, stats = lines[:-1], lines[-1]
+    assert [p["frames_encoded"] for p in progress] == [1, 3]
+    assert progress[-1]["progress"] == 1.0
+    assert stats["frames"] == 3 and stats["keyframes"] == 1
+    assert 0.0 < stats["tpu_vmaf"] <= 100.0 and "metric_score" not in stats
+    assert stats["psnr_y"] > 30.0 and stats["output"] == ivf
+    with open(ivf, "rb") as f:
+        assert f.read(4) == b"DKIF"
 
 
 # ---- the reference's jitted entry points at the slice's shapes ----

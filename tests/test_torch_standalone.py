@@ -2,7 +2,8 @@
 av1tpu, av1tpu.* and jax, every module of av1tpu_torch imports,
 chip_smoke.py and tools/profile_torch_slice.py import as modules,
 encode_clip runs both presets on the CPU, and `python -m av1tpu_torch.cli
-encode` (the quality preset by default) turns a y4m into an IVF.  A scan
+encode` with the daemon's arguments (the quality preset and the tpu_vmaf
+metric by default) turns a y4m into an IVF.  A scan
 of the sources finds no import of either."""
 
 import json
@@ -66,7 +67,8 @@ with tempfile.TemporaryDirectory() as d:
     src, dst = os.path.join(d, "in.y4m"), os.path.join(d, "out.ivf")
     write_y4m(src, synthetic_clip(96, 64, 3, seed=4))
     sys.argv = ["av1tpu_torch.cli", "encode", "-i", src, "-o", dst,
-                "--qindex", "100", "--chunk", "2", "--device", "cpu"]
+                "--qindex", "100", "--workers", "4", "--chunk", "2",
+                "--device", "cpu"]
     try:
         runpy.run_module("av1tpu_torch.cli", run_name="__main__",
                          alter_sys=True)
@@ -88,6 +90,8 @@ def alone():
     assert r.returncode == 0, r.stderr[-4000:]
     line = [x for x in r.stdout.splitlines() if x.startswith("RESULT ")][-1]
     out = json.loads(line[len("RESULT "):])
+    out["cli_stats"] = [json.loads(x) for x in r.stdout.splitlines()
+                        if x.startswith("{") and "output" in x]
     # modules a site hook imported before the finder are not the port's
     assert set(out["leaked"]) <= set(out["preloaded"])
     return out
@@ -101,7 +105,9 @@ def test_every_port_module_imports_alone(alone):
               "av1tpu_torch.models.intra_part",
               "av1tpu_torch.models.intra_wave", "av1tpu_torch.spec.predict",
               "av1tpu_torch.spec.encode_frame", "av1tpu_torch.spec.headers",
-              "av1tpu_torch.state", "av1tpu_torch.utils.yuv"):
+              "av1tpu_torch.state", "av1tpu_torch.utils.yuv",
+              "av1tpu_torch.metrics.quality", "av1tpu_torch.utils.log",
+              "av1tpu_torch.models.cq"):
         assert m in mods, m
 
 
@@ -124,6 +130,8 @@ def test_quality_preset_runs_alone(alone):
 def test_cli_module_encodes_alone(alone):
     assert alone["cli_rc"] == 0
     assert alone["ivf"]["magic"] == "DKIF" and alone["ivf"]["size"] > 32
+    (stats,) = alone["cli_stats"]
+    assert 0.0 < stats["tpu_vmaf"] <= 100.0 and stats["frames"] == 3
 
 
 _IMPORT = re.compile(r"^\s*(import|from)\s+(av1tpu|jax)(\.|\s|$)")
@@ -132,7 +140,8 @@ _IMPORT = re.compile(r"^\s*(import|from)\s+(av1tpu|jax)(\.|\s|$)")
 def test_no_av1tpu_or_jax_import_in_sources():
     paths = [os.path.join(REPO, p) for p in
              ("chip_smoke.py", "tools/profile_torch_slice.py",
-              "tools/tq_compare.py", "tools/time_encode.py")]
+              "tools/tq_compare.py", "tools/time_encode.py",
+              "tools/layered_bytes.py")]
     for root, _, files in os.walk(os.path.join(REPO, "av1tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     offenders = []

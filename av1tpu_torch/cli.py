@@ -8,7 +8,7 @@ backend of the C++ daemon.
 
 The options, their defaults and the stats are the reference's, so the
 daemon's command template (native/daemon/encoder.cpp) runs with av1tpu
-replaced by av1tpu_torch.  `encode_clip` runs the single-device paths of
+replaced by av1tpu_torch.  `encode_clip` runs the paths of
 av1tpu.cli.encode_clip: scene detection, the per-scene q probe (scored by
 --metric), the temporal filter, the keyframe with its CDEF strength search,
 then chunks of inter frames with deblock and CDEF (with --layers 2 every
@@ -19,6 +19,8 @@ quality preset (partitions=True) probes with the 64/32/16 partition intra,
 codes the keyframe with the 13-mode wavefront pipeline and the inter frames
 with the partitioned step (8x8 sub-block MVs, LAST/GOLDEN, 32/64 merges,
 skip RDO); the fast preset (partitions=False) keeps the fixed 16x16 grid.
+With --workers N on several GPUs the scenes run as a batch, one worker
+process per GPU (parallel/gop.py), and the parent packs their buffers.
 Non-y4m inputs and non-IVF outputs go through native/build/av1_tool, which
 this package does not build.  Prints progress lines and one JSON stats
 line.
@@ -165,10 +167,13 @@ def encode_clip(clip, qindex: int, chunk: int = 4, progress=None,
     with partitions: every other inter frame a non-reference frame at
     qindex + nr_q_delta); gop=False codes every frame as a keyframe.  With
     target_quality > 0 a per-scene CQ bisection picks the coarsest qindex
-    whose probe scores the target on `metric`.  workers > 1 shards scenes
-    across devices only where there is more than one device and more than
-    one scene; that scene batch is not ported and raises
-    NotImplementedError.  Returns (per-frame OBU streams, stats)."""
+    whose probe scores the target on `metric`.  workers > 1 with gop,
+    more than one device and more than one scene runs the reference's
+    scene batch (parallel/gop.py): the scenes dealt to min(workers,
+    devices) worker processes, one per GPU, each scene's keyframe the
+    wavefront one and every inter frame a reference frame (`layers` is not
+    read there, as in the reference).  Returns (per-frame OBU streams,
+    stats)."""
     from av1tpu_torch.coding.packer import Packer
     from av1tpu_torch.core.scenes import scene_scores, split_scenes
     from av1tpu_torch.models.cdef import (
@@ -217,11 +222,6 @@ def encode_clip(clip, qindex: int, chunk: int = 4, progress=None,
                                 min_len=chunk, max_len=240)
     else:
         segments = [(0, n)]
-    if gop and workers > 1 and _device_count(dev) > 1 and len(segments) > 1:
-        raise NotImplementedError(
-            "workers>1 on several GPUs needs the multi-device scene batch, "
-            "parallel/gop.py:SceneBatchEncoder (ROADMAP queue 1), which is "
-            "not ported to av1tpu_torch yet")
 
     def padded(i):
         return (_pad_plane(clip.y[i].astype(np.int32), ch, cw),
@@ -334,46 +334,120 @@ def encode_clip(clip, qindex: int, chunk: int = 4, progress=None,
             cdef=(0, 0, 0, 0) if nonref else tuple(int(x) for x in cdef_s),
             golden=partitions, refresh=not nonref)
 
-    if gop:
+    def scene_plan(s0, e0):
+        """A GOP scene's q (probed), its keyframe's q, the keyframe's and
+        the inter frames' loop-filter levels and the temporal filter's
+        count of real neighbours."""
+        q = select_q((s0, e0))
+        q_used.append(q)
+        # keyframe quality boost: the keyframe is every following frame's
+        # (transitive) reference
+        key_q = max(q - key_q_boost, 1) if e0 - s0 > 1 else q
+        lyk, _, luk, lvk = lf_levels(key_q)
+        ly_i, _, lu_i, lv_i = lf_levels(q)
+        # wavefront keyframes signal TX_MODE_SELECT: sub-tx edges are
+        # transform-block deblock edges the deblock pass does not model, so
+        # their in-loop filter is off (CDEF still runs)
+        key_lf = (0, 0, 0) if partitions else (lyk, luk, lvk)
+        ntf = min(7, e0 - s0 - 1) if key_tf else 0
+        return q, key_q, key_lf, (ly_i, lu_i, lv_i), ntf
+
+    def key_filter(key_dev, neigh: np.ndarray):
+        """The keyframe's temporal filter over its 7 neighbours (the key
+        itself past the scene's end): (filtered key, the keyframe's and the
+        inter frames' RDOQ noise floors).  The floors, read by the quality
+        preset only: keyframe coefficients inside the (3 sigma)^2 band
+        explain noise only; inter frames code raw sources, 1.5x the
+        per-frame sigma.  Python floats from float32 scalars, as the
+        reference makes them: a 1-ulp difference flips keep/zero at the
+        gate boundary."""
+        with clock("tfilter"):
+            key_src, sig, sig1 = temporal_filter_key(
+                key_dev, upload(neigh), ch, cw, bit_depth=bd)
+            return key_src, float((3.0 * sig) ** 2), float((1.5 * sig1) ** 2)
+
+    n_dev = _device_count(dev)
+    if gop and workers > 1 and n_dev > 1 and len(segments) > 1:
+        # several devices: the scene batch, one worker process per device
+        # (the reference's av1an --workers axis).  Its keyframe is always
+        # the wavefront one, and it codes every inter frame as a reference
+        # frame whatever `layers` says, as the reference's batch does
+        from av1tpu_torch.parallel import gop as scene_batch
+
+        wdev = min(workers, n_dev)
+        devices = scene_batch.scene_devices(wdev, dev)
+        scenes = []
         for s0, e0 in segments:
-            planes0 = padded(s0)
-            q = select_q((s0, e0))
-            q_used.append(q)
-            # keyframe quality boost: the keyframe is every following
-            # frame's (transitive) reference
-            key_q = max(q - key_q_boost, 1) if e0 - s0 > 1 else q
-            lyk, _, luk, lvk = lf_levels(key_q)
-            # wavefront keyframes signal TX_MODE_SELECT: sub-tx edges are
-            # transform-block deblock edges the deblock pass does not
-            # model, so their in-loop filter is off (CDEF still runs)
-            key_lf = (0, 0, 0) if partitions else (lyk, luk, lvk)
-            ly_i, _, lu_i, lv_i = lf_levels(q)
-            inter_lf = (ly_i, lu_i, lv_i)
-            fused0 = fuse_planes(*planes0, bit_depth=bd)
-            ntf = min(7, e0 - s0 - 1) if key_tf else 0
+            q, key_q, key_lf, inter_lf, ntf = scene_plan(s0, e0)
+            frames = np.stack([fuse_planes(*padded(i), bit_depth=bd)
+                               for i in range(s0, e0)])
+            key_gate = inter_gate = 0.0
+            if ntf > 0:
+                filt, key_gate, inter_gate = key_filter(
+                    upload(frames[0]),
+                    np.stack([frames[1 + j] if j < ntf else frames[0]
+                              for j in range(7)]))
+                # the filtered key replaces the source, also as the CDEF
+                # search's target (the reference's batch)
+                frames[0] = filt.cpu().numpy()
+            scenes.append({"frames": frames, "q": q, "key_q": key_q,
+                           "key_lf": key_lf, "inter_lf": inter_lf,
+                           "key_gate": key_gate, "inter_gate": inter_gate})
+        key_kind = "wave" if partitions else "v"
+        done_frames = 0
+        with scene_batch.ScenePool(devices) as pool:
+            for b0 in range(0, len(scenes), wdev):
+                batch = scenes[b0 : b0 + wdev]
+                enc = scene_batch.SceneBatchEncoder(batch, pool, ch, cw,
+                                                    bit_depth=bd)
+                key_cap, cap = 163840, inter_cap
+                while True:
+                    # the keyframe's CDEF skip map is key_skip8's, the
+                    # single-device path's extractor
+                    results = enc.encode(key_cap, cap, part=partitions,
+                                         key_lam_scale=key_lam_scale)
+                    try:
+                        batch_tus = []
+                        for sc, res in zip(batch, results):
+                            cdfs = packer.new_cdf_blob()
+                            tus = [pack_key(
+                                res["key_buf"], sc["key_q"], key_kind,
+                                sc["key_lf"], cdf_out=cdfs,
+                                cdef=tuple(int(x) for x in res["cdef_s"]))]
+                            for buf in res["inter_bufs"]:
+                                tus.append(pack_inter_tile(
+                                    buf, sc["q"], cdfs, res["cdef_s"]))
+                            batch_tus.append(tus)
+                        break
+                    except _CapacityExceeded as e:  # the whole batch again
+                        key_cap = min(max(key_cap * 2, e.count), ncoef)
+                        cap = min(max(cap * 2, e.count), ncoef)
+                for sc, res, tus in zip(batch, results, batch_tus):
+                    streams.extend(tus)
+                    # the scene's last recon against its last source
+                    psnrs.append(_recon_psnr(
+                        torch.from_numpy(res["ref"]),
+                        torch.from_numpy(sc["frames"][-1].astype(np.int32))))
+                    for k, v in res["seconds"].items():  # worker seconds
+                        clock.acc[k] = clock.acc.get(k, 0.0) + v
+                    done_frames += sc["frames"].shape[0]
+                    if progress:
+                        progress(done_frames, n)
+    elif gop:
+        for s0, e0 in segments:
+            q, key_q, key_lf, inter_lf, ntf = scene_plan(s0, e0)
+            fused0 = fuse_planes(*padded(s0), bit_depth=bd)
             key_kind = "wave" if partitions else "v"
             key_cap = 163840
             with clock("upload"):
                 fused0_dev = upload(fused0)
             key_src = fused0_dev
-            key_gate = 0.0
-            inter_gate = 0.0
+            key_gate = inter_gate = 0.0
             if ntf > 0:
-                with clock("tfilter"):
-                    neigh = np.stack(
-                        [fuse_planes(*padded(min(s0 + 1 + j, e0 - 1)),
-                                     bit_depth=bd) if j < ntf else fused0
-                         for j in range(7)])
-                    key_src, key_sig, key_sig1 = temporal_filter_key(
-                        fused0_dev, upload(neigh), ch, cw, bit_depth=bd)
-                    # RDOQ noise floors (read by the quality preset only):
-                    # keyframe coefficients inside the (3 sigma)^2 band
-                    # explain noise only; inter frames code raw sources,
-                    # 1.5x the per-frame sigma.  Python floats from float32
-                    # scalars, as the reference makes them: a 1-ulp
-                    # difference flips keep/zero at the gate boundary
-                    key_gate = float((3.0 * key_sig) ** 2)
-                    inter_gate = float((1.5 * key_sig1) ** 2)
+                key_src, key_gate, inter_gate = key_filter(
+                    fused0_dev,
+                    np.stack([fuse_planes(*padded(s0 + 1 + j), bit_depth=bd)
+                              if j < ntf else fused0 for j in range(7)]))
             cdfs = packer.new_cdf_blob()
             while True:  # low-q keyframes can exceed the value capacity
                 with clock("key_device"):
@@ -627,9 +701,9 @@ def main(argv=None) -> int:
     enc.add_argument("-o", "--output", required=True)
     enc.add_argument("--qindex", type=int, default=72)
     enc.add_argument("--workers", type=int, default=1,
-                     help="devices to shard the scene batch across "
-                          "(clamped to the GPU count; the batch across "
-                          "several GPUs is not ported yet)")
+                     help="devices to run the scene batch on, one "
+                          "worker process per GPU (clamped to the GPU "
+                          "count)")
     enc.add_argument("--key-q-boost", type=int, default=KEY_Q_BOOST,
                      help="keyframe qindex boost below the scene q")
     enc.add_argument("--key-lam-scale", type=float, default=0.3,

@@ -11,8 +11,6 @@ same butterflies in int64, as the spec model builds them.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
@@ -354,7 +352,13 @@ def inverse_transform(coefs: torch.Tensor, w: int, h: int,
     return _inverse_2d(coefs, w, h, tx_type)
 
 
-@functools.cache
+# The forward matrices built in this process, by (w, h, tx_type) and
+# "fwd64".  Their np.linalg.pinv bits depend on the BLAS thread count and
+# the larger ones take tens of seconds on the CPU, so a scene-batch worker
+# process adopts its parent's (parallel/gop.py) instead of building its own.
+_FORWARD: dict = {}
+
+
 def forward_matrix(w: int, h: int, tx_type: int = 0) -> np.ndarray:
     """Encoder forward transform as a (h*w, h*w) float32 numpy matrix: the
     pseudo-inverse of the normative inverse linearized on unit coefficients
@@ -363,24 +367,40 @@ def forward_matrix(w: int, h: int, tx_type: int = 0) -> np.ndarray:
     bit for bit."""
     if w != h:
         raise ValueError("square transforms only")
-    n = h * w
-    amp = 1 << 10
-    units = (torch.eye(n, dtype=torch.int64) * amp).reshape(n, h, w)
-    resp = _inverse_2d(units, w, h, tx_type).reshape(n, n).numpy()
-    # column k is the response to unit coefficient k
-    m = np.ascontiguousarray(resp.T).astype(np.float64) / amp
-    return np.linalg.pinv(m).astype(np.float32)
+    key = (w, h, tx_type)
+    if key not in _FORWARD:
+        n = h * w
+        amp = 1 << 10
+        units = (torch.eye(n, dtype=torch.int64) * amp).reshape(n, h, w)
+        resp = _inverse_2d(units, w, h, tx_type).reshape(n, n).numpy()
+        # column k is the response to unit coefficient k
+        m = np.ascontiguousarray(resp.T).astype(np.float64) / amp
+        _FORWARD[key] = np.linalg.pinv(m).astype(np.float32)
+    return _FORWARD[key]
 
 
-@functools.cache
 def fwd64() -> np.ndarray:
     """Forward transform for TX_64X64 as a (1024, 4096) float32 matrix: the
     pseudo-inverse of the integer inverse linearized over the 1024 coded
     (top-left 32x32) coefficients, the only ones the bitstream carries
     (av1tpu/models/intra_part.py:_fwd64, built from the port's own int64
     inverse)."""
-    units = torch.zeros((1024, 64, 64), dtype=torch.int64)
-    idx = torch.arange(1024)
-    units[idx, idx // 32, idx % 32] = 1 << 12  # scale for rounding fidelity
-    pixels = _inverse_2d(units, 64, 64, 0).reshape(1024, 4096).numpy()
-    return np.linalg.pinv((pixels / (1 << 12)).T).astype(np.float32)
+    if "fwd64" not in _FORWARD:
+        units = torch.zeros((1024, 64, 64), dtype=torch.int64)
+        idx = torch.arange(1024)
+        units[idx, idx // 32, idx % 32] = 1 << 12  # rounding fidelity
+        pixels = _inverse_2d(units, 64, 64, 0).reshape(1024, 4096).numpy()
+        _FORWARD["fwd64"] = np.linalg.pinv(
+            (pixels / (1 << 12)).T).astype(np.float32)
+    return _FORWARD["fwd64"]
+
+
+def built_forward_matrices() -> dict:
+    """The forward matrices this process has built so far."""
+    return dict(_FORWARD)
+
+
+def adopt_forward_matrices(mats: dict) -> None:
+    """Take matrices built by another process (built_forward_matrices) as
+    this process's own."""
+    _FORWARD.update(mats)

@@ -50,7 +50,18 @@ exits non-zero:
 11. the same command with --all-intra --max-frames 4, each preset: the
    kernel launches equal the count derived from the code (fast: 187 per
    frame, the keyframe's U+V stack, plus the probe's 374; quality: 120 per
-   frame plus the probe's 120).
+   frame plus the probe's 120);
+12. scene batch: encode_clip(workers=2) on the batch path (parallel/gop.py,
+   one worker process per device).  (a) On the two-scene clip (quality
+   preset), its TUs must equal workers=1 on the card and the CPU run of
+   phase 6.  With two or more GPUs the command's own routing deals the
+   scenes to two GPUs; with one, the card is listed twice, so two worker
+   processes share it.  (b) A two-scene 1920x1080 clip (a forced cut, 2
+   frames per scene, q 72, quality preset), workers=1 against the batch
+   on two workers, after a warm-up at the small size in the parent and in
+   each worker: encode seconds, scenes per second, key_device, bytes
+   (equal), peak memory per device and process; 120 launches per scene,
+   all in the parent's probe (the workers' keyframe is the wavefront one).
 
 The line before the last is the kernels' JSON record (launches summed over
 the timed runs, with the count of each path beside it); the last line is
@@ -550,6 +561,147 @@ def all_intra_1080p(torch, y4m: str, tmp: str, preset: str):
     return launches
 
 
+BATCH_FRAMES = 2        # frames per scene of the batch's 1080p clip
+
+
+def batch_clip(w: int, h: int, n: int):
+    """Two scenes of n frames: the synthetic clip, its second half
+    inverted (a forced cut)."""
+    from av1tpu_torch.utils.yuv import synthetic_clip
+
+    c = synthetic_clip(w, h, 2 * n, seed=11)
+    c.y[n:] = 255 - c.y[n:]
+    return c
+
+
+class _BatchSpy:
+    """Routes encode_clip's scene batch to `devices` (the card listed
+    twice where there is one), optionally onto an open, warmed pool that it
+    leaves open, and records where each scene ran."""
+
+    def __init__(self, gop, cli, devices, pool=None):
+        self.gop, self.cli, self.devices, self.pool = gop, cli, devices, pool
+        self.results: list = []
+
+    def __enter__(self):
+        gop, cli = self.gop, self.cli
+        self.saved = (cli._device_count, gop.scene_devices, gop.ScenePool,
+                      gop.SceneBatchEncoder.encode)
+        encode = self.saved[3]
+        spy = self
+
+        def record(enc, *a, **k):
+            res = encode(enc, *a, **k)
+            spy.results.extend(res)
+            return res
+
+        gop.SceneBatchEncoder.encode = record
+        if len(set(self.devices)) < len(self.devices):
+            cli._device_count = lambda dev: len(self.devices)
+            gop.scene_devices = lambda n, dev: self.devices[:n]
+        if self.pool is not None:
+            gop.ScenePool = lambda devices: contextlib.nullcontext(self.pool)
+        return self
+
+    def __exit__(self, *exc):
+        (self.cli._device_count, self.gop.scene_devices, self.gop.ScenePool,
+         self.gop.SceneBatchEncoder.encode) = self.saved
+
+    def where(self) -> dict:
+        """{(device, pid): (scenes, peak bytes allocated)}."""
+        out: dict = {}
+        for r in self.results:
+            key = (r["device"], r["pid"])
+            n, peak = out.get(key, (0, 0))
+            out[key] = (n + 1, max(peak, r["peak_bytes"] or 0))
+        return out
+
+
+def batch_devices(torch) -> tuple[list, str]:
+    from av1tpu_torch.parallel.gop import scene_devices
+
+    if torch.cuda.device_count() >= 2:
+        return scene_devices(2, "cuda"), "two GPUs, the command's routing"
+    return scene_devices(1, "cuda") * 2, "one GPU listed twice"
+
+
+def batch_parity(torch, quality_runs) -> None:
+    """Phase 12 (a)."""
+    import av1tpu_torch.cli as cli
+    from av1tpu_torch.parallel import gop
+
+    (s_gpu, _), (s_cpu, _) = quality_runs
+    devices, case = batch_devices(torch)
+    with _BatchSpy(gop, cli, devices) as spy:
+        s_b, st_b = cli.encode_clip(two_scene_clip(), 120, device="cuda",
+                                    workers=2, chunk=4, metric="psnr",
+                                    partitions=True, scene_threshold=2.5,
+                                    gop=True)
+    where = spy.where()
+    print(f"batch parity ({case}): devices {[str(d) for d in devices]}, "
+          f"scenes per (device, pid) "
+          f"{ {f'{d}/{p}': v[0] for (d, p), v in where.items()} }, "
+          f"tus {len(s_b)}, identical to workers=1 on the card "
+          f"{sum(a == b for a, b in zip(s_b, s_gpu))}, to the CPU "
+          f"{sum(a == b for a, b in zip(s_b, s_cpu))}, bytes {st_b['bytes']}",
+          flush=True)
+    assert len(spy.results) == st_b["scenes"] == 2 and len(where) == 2
+    assert {d for d, _ in where} == {str(d) for d in devices}
+    assert s_b == s_gpu == s_cpu
+
+
+def batch_1080p(torch) -> int:
+    """Phase 12 (b).  Returns the kernel's launches in the timed batch."""
+    import av1tpu_torch.cli as cli
+    from av1tpu_torch.kernels.transform_quant import transform_quantize
+    from av1tpu_torch.parallel import gop
+
+    clip = batch_clip(1920, 1080, BATCH_FRAMES)
+    kw = dict(chunk=BATCH_FRAMES, metric="psnr", partitions=True,
+              scene_threshold=2.5, gop=True, device="cuda")
+    devices, case = batch_devices(torch)
+    runs = {}
+    with gop.ScenePool(devices) as pool:
+        small = batch_clip(128, 64, BATCH_FRAMES)
+        with _BatchSpy(gop, cli, devices, pool) as spy:  # warm the workers
+            cli.encode_clip(small, 120, workers=2, **kw)
+        assert len(spy.where()) == 2
+        cli.encode_clip(small, 120, **kw)                # and the parent
+        torch.cuda.synchronize()
+        for workers in (1, 2):
+            torch.cuda.reset_peak_memory_stats()
+            transform_quantize.launches = 0
+            with _BatchSpy(gop, cli, devices, pool) as spy:
+                streams, stats = cli.encode_clip(clip, QINDEX,
+                                                 workers=workers, **kw)
+            torch.cuda.synchronize()
+            launches = transform_quantize.launches
+            peaks = {"parent": torch.cuda.max_memory_allocated()}
+            peaks.update({f"{d}/{p}": v[1]
+                          for (d, p), v in spy.where().items()})
+            sec = stats["encode_seconds"]
+            route = case if workers > 1 else "the single-device path"
+            print(f"batch 1080p workers={workers} ({route}): encode {sec} s, "
+                  f"{stats['scenes'] / sec:.4f} scenes/s, "
+                  f"{stats['encode_fps']} fps, key_device "
+                  f"{stats['stage_seconds']['key_device']} s (summed over "
+                  f"scenes), bytes {stats['bytes']}, psnr_y "
+                  f"{stats['psnr_y']}, launches {launches}, peak bytes "
+                  f"allocated {peaks}", flush=True)
+            print(f"batch 1080p workers={workers} stats:", json.dumps(stats),
+                  flush=True)
+            assert stats["scenes"] == 2 and len(streams) == 2 * BATCH_FRAMES
+            assert launches == COLS * stats["scenes"], launches
+            assert len(spy.results) == (2 if workers > 1 else 0)
+            runs[workers] = (streams, stats, launches)
+    (s1, st1, _), (s2, st2, launches) = runs[1], runs[2]
+    speedup = st1["encode_seconds"] / st2["encode_seconds"]
+    print(f"batch 1080p: speed-up {speedup:.3f}x on {case}, identical TUs "
+          f"{sum(a == b for a, b in zip(s1, s2))} of {len(s1)}", flush=True)
+    assert st1["bytes"] == st2["bytes"] and s1 == s2
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -590,7 +742,7 @@ def main() -> int:
     _phase("slice_1080p", t)
 
     t = time.perf_counter()
-    parity(torch, "quality parity", partitions=True)
+    quality_runs = parity(torch, "quality parity", partitions=True)
     _phase("quality_parity", t)
 
     t = time.perf_counter()
@@ -619,10 +771,16 @@ def main() -> int:
                           for p in ("fast", "quality")}
         _phase("all_intra_1080p", t)
 
+    t = time.perf_counter()
+    batch_parity(torch, quality_runs)
+    launches_batch = batch_1080p(torch)
+    _phase("scene_batch", t)
+
     by_path = {"fast": launches_fast, "quality": launches_quality,
                "daemon": launches_daemon, "layered": launches_layered,
                "all_intra_fast": launches_intra["fast"],
-               "all_intra_quality": launches_intra["quality"]}
+               "all_intra_quality": launches_intra["quality"],
+               "batch": launches_batch}
     main_rec = recs[0]                   # (120, 256): a luma block row
     shape_key = [f"{r['b']}x{r['n2']}" for r in recs]
     print(json.dumps({"kernels": [{

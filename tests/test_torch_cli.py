@@ -3,8 +3,9 @@ same defaults and choices, the workers clamp on one device, --max-frames,
 and the refusal of container input without native/build/av1_tool.  Port
 runs only, on the CPU device, at 64x96 and a few frames; the reference's
 parser is read, never run.  tests/test_torch_slice_quality.py runs the C++
-daemon's command template on the port, and tests/test_torch_slice.py holds
-the refusal of the scene batch over several devices."""
+daemon's command template on the port, and tests/test_torch_slice.py and
+tests/test_torch_slice_quality.py hold the scene batch over several
+devices to the reference's streams."""
 
 import argparse
 import json

@@ -1,6 +1,7 @@
 """Tests that need an NVIDIA GPU: the CUDA transform+quantize kernel agrees
-with its plain PyTorch version at the main path's shapes, and its wrapper
-rejects what the kernel does not take.  They skip where CUDA is absent.
+with its plain PyTorch version at the main path's shapes, its wrapper
+rejects what the kernel does not take, and the scene batch runs on the
+visible GPUs.  They skip where CUDA is absent.
 This file imports no JAX, so it also runs on a GPU machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -79,3 +80,37 @@ def test_cuda_wrapper_rejects_bad_inputs(dev):
     _, *c4 = [torch.from_numpy(a).to(dev) for a in _case(4, 4, 0)]
     with pytest.raises(ValueError):
         TQPlane(*c4)
+
+
+@pytest.mark.cuda
+def test_scene_batch_on_the_gpus(dev):
+    """The scene batch on the visible GPUs (one listed twice where there is
+    one, so that two worker processes share it): each scene equals the
+    same scene encoded in this process on the first card."""
+    from av1tpu_torch.models.intra_v import fuse_planes
+    from av1tpu_torch.parallel import gop
+    from av1tpu_torch.utils.yuv import synthetic_clip
+
+    def scene(n, seed):
+        c = synthetic_clip(64, 64, n, seed=seed)
+        return {"frames": np.stack([fuse_planes(c.y[i], c.u[i], c.v[i])
+                                    for i in range(n)]),
+                "q": 100, "key_q": 80, "key_lf": (0, 0, 0),
+                "inter_lf": (12, 8, 8), "key_gate": 0.0, "inter_gate": 0.0}
+
+    scenes = [scene(3, 100), scene(2, 101)]
+    devices = gop.scene_devices(2, "cuda")
+    devices = devices * (2 // len(devices))
+    with gop.ScenePool(devices, timeout=600.0) as pool:
+        res = gop.SceneBatchEncoder(scenes, pool, 64, 64).encode(8192, 8192)
+    assert [r["device"] for r in res] == [str(d) for d in devices]
+    assert all(r["peak_bytes"] > 0 for r in res)
+    for sc, r in zip(scenes, res):
+        here = gop._encode_scene(
+            dict(sc, frames=torch.from_numpy(sc["frames"])), dev, 64, 64, 8,
+            8192, 8192, True, lambda b: gop.key_skip8(b, 64, 64), 1.0)
+        for k in ("key_buf", "cdef_s", "ref"):
+            assert np.array_equal(here[k], r[k]), k
+        assert len(r["inter_bufs"]) == len(sc["frames"]) - 1
+        for a, b in zip(here["inter_bufs"], r["inter_bufs"]):
+            assert np.array_equal(a, b)

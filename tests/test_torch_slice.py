@@ -7,6 +7,7 @@ so the recon and the CDF chain handed from chunk to chunk are compared
 too, as is the tail that the reference pads to a full chunk."""
 
 import functools
+import hashlib
 import json
 
 import numpy as np
@@ -76,18 +77,38 @@ def psnr_run():
                        **dict(KW, chunk=2))
 
 
+# The reference's scene batch with the fast preset (av1tpu.cli.encode_clip
+# on the small two-scene clip, chunk 2, q 120, PSNR, workers=8 on the
+# 8-device virtual CPU mesh, whose Packer was the port's build): SHA-256 of
+# each TU.  Its keyframe is always the wavefront one, packed as the fast
+# preset's kind "v" (av1tpu/cli.py:320, 341-343), so every TU differs from
+# workers=1; a reference fault (ROADMAP queue 3), reproduced on purpose.
+# Recorded once, because the batch's sharded compile takes minutes.
+FAST_BATCH_SHA256 = [
+    "811324354f22060d2a455d2a5b2802f7a83583bc5775ce58f4799f4dd7ac973d",
+    "bcc865ac4733a7ba27f85d067b92a596e01856e176ffbe70932369267a3a416d",
+    "09a85fc3ae103f9c80a4698ae5e73ca89a804b01df50a1fbf2b5e606b4407784",
+    "4aa3101316ff06bf929be753fd31b146b5e7013f3a64cfc14fb4f6b06df25b60",
+    "bcc865ac4733a7ba27f85d067b92a596e01856e176ffbe70932369267a3a416d",
+    "f0c08c1504195071171730442b321ffc945506660f0d15beb53744446367b911",
+]
+FAST_BATCH_STATS = {"bytes": 238, "psnr_y": 41.434}
+
+
 @pytest.mark.parametrize("kw", [dict(metric="ssim"), dict(gop=False),
                                 dict(workers=2), dict(layers=2),
                                 dict(metric="tpu_vmaf")])
 def test_unported_branches_raise(kw, psnr_run, monkeypatch):
-    """Every single-device branch of the reference's encode_clip is ported:
-    with the fast preset at a fixed q, another metric (filed under its own
-    name), a worker count on one device or --layers 2 (which the reference
-    applies with partitions only) emits the PSNR run's TUs, and gop=False
-    codes every frame as a keyframe.  The one branch still unported, the
-    scene batch over several devices, raises wherever the reference would
-    take it (GOP mode, more than one device and scene)."""
+    """Every branch of the reference's encode_clip is ported: with the fast
+    preset at a fixed q, another metric (filed under its own name), a
+    worker count on one device or --layers 2 (which the reference applies
+    with partitions only) emits the PSNR run's TUs, and gop=False codes
+    every frame as a keyframe.  With two devices reported, workers=2 takes
+    the scene batch wherever the reference does (GOP mode, more than one
+    device and scene) and emits the reference batch's TUs, whatever the
+    metric or `layers`; gop=False stays on the all-intra path."""
     import av1tpu_torch.cli as cli
+    from av1tpu_torch.parallel import gop
 
     args = dict(KW, chunk=2, **kw)
     clip = _small_two_scene_clip()
@@ -100,12 +121,18 @@ def test_unported_branches_raise(kw, psnr_run, monkeypatch):
     else:
         assert gst["keyframes"] == len(gs) == 6
     monkeypatch.setattr(cli, "_device_count", lambda dev: 2)
+    # a hung worker fails the test instead of running into the suite's clock
+    monkeypatch.setattr(gop, "ScenePool",
+                        functools.partial(gop.ScenePool, timeout=300.0))
     many = dict(args, workers=2)
+    bs, bst = encode_clip(clip, 120, device="cpu", **many)
     if args["gop"]:
-        with pytest.raises(NotImplementedError, match="SceneBatchEncoder"):
-            encode_clip(clip, 120, device="cpu", **many)
+        assert [hashlib.sha256(t).hexdigest() for t in bs] == \
+            FAST_BATCH_SHA256
+        assert {k: bst[k] for k in FAST_BATCH_STATS} == FAST_BATCH_STATS
+        assert set(bst) == set(gst) and bst["scenes"] == 2
     else:
-        assert encode_clip(clip, 120, device="cpu", **many)[0] == gs
+        assert bs == gs
 
 
 def test_cli_encode_writes_ivf(tmp_path, capsys):

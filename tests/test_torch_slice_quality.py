@@ -23,7 +23,9 @@ per-frame q, reference flags and MV scales as array inputs, so the
 reference runs the slice's executable), the default metric at the slice's
 fixed q, and the CQ search (the probe compiled with an int32 q).  The
 all-intra run compiles the reference's partitioned chunk, the one whole-frame
-compile the file adds."""
+compile the file adds.  The scene batch over two worker processes (the
+CLI's --workers path on several devices) is held to the same TUs, with and
+without the 2-layer pyramid, which the batch does not read."""
 
 import functools
 import json
@@ -271,6 +273,61 @@ def test_daemon_command_runs_with_the_reference_defaults(tmp_path, capsys):
     assert stats["psnr_y"] > 30.0 and stats["output"] == ivf
     with open(ivf, "rb") as f:
         assert f.read(4) == b"DKIF"
+
+
+# ---- the scene batch (--workers over several devices) ----
+
+# The reference's batch branch on this file's clip and arguments
+# (av1tpu.cli.encode_clip with workers=8 on the 8-device virtual CPU mesh,
+# run once: its sharded compile takes minutes): its TUs are the workers=1
+# TUs of `encodes`, with and without layers=2 (the batch codes every inter
+# frame as a reference frame), and its PSNR is each scene's last recon
+# against its last source.
+BATCH_PSNR_Y = 41.142
+BATCH_STAGES = {"scene_detect", "probe", "tfilter"}
+
+
+@pytest.fixture
+def two_devices(monkeypatch):
+    """The CLI sees two devices; its workers run on [cpu, cpu]."""
+    import av1tpu_torch.cli as cli
+    from av1tpu_torch.parallel import gop
+
+    monkeypatch.setattr(cli, "_device_count", lambda dev: 2)
+    # a hung worker fails the test instead of running into the suite's clock
+    monkeypatch.setattr(gop, "ScenePool",
+                        functools.partial(gop.ScenePool, timeout=300.0))
+
+
+def test_scene_batch_tus_match_jax(encodes, two_devices):
+    (ws, wst), _ = encodes
+    gs, gst = encode_clip(_two_scene_clip(), Q, device="cpu", workers=2,
+                          **KW)
+    assert _differing(gs, ws) == []
+    assert set(gst) == set(wst)
+    for k in ("frames", "bytes", "width", "height", "qindex", "scenes",
+              "keyframes", "metric_score"):
+        assert gst[k] == wst[k], k
+    assert gst["psnr_y"] == BATCH_PSNR_Y != wst["psnr_y"]
+    # the parent's stages are the reference batch's; the workers' are
+    # filed under the single-device path's names
+    assert set(gst["stage_seconds"]) == BATCH_STAGES | {
+        "key_device", "cdef", "inter_dispatch", "inter_fetch"}
+    assert set(gst["stage_seconds"]) <= set(wst["stage_seconds"])
+
+
+def test_scene_batch_ignores_layers_as_jax_does(encodes, layered,
+                                                two_devices):
+    """--layers 2 on the batch emits the single-layer stream, as the
+    reference's batch does: its frames differ from the layered stream's
+    where the pyramid's do."""
+    (ws, _), _ = encodes
+    (lws, _), _ = layered
+    gs, gst = encode_clip(_two_scene_clip(), Q, device="cpu", workers=2,
+                          layers=2, **KW)
+    assert _differing(gs, ws) == []
+    assert _differing(gs, lws) == [1, 2, 3, 4, 6, 7, 8, 9]
+    assert gst["psnr_y"] == BATCH_PSNR_Y
 
 
 # ---- the reference's jitted entry points at the slice's shapes ----

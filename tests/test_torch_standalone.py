@@ -1,9 +1,10 @@
 """The port stands on its own.  In a subprocess whose import system refuses
 av1tpu, av1tpu.* and jax, every module of av1tpu_torch imports,
 chip_smoke.py and tools/profile_torch_slice.py import as modules,
-encode_clip runs both presets on the CPU, and `python -m av1tpu_torch.cli
+encode_clip runs both presets on the CPU, `python -m av1tpu_torch.cli
 encode` with the daemon's arguments (the quality preset and the tpu_vmaf
-metric by default) turns a y4m into an IVF.  A scan
+metric by default) turns a y4m into an IVF, and the scene batch runs on two
+worker processes that refuse both as well.  A scan
 of the sources finds no import of either."""
 
 import json
@@ -18,9 +19,11 @@ from tests.test_torch_threads import single_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+# Run as a file: the scene batch's spawned workers import it again (as
+# __mp_main__) before anything of the port, so they refuse both too.
 _SCRIPT = r'''
-import importlib, importlib.abc, importlib.util, json, os, pkgutil, runpy
-import sys, tempfile
+import importlib, importlib.abc, importlib.util, json, multiprocessing, os
+import pkgutil, runpy, sys, tempfile
 
 BLOCKED = ("av1tpu", "jax")
 
@@ -36,55 +39,95 @@ def ours():
     return sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 
 
+PRELOADED = ours()
 sys.meta_path.insert(0, Refuse())
-out = {"preloaded": ours()}
-import av1tpu_torch
-out["modules"] = []
-for m in pkgutil.walk_packages(av1tpu_torch.__path__, "av1tpu_torch."):
-    importlib.import_module(m.name)
-    out["modules"].append(m.name)
-for name, path in (("chip_smoke", "chip_smoke.py"),
-                   ("profile_torch_slice", "tools/profile_torch_slice.py")):
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    out[name] = callable(mod.main)
+sys.path.insert(0, os.getcwd())
 
-from av1tpu_torch.cli import encode_clip
-from av1tpu_torch.utils.yuv import synthetic_clip, write_y4m
 
-streams, stats = encode_clip(synthetic_clip(128, 64, 6, seed=5), 100,
-                             chunk=4, metric="psnr", partitions=False,
-                             device="cpu")
-out["encode"] = {"tus": len(streams), "empty": sum(not s for s in streams),
-                 "psnr_y": stats["psnr_y"]}
-streams, stats = encode_clip(synthetic_clip(128, 64, 3, seed=5), 100,
-                             chunk=2, metric="psnr", partitions=True,
-                             device="cpu")
-out["quality"] = {"tus": len(streams), "empty": sum(not s for s in streams),
-                  "psnr_y": stats["psnr_y"]}
-with tempfile.TemporaryDirectory() as d:
-    src, dst = os.path.join(d, "in.y4m"), os.path.join(d, "out.ivf")
-    write_y4m(src, synthetic_clip(96, 64, 3, seed=4))
-    sys.argv = ["av1tpu_torch.cli", "encode", "-i", src, "-o", dst,
-                "--qindex", "100", "--workers", "4", "--chunk", "2",
-                "--device", "cpu"]
-    try:
-        runpy.run_module("av1tpu_torch.cli", run_name="__main__",
-                         alter_sys=True)
-    except SystemExit as e:
-        out["cli_rc"] = e.code
-    with open(dst, "rb") as f:
-        out["ivf"] = {"magic": f.read(4).decode(), "size": os.path.getsize(dst)}
-out["leaked"] = ours()
-print("RESULT " + json.dumps(out))
+def main():
+    out = {"preloaded": PRELOADED}
+    run(out)
+    out["leaked"] = ours()
+    print("RESULT " + json.dumps(out))
+
+
+def run(out):
+    import av1tpu_torch
+    out["modules"] = []
+    for m in pkgutil.walk_packages(av1tpu_torch.__path__, "av1tpu_torch."):
+        importlib.import_module(m.name)
+        out["modules"].append(m.name)
+    for name, path in (("chip_smoke", "chip_smoke.py"),
+                       ("profile_torch_slice",
+                        "tools/profile_torch_slice.py")):
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        out[name] = callable(mod.main)
+
+    from av1tpu_torch.cli import encode_clip
+    from av1tpu_torch.utils.yuv import synthetic_clip, write_y4m
+
+    streams, stats = encode_clip(synthetic_clip(128, 64, 6, seed=5), 100,
+                                 chunk=4, metric="psnr", partitions=False,
+                                 device="cpu")
+    out["encode"] = {"tus": len(streams),
+                     "empty": sum(not s for s in streams),
+                     "psnr_y": stats["psnr_y"]}
+    streams, stats = encode_clip(synthetic_clip(128, 64, 3, seed=5), 100,
+                                 chunk=2, metric="psnr", partitions=True,
+                                 device="cpu")
+    out["quality"] = {"tus": len(streams),
+                      "empty": sum(not s for s in streams),
+                      "psnr_y": stats["psnr_y"]}
+    with tempfile.TemporaryDirectory() as d:
+        src, dst = os.path.join(d, "in.y4m"), os.path.join(d, "out.ivf")
+        write_y4m(src, synthetic_clip(96, 64, 3, seed=4))
+        sys.argv = ["av1tpu_torch.cli", "encode", "-i", src, "-o", dst,
+                    "--qindex", "100", "--workers", "4", "--chunk", "2",
+                    "--device", "cpu"]
+        try:
+            runpy.run_module("av1tpu_torch.cli", run_name="__main__",
+                             alter_sys=True)
+        except SystemExit as e:
+            out["cli_rc"] = e.code
+        with open(dst, "rb") as f:
+            out["ivf"] = {"magic": f.read(4).decode(),
+                          "size": os.path.getsize(dst)}
+    # the scene batch on two worker processes (two devices reported)
+    import av1tpu_torch.cli as cli
+    from av1tpu_torch.parallel import gop
+
+    ran = []
+    encode = gop.SceneBatchEncoder.encode
+
+    def spy(enc, *a, **k):
+        res = encode(enc, *a, **k)
+        ran.extend(r["pid"] for r in res)
+        return res
+
+    gop.SceneBatchEncoder.encode = spy
+    cli._device_count = lambda dev: 2
+    clip = synthetic_clip(64, 64, 4, seed=5)
+    clip.y[2:] = 255 - clip.y[2:]
+    streams, stats = encode_clip(clip, 100, chunk=2, metric="psnr",
+                                 device="cpu", workers=2)
+    out["batch"] = {"tus": len(streams), "scenes": stats["scenes"],
+                    "workers": len(set(ran)) if len(ran) == 2 else 0,
+                    "children": len(multiprocessing.active_children())}
+
+
+if __name__ == "__main__":
+    main()
 '''
 
 
 @pytest.fixture(scope="module")
-def alone():
+def alone(tmp_path_factory):
     # one OpenMP thread: the suite's workers share the machine's cores
-    r = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO,
+    script = tmp_path_factory.mktemp("alone") / "alone.py"
+    script.write_text(_SCRIPT)
+    r = subprocess.run([sys.executable, str(script)], cwd=REPO,
                        env=dict(os.environ, OMP_NUM_THREADS="1"),
                        capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stderr[-4000:]
@@ -107,7 +150,7 @@ def test_every_port_module_imports_alone(alone):
               "av1tpu_torch.spec.encode_frame", "av1tpu_torch.spec.headers",
               "av1tpu_torch.state", "av1tpu_torch.utils.yuv",
               "av1tpu_torch.metrics.quality", "av1tpu_torch.utils.log",
-              "av1tpu_torch.models.cq"):
+              "av1tpu_torch.models.cq", "av1tpu_torch.parallel.gop"):
         assert m in mods, m
 
 
@@ -132,6 +175,12 @@ def test_cli_module_encodes_alone(alone):
     assert alone["ivf"]["magic"] == "DKIF" and alone["ivf"]["size"] > 32
     (stats,) = alone["cli_stats"]
     assert 0.0 < stats["tpu_vmaf"] <= 100.0 and stats["frames"] == 3
+
+
+def test_scene_batch_runs_alone(alone):
+    """A two-worker batch encode, with the workers refusing both too."""
+    assert alone["batch"] == {"tus": 4, "scenes": 2, "workers": 2,
+                              "children": 0}
 
 
 _IMPORT = re.compile(r"^\s*(import|from)\s+(av1tpu|jax)(\.|\s|$)")

@@ -21,9 +21,10 @@ with the partitioned step (8x8 sub-block MVs, LAST/GOLDEN, 32/64 merges,
 skip RDO); the fast preset (partitions=False) keeps the fixed 16x16 grid.
 With --workers N on several GPUs the scenes run as a batch, one worker
 process per GPU (parallel/gop.py), and the parent packs their buffers.
-Non-y4m inputs and non-IVF outputs go through native/build/av1_tool, which
-this package does not build.  Prints progress lines and one JSON stats
-line.
+Non-y4m inputs and non-IVF outputs go through av1_tool
+(native/tools/av1_tool.c), which _build.av1_tool_path() compiles into
+av1tpu_torch/_build/ at the first such use (libav* via pkg-config).  Prints
+progress lines and one JSON stats line.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ import time
 import numpy as np
 import torch
 
+from av1tpu_torch import _build
 from av1tpu_torch.spec.bits import BitWriter
 from av1tpu_torch.spec.encode_frame import (
     EncoderConfig, make_frame_header, make_frame_header_inter,
@@ -52,9 +54,6 @@ from av1tpu_torch.spec.obu import (
     OBU_FRAME, OBU_SEQUENCE_HEADER, build_obu, temporal_delimiter, write_ivf,
 )
 from av1tpu_torch.utils.yuv import read_y4m
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-AV1_TOOL = os.path.join(REPO, "native", "build", "av1_tool")
 
 # keyframe quality boost (qindex steps below the scene q); --key-q-boost
 KEY_Q_BOOST = 24
@@ -619,15 +618,13 @@ def encode_clip(clip, qindex: int, chunk: int = 4, progress=None,
 
 
 def _to_y4m(path: str, tmpdir: str) -> str:
-    """The input as a y4m file: itself, or its decode by
-    native/build/av1_tool into tmpdir (a container or another codec)."""
+    """The input as a y4m file: itself, or its decode by av1_tool into
+    tmpdir (a container or another codec)."""
     if path.lower().endswith(".y4m"):
         return path
-    if not os.path.exists(AV1_TOOL):
-        raise RuntimeError("native av1_tool not built; cannot demux " + path)
     out = os.path.join(tmpdir, "source.y4m")
-    r = subprocess.run([AV1_TOOL, "decode", path, out, "--codec", "auto"],
-                       capture_output=True, text=True)
+    r = subprocess.run([_build.av1_tool_path(), "decode", path, out,
+                        "--codec", "auto"], capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError("source decode failed: " + r.stderr.strip())
     return out
@@ -680,8 +677,8 @@ def cmd_encode(args) -> int:
             ivf = os.path.join(tmpdir, "video.ivf")
             write_ivf(ivf, streams, clip.width, clip.height)
             src = "none" if args.input.lower().endswith(".y4m") else args.input
-            r = subprocess.run([AV1_TOOL, "mux", ivf, src, args.output],
-                               capture_output=True, text=True)
+            r = subprocess.run([_build.av1_tool_path(), "mux", ivf, src,
+                                args.output], capture_output=True, text=True)
             if r.returncode != 0:
                 raise RuntimeError("mux failed: " + r.stderr.strip())
             mux_stats = json.loads(r.stdout.strip().splitlines()[-1])

@@ -7,8 +7,9 @@ Phases, each printed with its seconds; any failure raises and the script
 exits non-zero:
 
 1. environment: torch version, the card's name and power limit, TF32 off;
-2. build: the CUDA kernels (nvcc, sm_90a) and the C++ packer from the
-   sources in this checkout;
+2. build: the CUDA kernels (nvcc, sm_90a), the C++ packer and, where
+   pkg-config finds libavcodec, libavformat and libavutil, av1_tool and
+   the daemon, from the sources in this checkout, side by side;
 3. kernel vs plain: transform_quantize at the main path's shapes, held
    against its plain PyTorch version (levels may flip only at a rounding
    boundary, by 1; dq exact), both timed (time_tq): device time apart
@@ -61,7 +62,29 @@ exits non-zero:
    on two workers, after a warm-up at the small size in the parent and in
    each worker: encode seconds, scenes per second, key_device, bytes
    (equal), peak memory per device and process; 120 launches per scene,
-   all in the parent's probe (the workers' keyframe is the wavefront one).
+   all in the parent's probe (the workers' keyframe is the wavefront one);
+13. container and daemon.  (a) Where pkg-config finds libavcodec,
+   libavformat and libavutil: the daemon's cycle, a 640x360 8-frame mpeg4
+   mkv with a tone track in a library directory, `av1tpu-daemon --once`
+   with deploy/config.torch.toml's template (the interpreter spelled as
+   this one's; PYTHONPATH the checkout): the job's status and stage, the
+   output's bytes, psnr_y and tpu_vmaf; the replaced file probed (AV1
+   video, the tone) and decoded (8 frames).  Then, on every host, the same
+   command in this process at --chunk 1 with ReconSpy on the keyframe
+   recon after CDEF and each inter frame's, on that mkv (on the y4m of the
+   same clip without libav): 40 launches per probed scene (the 640-wide
+   first block row); with libav its 8 TUs must equal the replaced file's
+   video (remuxed to IVF), and its libdav1d decode, frame count and
+   decoded-vs-recon differing pixels are printed, not failed on: the
+   quality preset keeps the reference's faults (ROADMAP queue 3: sub_chain's
+   prediction, and streams of this clip the decoders refuse).  (b) The
+   fast preset at 1920x1080, 8 frames, --chunk 1, IVF, with ReconSpy: 561
+   launches per scene (at chunk 1 the scene detector's minimum scene length
+   is 1, and this clip has 2 scenes); with libav the libdav1d decode must
+   equal the card's recon in every pixel of every plane of the coded
+   1920x1088 frame.  Each run leaves its IVF, its recon and its stats in
+   $AV1TPU_SMOKE_OUT (a temporary directory when unset), where
+   tools/card_decode_check.py decodes them on a host that has libav.
 
 The line before the last is the kernels' JSON record (launches summed over
 the timed runs, with the count of each path beside it); the last line is
@@ -70,10 +93,12 @@ the timed runs, with the count of each path beside it); the last line is
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import io
 import json
 import os
+import shlex
 import subprocess
 import sys
 import tempfile
@@ -88,6 +113,10 @@ CLI_FRAMES = 16        # the daemon-command phases' 1080p clip
 INTRA_FRAMES = 4       # the all-intra phase's frames
 CQ_TARGET = 90.0       # tpu_vmaf target of the CQ parity run
 SHAPES = ((120, 256), (1, 256), (240, 64), (2, 64))
+CONTAINER_W, CONTAINER_H = 640, 360   # phase 13 (a)'s mkv
+CONTAINER_FRAMES = 8                   # frames of both phase 13 clips
+DECODE_W, DECODE_H = 1920, 1080        # phase 13 (b)'s clip
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def _phase(name: str, t0: float) -> None:
@@ -702,6 +731,286 @@ def batch_1080p(torch) -> int:
     return launches
 
 
+class ReconSpy:
+    """While a GOP encode runs at chunk 1, the recon of every frame in
+    coding order, as numpy: a keyframe's after CDEF (models/cdef.cdef_fused),
+    an inter frame's `ref` (inter_v.encode_gop_chunk_part, encode_gop_chunk
+    for the fast preset, encode_gop_chunk_layered for --layers 2, whose
+    non-reference frames return no recon of their own and record None)."""
+
+    def __enter__(self):
+        from av1tpu_torch.models import cdef, inter_v
+
+        self.frames: list = []
+        self.saved = [(m, n, getattr(m, n), pick) for m, n, pick in (
+            (cdef, "cdef_fused", lambda o: o),
+            (inter_v, "encode_gop_chunk", lambda o: o[1]),
+            (inter_v, "encode_gop_chunk_part", lambda o: o[1]),
+            (inter_v, "encode_gop_chunk_layered",
+             lambda o: None if o[1][0] else o[2]))]
+        for mod, name, fn, pick in self.saved:
+            setattr(mod, name, self._spy(fn, pick))
+        return self
+
+    def _spy(self, fn, pick):
+        def spy(*a, **k):
+            out = fn(*a, **k)
+            recon = pick(out)
+            self.frames.append(None if recon is None
+                               else recon.cpu().numpy())
+            return out
+        return spy
+
+    def __exit__(self, *exc):
+        for mod, name, fn, _ in self.saved:
+            setattr(mod, name, fn)
+
+    def recons(self) -> dict:
+        """{frame: fused recon} of the frames that have one."""
+        return {i: f for i, f in enumerate(self.frames) if f is not None}
+
+
+def av1_tool(tool: str, *args) -> dict:
+    """One av1_tool command; its last JSON line (probe: the whole output)."""
+    r = subprocess.run([tool, *args], capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, (args, r.stderr[-2000:])
+    out = r.stdout.strip()
+    return json.loads(out if args[0] == "probe" else out.splitlines()[-1])
+
+
+def decoded_vs_recon(tool: str, video: str, recons: dict, tmp: str):
+    """Decode `video` with libdav1d and count the pixels of each plane that
+    differ from the recon of each frame in recons {frame: fused [y | u | v]
+    recon over the 64-aligned coded size, which the decoder outputs}.
+    Returns (the decode's record, or None where the decoder refused the
+    stream; its error; {frame: (y, u, v)}, empty without a decode)."""
+    from av1tpu_torch.utils.yuv import read_y4m
+
+    y4m = os.path.join(tmp, "decoded.y4m")
+    r = subprocess.run([tool, "decode", video, y4m], capture_output=True,
+                       text=True, timeout=300)
+    if r.returncode != 0:
+        return None, r.stderr.strip(), {}
+    dec = read_y4m(y4m)
+    os.remove(y4m)
+    ny, nc = dec.height * dec.width, dec.height * dec.width // 4
+    diffs = {}
+    for i, f in recons.items():
+        planes = (f[:ny], f[ny : ny + nc], f[ny + nc :])
+        diffs[i] = tuple(int(np.count_nonzero(p != d.ravel()))
+                         for p, d in zip(planes,
+                                         (dec.y[i], dec.u[i], dec.v[i])))
+    return json.loads(r.stdout.strip().splitlines()[-1]), "", diffs
+
+
+def ivf_tus(path: str) -> list[bytes]:
+    """The frame payloads of an IVF file."""
+    with open(path, "rb") as f:
+        data = f.read()
+    off, out = int.from_bytes(data[6:8], "little"), []
+    while off < len(data):
+        n = int.from_bytes(data[off : off + 4], "little")
+        out.append(data[off + 12 : off + 12 + n])
+        off += 12 + n
+    return out
+
+
+def torch_config(tmp: str, library: str, encode_cmd: str) -> str:
+    """deploy/config.torch.toml with its paths, gates and template
+    overridden for this run (later keys win in the daemon's parser)."""
+    with open(os.path.join(REPO, "deploy", "config.torch.toml")) as f:
+        text = f.read()
+    text += (f'\n[scan]\nlibrary_roots = ["{library}"]\n'
+             "stability_wait_secs = 0\n"
+             f'\n[paths]\njob_state_dir = "{tmp}/jobs"\n'
+             f'temp_output_dir = "{tmp}/temp"\n'
+             "\n[gates]\nmin_bytes = 1\n"
+             f"\n[tpu]\nencode_cmd = {json.dumps(encode_cmd)}\n")
+    cfg = os.path.join(tmp, "config.toml")
+    with open(cfg, "w") as f:
+        f.write(text)
+    return cfg
+
+
+def torch_template() -> str:
+    """[tpu].encode_cmd of deploy/config.torch.toml."""
+    with open(os.path.join(REPO, "deploy", "config.torch.toml")) as f:
+        line = next(x for x in f if x.startswith("encode_cmd = "))
+    return json.loads(line[len("encode_cmd = "):])
+
+
+def torch_command(*extra) -> str:
+    """The template with this interpreter for `python3` (the daemon's
+    shell would find whichever is first on its PATH) and extra options."""
+    cmd = torch_template().replace("python3", shlex.quote(sys.executable), 1)
+    return " ".join([cmd, *extra])
+
+
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def card_encode(torch, name: str, argv_to, out_dir: str,
+                device: str) -> tuple[dict, int]:
+    """The command argv_to(ivf) at --chunk 1 on `device`, with ReconSpy.
+    Keeps in out_dir what a decode check needs: NAME.ivf, NAME_recon.npz
+    (each frame's recon at the coded size, and its index) and NAME.json
+    (the card, the launches, the stats).  Returns (stats, launches)."""
+    from av1tpu_torch.kernels.transform_quant import transform_quantize
+
+    ivf = os.path.join(out_dir, name + ".ivf")
+    transform_quantize.launches = 0
+    with ReconSpy() as spy:
+        _, stats = run_cli([*argv_to(ivf), "--chunk", "1", "--device",
+                            device])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = transform_quantize.launches
+    recons = spy.recons()
+    recon = np.stack(list(recons.values()))
+    np.savez_compressed(
+        os.path.join(out_dir, name + "_recon.npz"),
+        frames=np.array(list(recons)),
+        recon=recon.astype(np.uint8 if recon.max() <= 255 else np.uint16))
+    with open(os.path.join(out_dir, name + ".json"), "w") as f:
+        json.dump({"card": card_name() if device == "cuda" else device,
+                   "launches": launches, "stats": stats}, f)
+    return stats, launches
+
+
+def decode_check(tool: str, out_dir: str, name: str, tmp: str):
+    """Decode card_encode's NAME.ivf with libdav1d against its recon and
+    print one line.  Returns (the decode's record, or None where the
+    decoder refused the stream; {frame: differing (y, u, v) pixels})."""
+    with open(os.path.join(out_dir, name + ".json")) as f:
+        rec = json.load(f)
+    saved = np.load(os.path.join(out_dir, name + "_recon.npz"))
+    recons = dict(zip(saved["frames"].tolist(),
+                      saved["recon"].astype(np.int64)))
+    dec, err, diffs = decoded_vs_recon(
+        tool, os.path.join(out_dir, name + ".ivf"), recons, tmp)
+    print(f"{name} decode check ({rec['card']}; bytes="
+          f"{rec['stats']['bytes']}, launches={rec['launches']}): "
+          + (f"decoded frames={dec['frames']}, differing pixels (y, u, v) "
+             f"per frame {list(diffs.values())}, total "
+             f"{sum(map(sum, diffs.values()))}"
+             if dec else f"refused by the decoder: {err}"), flush=True)
+    return dec, diffs
+
+
+def container_daemon(torch, tmp: str, out_dir: str, tool, daemon,
+                     device: str = "cuda",
+                     size=(CONTAINER_W, CONTAINER_H, CONTAINER_FRAMES),
+                     extra=()) -> int:
+    """Phase 13 (a).  tool, daemon: the port's av1_tool and daemon, or
+    None where the host has no libav: then the daemon's command runs on
+    the y4m alone.  A rehearsal on the CPU passes device "cpu", a small
+    size and options for the command.  Returns the launches of the
+    in-process run."""
+    from av1tpu_torch.utils.yuv import synthetic_clip, write_y4m
+
+    w, h, n = size
+    src = os.path.join(tmp, "container.y4m")
+    write_y4m(src, synthetic_clip(w, h, n, seed=11))
+    opts = (*extra, *(("--device", device) if device != "cuda" else ()))
+    if tool is not None:
+        y4m, src = src, os.path.join(tmp, "source.mkv")
+        av1_tool(tool, "encode", y4m, src, "--codec", "mpeg4", "--audio",
+                 "tone")
+        library = os.path.join(tmp, "library")
+        os.makedirs(library)
+        target = os.path.join(library, "Movie.2024.WEBRip.mkv")
+        with open(src, "rb") as a, open(target, "wb") as b:
+            b.write(a.read())
+        cfg = torch_config(tmp, library, torch_command(*opts))
+        t = time.perf_counter()
+        r = subprocess.run([daemon, "--config", cfg, "--metrics-port", "0",
+                            "--once"], capture_output=True, text=True,
+                           cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+                           timeout=600)
+        cycle_s = time.perf_counter() - t
+        print(r.stdout.strip(), flush=True)
+        assert r.returncode == 0 and "completed=1 failed=0" in r.stdout, (
+            r.stdout[-2000:] + r.stderr[-2000:])
+        (job_file,) = [p for p in os.listdir(os.path.join(tmp, "jobs"))
+                       if p.endswith(".json")]
+        with open(os.path.join(tmp, "jobs", job_file)) as f:
+            job = json.load(f)
+        probe = av1_tool(tool, "probe", target)
+        codecs = {s["type"]: s["codec"] for s in probe["streams"]}
+        print(f"daemon cycle: {cycle_s:.3f} s, job status={job['status']} "
+              f"stage={job['stage']} source_bytes={os.path.getsize(src)} "
+              f"output_bytes={job['output_bytes']} psnr_y={job['psnr_y']} "
+              f"tpu_vmaf={job['tpu_vmaf']}; replaced file: "
+              f"{probe['format']} {codecs}", flush=True)
+        assert (job["status"], job["stage"]) == ("success", "complete")
+        assert job["output_bytes"] == os.path.getsize(target)
+        assert job["psnr_y"] >= 30.0 and 0.0 <= job["tpu_vmaf"] <= 100.0
+        assert probe["format"].startswith("matroska")
+        assert codecs == {"video": "av1", "audio": "pcm_s16le"}
+        assert av1_tool(tool, "decode", target)["frames"] == n
+
+    # the same command in this process, at chunk 1, with the recon spied
+    stats, launches = card_encode(
+        torch, "daemon_command", lambda ivf: _daemon_argv(src, ivf, *extra),
+        out_dir, device)
+    print(f"daemon command on {device}, {w}x{h} {n} frames from "
+          f"{os.path.basename(src)} at --chunk 1: bytes={stats['bytes']} "
+          f"scenes={stats['scenes']} launches={launches}", flush=True)
+    assert stats["frames"] == ivf_frames(
+        os.path.join(out_dir, "daemon_command.ivf")) == n
+    assert launches == (w // 16 * stats["scenes"] if device == "cuda"
+                        else 0), launches
+    if tool is not None:
+        # the replaced file's video, remuxed to IVF, against this run's TUs
+        remuxed = os.path.join(tmp, "replaced.ivf")
+        av1_tool(tool, "mux", target, "none", remuxed)
+        same = sum(a == b for a, b in zip(
+            ivf_tus(remuxed),
+            ivf_tus(os.path.join(out_dir, "daemon_command.ivf"))))
+        print(f"TUs identical to the replaced file's: {same} of {n}",
+              flush=True)
+        assert same == n
+        # printed, not failed on: the quality preset keeps the reference's
+        # faults (ROADMAP queue 3 items 1 and 2)
+        decode_check(tool, out_dir, "daemon_command", tmp)
+    return launches
+
+
+def container_1080p(torch, tmp: str, out_dir: str, tool,
+                    device: str = "cuda",
+                    size=(DECODE_W, DECODE_H, CONTAINER_FRAMES)) -> int:
+    """Phase 13 (b).  tool: the port's av1_tool, or None where the host
+    has no libav (then no decode).  A rehearsal on the CPU passes device
+    "cpu" and a small size.  Returns the launches."""
+    from av1tpu_torch.utils.yuv import synthetic_clip, write_y4m
+
+    w, h, n = size
+    y4m = os.path.join(tmp, "fast.y4m")
+    write_y4m(y4m, synthetic_clip(w, h, n, seed=11))
+    stats, launches = card_encode(
+        torch, "fast_1080p", lambda ivf: [
+            "encode", "-i", y4m, "-o", ivf, "--qindex", str(QINDEX),
+            "--preset", "fast"], out_dir, device)
+    print(f"fast preset on {device}, {w}x{h} {n} frames at --chunk 1: "
+          f"bytes={stats['bytes']} psnr_y={stats['psnr_y']} "
+          f"scenes={stats['scenes']} launches={launches}", flush=True)
+    assert stats["frames"] == n
+    # at chunk 1 the scene detector's minimum scene length is 1
+    assert launches == (3 * (COLS + ROWS - 1) * stats["scenes"]
+                        if device == "cuda" else 0), launches
+    if tool is not None:
+        dec, diffs = decode_check(tool, out_dir, "fast_1080p", tmp)
+        assert dec is not None
+        assert dec["frames"] == len(diffs) == n
+        assert all(d == (0, 0, 0) for d in diffs.values()), diffs
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -710,20 +1019,23 @@ def main() -> int:
         return 1
 
     t = time.perf_counter()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()
-    print(smi[0], flush=True)
+    print(card_name(), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _phase("environment", t)
 
     t = time.perf_counter()
-    from av1tpu_torch._build import build_cuda, packer_lib_path
-    _, log = build_cuda()
-    print(log.strip(), flush=True)
-    packer_lib_path()
+    from av1tpu_torch import _build
+    libav = _build.libav_available()
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        builds = [pool.submit(f) for f in (
+            _build.packer_lib_path,
+            *((_build.av1_tool_path, _build.daemon_path) if libav else ()))]
+        _, log = _build.build_cuda()
+        print(log.strip(), flush=True)
+        built = [f.result() for f in builds]
+    tool, daemon = built[1:] if libav else (None, None)
     _phase("build", t)
 
     t = time.perf_counter()
@@ -781,6 +1093,22 @@ def main() -> int:
                "all_intra_fast": launches_intra["fast"],
                "all_intra_quality": launches_intra["quality"],
                "batch": launches_batch}
+
+    t = time.perf_counter()
+    if not libav:
+        print("container and daemon: pkg-config finds no libavcodec, "
+              "libavformat, libavutil on this host: the mkv source, the "
+              "daemon's cycle and the libdav1d decodes are skipped; the "
+              "card's streams and recon are kept for "
+              "tools/card_decode_check.py", flush=True)
+    out = os.environ.get("AV1TPU_SMOKE_OUT")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.abspath(out) if out else tmp
+        os.makedirs(out, exist_ok=True)
+        by_path["container_daemon"] = container_daemon(torch, tmp, out, tool,
+                                                       daemon)
+        by_path["container_1080p"] = container_1080p(torch, tmp, out, tool)
+    _phase("container", t)
     main_rec = recs[0]                   # (120, 256): a luma block row
     shape_key = [f"{r['b']}x{r['n2']}" for r in recs]
     print(json.dumps({"kernels": [{

@@ -1,6 +1,7 @@
 """The port's encode command is the reference's: the same options with the
 same defaults and choices, the workers clamp on one device, --max-frames,
-and the refusal of container input without native/build/av1_tool.  Port
+and the refusal of container input where its own av1_tool cannot be built
+(tests/test_torch_container.py runs the container paths).  Port
 runs only, on the CPU device, at 64x96 and a few frames; the reference's
 parser is read, never run.  tests/test_torch_slice_quality.py runs the C++
 daemon's command template on the port, and tests/test_torch_slice.py and
@@ -9,6 +10,7 @@ devices to the reference's streams."""
 
 import argparse
 import json
+import os
 
 import pytest
 
@@ -86,16 +88,25 @@ def test_max_frames_truncates(y4m, tmp_path, capsys):
 
 
 def test_container_input_needs_av1_tool(monkeypatch, tmp_path):
-    """A non-y4m input is decoded by native/build/av1_tool; without it the
-    port refuses with the reference's message."""
-    missing = str(tmp_path / "no_av1_tool")
-    monkeypatch.setattr(port_cli, "AV1_TOOL", missing)
-    monkeypatch.setattr(ref_cli, "AV1_TOOL", missing)
+    """A non-y4m input is decoded by the port's own av1_tool, which
+    _build.av1_tool_path() compiles at the first container use.  Where
+    pkg-config finds no libav, the port refuses with the build's error,
+    which names pkg-config and the libraries, and builds nothing: neither
+    in its build directory nor in the reference's native/build/."""
+    from av1tpu_torch import _build
+
+    build = tmp_path / "build"
+    monkeypatch.setattr(_build, "BUILD_DIR", str(build))
+    # a pkg-config search path that holds no .pc file
+    monkeypatch.setenv("PKG_CONFIG_LIBDIR", str(tmp_path))
+    monkeypatch.delenv("PKG_CONFIG_PATH", raising=False)
+    reference_tool = os.path.join(_build.REPO, "native", "build", "av1_tool")
+    had_reference_tool = os.path.exists(reference_tool)
     src = str(tmp_path / "in.mkv")
-    with pytest.raises(RuntimeError) as want:
-        ref_cli._to_y4m(src, str(tmp_path))
     with pytest.raises(RuntimeError) as got:
         port_cli.main(["encode", "-i", src, "-o", str(tmp_path / "o.ivf"),
                        "--temp", str(tmp_path), "--device", "cpu"])
-    assert str(got.value) == str(want.value)
-    assert "av1_tool not built" in str(got.value)
+    assert "pkg-config" in str(got.value)
+    assert all(lib in str(got.value) for lib in _build.LIBAV)
+    assert not build.exists()
+    assert os.path.exists(reference_tool) == had_reference_tool

@@ -3,10 +3,13 @@ av1tpu, av1tpu.* and jax, every module of av1tpu_torch imports,
 chip_smoke.py and tools/profile_torch_slice.py import as modules,
 encode_clip runs both presets on the CPU, `python -m av1tpu_torch.cli
 encode` with the daemon's arguments (the quality preset and the tpu_vmaf
-metric by default) turns a y4m into an IVF, and the scene batch runs on two
-worker processes that refuse both as well.  A scan
-of the sources finds no import of either."""
+metric by default) turns a y4m into an IVF and, through the port's own
+av1_tool, an mkv with a tone track into an AV1 mkv that keeps it, and the
+scene batch runs on two worker processes that refuse both as well.  A scan
+of the sources finds no import of either, and no path into the reference's
+native/build/."""
 
+import ast
 import json
 import os
 import re
@@ -94,6 +97,11 @@ def run(out):
         with open(dst, "rb") as f:
             out["ivf"] = {"magic": f.read(4).decode(),
                           "size": os.path.getsize(dst)}
+    # a container in and out, through the av1_tool the port builds
+    from av1tpu_torch import _build
+    out["container"] = None
+    if _build.libav_available():
+        out["container"] = container_round_trip(_build.av1_tool_path())
     # the scene batch on two worker processes (two devices reported)
     import av1tpu_torch.cli as cli
     from av1tpu_torch.parallel import gop
@@ -115,6 +123,35 @@ def run(out):
     out["batch"] = {"tus": len(streams), "scenes": stats["scenes"],
                     "workers": len(set(ran)) if len(ran) == 2 else 0,
                     "children": len(multiprocessing.active_children())}
+
+
+def container_round_trip(tool):
+    import contextlib, io, subprocess
+    from av1tpu_torch.utils.yuv import synthetic_clip, write_y4m
+
+    with tempfile.TemporaryDirectory() as d:
+        y4m, mkv, dst = (os.path.join(d, n)
+                         for n in ("src.y4m", "src.mkv", "out.mkv"))
+        write_y4m(y4m, synthetic_clip(96, 64, 3, seed=4))
+        subprocess.run([tool, "encode", y4m, mkv, "--codec", "mpeg4",
+                        "--audio", "tone"], check=True, capture_output=True,
+                       timeout=120)
+        sys.argv = ["av1tpu_torch.cli", "encode", "-i", mkv, "-o", dst,
+                    "--preset", "fast", "--device", "cpu"]
+        lines = io.StringIO()
+        with contextlib.redirect_stdout(lines):
+            try:
+                runpy.run_module("av1tpu_torch.cli", run_name="__main__",
+                                 alter_sys=True)
+            except SystemExit as e:
+                rc = e.code
+        stats = json.loads(lines.getvalue().splitlines()[-1])
+        probe = json.loads(subprocess.run(
+            [tool, "probe", dst], check=True, capture_output=True,
+            text=True, timeout=60).stdout)
+    return {"rc": rc, "frames": stats["frames"],
+            "audio_streams": stats["audio_streams"],
+            "codecs": {s["type"]: s["codec"] for s in probe["streams"]}}
 
 
 if __name__ == "__main__":
@@ -177,6 +214,16 @@ def test_cli_module_encodes_alone(alone):
     assert 0.0 < stats["tpu_vmaf"] <= 100.0 and stats["frames"] == 3
 
 
+def test_container_round_trip_runs_alone(alone):
+    """An mpeg4 mkv with a tone track through the CLI to an AV1 mkv that
+    keeps the tone, with av1_tool built in the refusing process."""
+    if alone["container"] is None:
+        pytest.skip("pkg-config finds no libavcodec, libavformat, libavutil")
+    assert alone["container"] == {
+        "rc": 0, "frames": 3, "audio_streams": 1,
+        "codecs": {"video": "av1", "audio": "pcm_s16le"}}
+
+
 def test_scene_batch_runs_alone(alone):
     """A two-worker batch encode, with the workers refusing both too."""
     assert alone["batch"] == {"tus": 4, "scenes": 2, "workers": 2,
@@ -186,16 +233,51 @@ def test_scene_batch_runs_alone(alone):
 _IMPORT = re.compile(r"^\s*(import|from)\s+(av1tpu|jax)(\.|\s|$)")
 
 
-def test_no_av1tpu_or_jax_import_in_sources():
+def _sources():
     paths = [os.path.join(REPO, p) for p in
              ("chip_smoke.py", "tools/profile_torch_slice.py",
               "tools/tq_compare.py", "tools/time_encode.py",
-              "tools/layered_bytes.py")]
+              "tools/layered_bytes.py", "tools/card_decode_check.py")]
     for root, _, files in os.walk(os.path.join(REPO, "av1tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return paths
+
+
+def _native_build_paths(tree) -> list[int]:
+    """Lines of code (docstrings aside) that name native/build: a string
+    holding it, or "native", "build" as neighbouring arguments."""
+    docs = {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                              ast.AsyncFunctionDef))
+            and n.body and isinstance(n.body[0], ast.Expr)}
+    lines = []
+    for n in ast.walk(tree):
+        if (isinstance(n, ast.Constant) and isinstance(n.value, str)
+                and id(n) not in docs and "native/build" in n.value):
+            lines.append(n.lineno)
+        if isinstance(n, ast.Call):
+            args = [a.value if isinstance(a, ast.Constant) else None
+                    for a in n.args]
+            if any(a == "native" and b == "build"
+                   for a, b in zip(args, args[1:])):
+                lines.append(n.lineno)
+    return lines
+
+
+def test_no_av1tpu_or_jax_import_in_sources():
+    """Nor a path into native/build/: the port's av1_tool, daemon and
+    libraries come from _build.py's own builds (av1_tool_path,
+    daemon_path, packer_lib_path, build_cuda)."""
     offenders = []
-    for path in paths:
+    for path in _sources():
         with open(path) as fh:
-            offenders += [f"{path}:{i}" for i, line in enumerate(fh, 1)
-                          if _IMPORT.match(line)]
+            text = fh.read()
+        offenders += [f"{path}:{i}" for i, line in
+                      enumerate(text.splitlines(), 1) if _IMPORT.match(line)]
+        offenders += [f"{path}:{i} native/build"
+                      for i in _native_build_paths(ast.parse(text))]
     assert offenders == []
+    scan = _native_build_paths(ast.parse(
+        'os.path.join(REPO, "native", "build", "av1_tool")\n'
+        'TOOL = "native/build/av1_tool"\n'))
+    assert scan == [1, 2]

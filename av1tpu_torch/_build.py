@@ -4,9 +4,10 @@ checkout.
 Each is built at first use into ``av1tpu_torch/_build/`` (listed in
 .gitignore) and rebuilt when a source is newer than the output:
 
-- ``libav1tq.so``: the CUDA kernels under ``av1tpu_torch/csrc/``, compiled
-  with ``nvcc`` for ``sm_90a`` behind a plain C interface and loaded with
-  ctypes (no PyTorch headers, so the build takes seconds);
+- ``libav1cuda.so``: the CUDA kernels under ``av1tpu_torch/csrc/``, each
+  source compiled by its own ``nvcc`` for ``sm_90a`` (all started
+  together), behind a plain C interface and loaded with ctypes (no PyTorch
+  headers, so the build takes seconds);
 - ``libav1pack.so``: the shared C++ entropy packer
   (``native/coding/pack.cpp``), compiled with ``g++`` directly.  The CMake
   project also wants libavcodec for its tools, which a GPU host may lack,
@@ -38,7 +39,8 @@ import tempfile
 PKG = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(PKG)
 BUILD_DIR = os.path.join(PKG, "_build")
-CUDA_SOURCES = (os.path.join(PKG, "csrc", "transform_quant.cu"),)
+CUDA_SOURCES = tuple(os.path.join(PKG, "csrc", f)
+                     for f in ("transform_quant.cu", "intra_wave.cu"))
 PACK_SOURCES = (os.path.join(REPO, "native", "coding", "pack.cpp"),
                 os.path.join(REPO, "native", "coding", "tables_gen.h"))
 TOOL_SOURCES = (os.path.join(REPO, "native", "tools", "av1_tool.c"),)
@@ -102,14 +104,24 @@ def _nvcc() -> str:
 
 
 def build_cuda() -> tuple[str, str]:
-    """Compile the CUDA kernels; returns (library path, compiler output).
-    The output holds -Xptxas -v's registers, shared memory and spills per
+    """Compile the CUDA kernels, one nvcc per source in parallel, and link
+    them into one library; returns (library path, compiler output).  The
+    output holds -Xptxas -v's registers, shared memory and spills per
     kernel (empty when the library was already up to date)."""
-    out = os.path.join(BUILD_DIR, "libav1tq.so")
-    return _compile(out, lambda: [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"],
-        CUDA_SOURCES, CUDA_SOURCES)
+    out = os.path.join(BUILD_DIR, "libav1cuda.so")
+    if not _stale(out, CUDA_SOURCES):
+        return out, ""
+    nvcc = _nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        objs, log = _objects(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"], CUDA_SOURCES,
+            objdir)
+        _, link_log = _compile(out, lambda: [
+            nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared"],
+            objs, CUDA_SOURCES)
+    return out, log + link_log
 
 
 @functools.cache
@@ -117,9 +129,24 @@ def cuda_lib() -> ctypes.CDLL:
     """The loaded CUDA kernel library with its C signatures declared."""
     lib = ctypes.CDLL(build_cuda()[0])
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = lib.av1_transform_quantize
-    fn.restype = ci
-    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, cf, cf, vp]
+    signatures = {
+        "av1_transform_quantize": [vp, vp, vp, vp, vp, vp, vp, ci, ci, cf,
+                                   cf, vp],
+        # WaveTabs*, src_y, width, rec_y, r, c, valid, ur, bl, n_valid,
+        # pick, lv, rec, cost_b, grp_b, stream
+        "av1_wave_luma16": [vp, vp, ci, vp, vp, vp, vp, vp, vp, ci, vp, vp,
+                            vp, vp, vp, vp],
+        # WaveTabs*, src_y, src_u, src_v, width, rec_y/u/v, lv_y/u/v,
+        # modes, txds, r, c, valid, ur, n_valid, pick, lv16, rec16,
+        # cost_b, grp_b, stream
+        "av1_wave_sub_chroma": [vp, vp, vp, vp, ci, vp, vp, vp, vp, vp, vp,
+                                vp, vp, vp, vp, vp, vp, ci, vp, vp, vp, vp,
+                                vp, vp],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.restype = ci
+        fn.argtypes = argtypes
     return lib
 
 
@@ -166,9 +193,11 @@ def av1_tool_path() -> str:
                     link=lambda: libav_flags() + ["-lm"])[0]
 
 
-def _objects(cmd: list[str], sources, objdir: str) -> list[str]:
+def _objects(cmd: list[str], sources,
+             objdir: str) -> tuple[list[str], str]:
     """Compile each source to an object file in objdir, one compiler
-    process per source, all started together.  Returns the objects."""
+    process per source, all started together.  Returns (the objects, the
+    compilers' output)."""
     jobs = []
     for src in sources:
         obj = os.path.join(objdir, os.path.basename(src) + ".o")
@@ -179,7 +208,7 @@ def _objects(cmd: list[str], sources, objdir: str) -> list[str]:
     failed = [log for log, rc in logs if rc != 0]
     if failed:
         raise RuntimeError("build failed:\n" + "\n".join(failed)[-8000:])
-    return [obj for obj, _ in jobs]
+    return [obj for obj, _ in jobs], "".join(log for log, _ in logs)
 
 
 def daemon_path() -> str:
@@ -192,7 +221,7 @@ def daemon_path() -> str:
     gxx, flags = _which("g++", "the daemon"), libav_flags()
     os.makedirs(BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
-        objs = _objects([gxx, "-std=c++17", "-O2", "-pthread", "-I",
-                         DAEMON_DIR, *flags], DAEMON_SOURCES, objdir)
+        objs, _ = _objects([gxx, "-std=c++17", "-O2", "-pthread", "-I",
+                            DAEMON_DIR, *flags], DAEMON_SOURCES, objdir)
         return _compile(out, lambda: [gxx, "-pthread"], objs,
                         DAEMON_SOURCES + headers, link=lambda: flags)[0]

@@ -10,12 +10,11 @@ Chroma is 8x8 DC_PRED (DCT_DCT).
 
 The reference scans the diagonals with lax.scan; here it is a Python loop
 that carries the eight state tensors (recon and level grids of the three
-planes, modes, tx depths) on the device.  The schedule pads every diagonal
-to the longest one; the padded lanes are computed and never written.
-
-Every site quantizes and then prunes with rdoq.rd_zero, which reads the
-coefficients, so this module launches no hand kernel: the sites are the
-front half of the fused coder that is still to be written.
+planes, modes, tx depths) on the device and codes each diagonal with the
+two calls of kernels/intra_wave.py: hand CUDA kernels on the card, their
+plain PyTorch versions (the arithmetic that used to be this loop's body)
+on the CPU.  The schedule pads every diagonal to the longest one; the
+padded lanes are never written (the kernels do not compute them).
 """
 
 from __future__ import annotations
@@ -23,12 +22,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from av1tpu_torch.kernels.intra_wave import (
+    WaveTables, wave_luma16, wave_sub_chroma,
+)
 from av1tpu_torch.models.intra_v import (
     LAM_PIX, _plane_params, ac_squared, compact_values, fold_consts,
-    from_blocks, quantize_coefs, sig_bitmap, to_blocks, unfuse,
+    from_blocks, sig_bitmap, unfuse,
 )
-from av1tpu_torch.models.rdoq import rd_zero
-from av1tpu_torch.ops.transforms import inverse_transform
 from av1tpu_torch.spec.enums import (
     D45_PRED, D67_PRED, D113_PRED, D135_PRED, D157_PRED, D203_PRED,
     DC_PRED, H_PRED, PAETH_PRED, SMOOTH_H_PRED, SMOOTH_PRED,
@@ -112,6 +112,12 @@ def _diagonals(rows: int, cols: int):
             c_i[d, k] = c
             valid[d, k] = True
     return r_i, c_i, valid
+
+
+def wave_diagonals(height: int, width: int) -> int:
+    """The diagonals of a wavefront keyframe coded at height x width
+    (multiples of 16): each is one launch of each of its two kernels."""
+    return _diagonals(height // 16, width // 16)[0].shape[0]
 
 
 def _pred_consts(n: int, dev):
@@ -271,57 +277,82 @@ def wave_lambdas(qindex: int, bit_depth: int, lam_scale: float, device):
             f32(a2 * fold_consts(LAM_PIX, lam_scale, _TXD_BITS[0])))
 
 
-def encode_intra_wave(y, u, v, qindex: int, bit_depth: int = 8,
-                      lam_scale: float = 1.0, noise_gate: float = 0.0):
-    """Full-frame wavefront intra encode.  Returns level grids, recon
-    planes, per-block luma modes and tx depths (uv is DC_PRED everywhere).
-
-    lam_scale: RDO lambda multiplier (a GOP keyframe is referenced by every
-    following frame of the scene, so its distortion weighs more than its
-    bits).  noise_gate: (3*sigma)^2 RDOQ noise floor, a Python float
-    (0 = only exact zeros fall under it)."""
+def wave_tables(qindex: int, bit_depth: int, lam_scale: float,
+                noise_gate: float, device) -> WaveTables:
+    """The diagonal step's tables for one encode (kernels/intra_wave.py:
+    WaveTables), from the device's constant tables."""
     from av1tpu_torch.models.rates import kf_mode_bits, qctx_index
 
+    dev = torch.device(device)
+    T = tables(dev)
+    qctx = qctx_index(qindex)
+    lam, lam_txd0 = wave_lambdas(qindex, bit_depth, lam_scale, dev)
+
+    def consts(d):
+        dr = np.zeros((len(WAVE_MODES), 2), np.int32)
+        for m in (D45_PRED, D67_PRED):
+            dr[m, 0] = DR_INTRA_DERIVATIVE[MODE_ANGLE[m]]
+        dr[D203_PRED, 0] = DR_INTRA_DERIVATIVE[270 - MODE_ANGLE[D203_PRED]]
+        for m in (D113_PRED, D135_PRED, D157_PRED):
+            dr[m] = (DR_INTRA_DERIVATIVE[180 - MODE_ANGLE[m]],
+                     DR_INTRA_DERIVATIVE[MODE_ANGLE[m] - 90])
+        order = list(_TX_ORDER)
+
+        def t(a, dt):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                                   device=d)
+        return {
+            "fwd16": torch.stack([T.fwdt(16, x) for x in range(4)]),
+            "fwd8": torch.stack([T.fwdt(8, x) for x in range(4)]),
+            "fwd4": torch.stack([T.fwdt(4, x) for x in range(4)]),
+            "gain16": torch.stack([T.coef_gains(16, x) for x in range(4)]),
+            "gain8": torch.stack([T.coef_gains(8, x) for x in range(4)]),
+            "gain4": torch.stack([T.coef_gains(4, x) for x in range(4)]),
+            "gainc": T.coef_gains(8),
+            "mode_bits": t(kf_mode_bits()[[WAVE_MODES[i] for i in order]],
+                           torch.float32),
+            "mode_vals": t([WAVE_MODES[i] for i in order], torch.int8),
+            "grp_of_pos": t([x for x, idxs in _TX_GROUPS for _ in idxs],
+                            torch.int64),
+            # sub_chain predicts with row `pick` of the WAVE_MODES-ordered
+            # stack, as the reference does (ROADMAP queue 3 item 1)
+            "sub_pred_row": t(np.arange(len(WAVE_MODES)), torch.int64),
+            "sm_w": t(np.concatenate([SM_WEIGHTS[n] for n in (4, 8, 16)]),
+                      torch.int32),
+            "pred_dr": t(dr, torch.int32),
+            **{f"rank{n}": T.rate_model(n, 0).rank for n in (16, 8, 4)},
+        }
+
+    c = T.const("wave_tables", consts)
+    rows = {}
+    for n, key in ((16, "16"), (8, "8"), (4, "4"), (8, "c")):
+        step, q, cap = _plane_params(qindex, n, bit_depth, dev)
+        rows.update({f"step{key}": step, f"q{key}": q, f"cap{key}": cap,
+                     f"off{key}": T.q_offsets(n * n)})
+    for n in (16, 8, 4):
+        rm = T.rate_model(n, 0)
+        rows.update({f"tab{n}": rm.tabs[qctx], f"skip{n}": rm.skip[qctx],
+                     f"eob{n}": rm.eob[qctx]})
+    return WaveTables(lam=lam, lam_txd0=lam_txd0, gate=f32(noise_gate),
+                      bit_depth=bit_depth, tabc=T.rate_tabs(8, 1)[qctx],
+                      **c, **rows)
+
+
+def wave_setup(y, u, v, qindex: int, bit_depth: int, lam_scale: float,
+               noise_gate: float):
+    """What a wavefront encode of the planes y, u, v carries: (tables,
+    (src_y, src_u, src_v) int32 planes, the schedule as a list of per-
+    diagonal wrapper arguments (r, c, valid, ur, bl, lane count, valid
+    count), the eight zeroed grids rec_y, rec_u, rec_v, lv_y, lv_u, lv_v,
+    modes, txds)."""
     h, w = y.shape
     dev = y.device
     rows, cols = h // 16, w // 16
-    base = 1 << (bit_depth - 1)
-    pix_max = (1 << bit_depth) - 1
-    T = tables(dev)
-    tx_ids = [t for t, _ in _TX_GROUPS]
-
-    fwd16t = {t: T.fwdt(16, t) for t in tx_ids}
-    fwd8t = {t: T.fwdt(8, t) for t in tx_ids}
-    fwd4t = {t: T.fwdt(4, t) for t in tx_ids}
-    step16, q16, cap16 = _plane_params(qindex, 16, bit_depth, dev)
-    step8, q8, cap8 = _plane_params(qindex, 8, bit_depth, dev)
-    step4, q4, cap4 = _plane_params(qindex, 4, bit_depth, dev)
-    lam_np, lam_txd0_np = wave_lambdas(qindex, bit_depth, lam_scale, dev)
-    lam, lam_txd0 = float(lam_np), float(lam_txd0_np)
-    gate = float(noise_gate)
-
-    # mode candidates in _TX_ORDER (grouped by derived transform)
-    mode_bits, mode_vals, grp_of_pos = T.const("wave_modes", lambda d: (
-        torch.as_tensor(kf_mode_bits()[[WAVE_MODES[i] for i in _TX_ORDER]],
-                        device=d),
-        torch.tensor([WAVE_MODES[i] for i in _TX_ORDER], dtype=torch.int8,
-                     device=d),
-        torch.tensor([t for t, idxs in _TX_GROUPS for _ in idxs],
-                     dtype=torch.int64, device=d)))
-    grp_idx = [torch.tensor(idxs, device=dev) for _, idxs in _TX_GROUPS]
-    qctx = qctx_index(qindex)
-    rm16y, rm8y, rm4y = (T.rate_model(n, 0) for n in (16, 8, 4))
-    tab8c = T.rate_tabs(8, 1)[qctx]
-    g16t = {t: T.coef_gains(16, t) for t in tx_ids}
-    g8 = T.coef_gains(8)
-    g8s = torch.stack([T.coef_gains(8, t) for t in range(4)])
-    g4s = torch.stack([T.coef_gains(4, t) for t in range(4)])
-
-    src_y = to_blocks(y.to(torch.int32), 16)
-    src_u = to_blocks(u.to(torch.int32), 8)
-    src_v = to_blocks(v.to(torch.int32), 8)
+    tabs = wave_tables(qindex, bit_depth, lam_scale, noise_gate, dev)
+    src = tuple(p.to(torch.int32).contiguous() for p in (y, u, v))
 
     r_np, c_np, valid_np = _diagonals(rows, cols)
+    n_lanes = r_np.shape[1]
     n_valid = valid_np.sum(axis=1)
     r_all = torch.as_tensor(r_np, dtype=torch.int64, device=dev)
     c_all = torch.as_tensor(c_np, dtype=torch.int64, device=dev)
@@ -330,219 +361,48 @@ def encode_intra_wave(y, u, v, qindex: int, bit_depth: int = 8,
                              & valid_np, device=dev)
     bl_all = torch.as_tensor(_bl_avail_grid(rows, cols)[r_np, c_np]
                              & valid_np, device=dev)
+    diags = [(r_all[d], c_all[d], valid_all[d], ur_all[d], bl_all[d],
+              n_lanes, int(n_valid[d])) for d in range(r_np.shape[0])]
 
-    def code_luma(src, pred, tx):
-        """(..., 16, 16) blocks coded at TX_16X16 with transform type tx ->
-        levels, recon, dist, rate from the rate model.  Near-threshold
-        levels are RD-pruned against the frame lambda."""
-        sh = src.shape[:-2]
-        resid = (src - pred).reshape(-1, 256).to(torch.float32)
-        coefs = resid @ fwd16t[tx]
-        lv = quantize_coefs(coefs, step16, cap16)
-        lv = rd_zero(lv, coefs, q16.to(torch.float32), lam,
-                     rm16y.tabs[qctx], g16t[tx], noise_gate=gate)
-        rec = torch.clamp(
-            pred.reshape(-1, 16, 16)
-            + inverse_transform((lv * q16).reshape(-1, 16, 16), 16, 16, tx),
-            0, pix_max)
-        e = rec - src.reshape(-1, 16, 16)
-        dist = (e * e).sum(dim=(1, 2)).to(torch.float32)
-        rate = rm16y(lv.reshape(-1, 16, 16), qctx)
-        return (lv.reshape(sh + (16, 16)), rec.reshape(sh + (16, 16)),
-                dist.reshape(sh), rate.reshape(sh))
+    def zeros(n, dtype, blocks=True):
+        shape = (rows, cols, n, n) if blocks else (rows, cols)
+        return torch.zeros(shape, dtype=dtype, device=dev)
+    grids = [zeros(16, torch.int32), zeros(8, torch.int32),
+             zeros(8, torch.int32), zeros(16, torch.int16),
+             zeros(8, torch.int16), zeros(8, torch.int16),
+             zeros(0, torch.int8, False), zeros(0, torch.int8, False)]
+    return tabs, src, diags, grids
 
-    def clamped(lo: int, n: int, hi: int):
-        """Device index row [lo, lo + n) clamped to hi (edge replication
-        past a block's last decoded sample)."""
-        return T.const(("wave_idx", lo, n, hi), lambda dv: torch.clamp(
-            torch.arange(lo, lo + n, device=dv), max=hi))
 
-    def code_chroma(src, pred):
-        """8x8 DCT chroma blocks -> (levels, recon)."""
-        resid = (src - pred).reshape(-1, 64).to(torch.float32)
-        coefs = resid @ fwd8t[0]
-        lv = quantize_coefs(coefs, step8, cap8)
-        lv = rd_zero(lv, coefs, q8.to(torch.float32), lam, tab8c, g8,
-                     noise_gate=gate)
-        rec = torch.clamp(
-            pred + inverse_transform((lv * q8).reshape(-1, 8, 8), 8, 8, 0),
-            0, pix_max)
-        return lv.reshape(-1, 8, 8), rec
-
-    rec_y = torch.zeros((rows, cols, 16, 16), dtype=torch.int32, device=dev)
-    rec_u = torch.zeros((rows, cols, 8, 8), dtype=torch.int32, device=dev)
-    rec_v = torch.zeros((rows, cols, 8, 8), dtype=torch.int32, device=dev)
-    lv_y = torch.zeros((rows, cols, 16, 16), dtype=torch.int16, device=dev)
-    lv_u = torch.zeros((rows, cols, 8, 8), dtype=torch.int16, device=dev)
-    lv_v = torch.zeros((rows, cols, 8, 8), dtype=torch.int16, device=dev)
-    modes = torch.zeros((rows, cols), dtype=torch.int8, device=dev)
-    txds = torch.zeros((rows, cols), dtype=torch.int8, device=dev)
-    inf = float("inf")
-
-    for d in range(r_np.shape[0]):
-        r_i, c_i, valid, ur_ok = r_all[d], c_all[d], valid_all[d], ur_all[d]
-        have_a = (r_i > 0) & valid
-        have_l = (c_i > 0) & valid
-        L_ = r_i.shape[0]
-
-        # ---- luma: full-mode RDO at TX_16X16 ----
-        above32, left, corner = _edges_from_blocks(
-            rec_y, r_i, c_i, have_a, have_l, ur_ok, base, 16)
-        left2n = torch.cat([left, left[:, 15:].expand(L_, 16)], dim=1)
-        preds = _predict_modes(above32, left2n, corner, have_a, have_l,
-                               base)                    # (M, L, 16, 16)
-        src_b = src_y[r_i, c_i]                         # (L, 16, 16)
-        # per-tx-group residual coding (preds reordered to _TX_ORDER so
-        # the concatenated candidates line up with mode_vals/mode_bits)
-        parts = []
-        for (t, _), gi in zip(_TX_GROUPS, grp_idx):
-            pg = preds[gi]
-            parts.append(code_luma(src_b[None].expand(pg.shape), pg, t))
-        lv, rec, dist, rate = (torch.cat([p[k] for p in parts], dim=0)
-                               for k in range(4))
-        cost = dist + lam * (rate + mode_bits[:, None])
-        # D203 is anti-causal where the decoder has real below-left
-        # pixels (see _bl_avail_grid): exclude it there
-        cost[_D203_POS] += torch.where(bl_all[d], inf, 0.0)
-        pick = torch.argmin(cost, dim=0)                # (L,)
-        sel16 = pick[None, :, None, None].expand(1, L_, 16, 16)
-        lv_b = torch.gather(lv, 0, sel16)[0]
-        rec_b = torch.gather(rec, 0, sel16)[0]
-        mode_b = mode_vals[pick]
-        cost_b = cost.amin(dim=0) + lam_txd0
-        grp_b = grp_of_pos[pick]                        # (L,) tx group
-        grp_masks = [(grp_b == t) for t in tx_ids]
-        mbits_b = mode_bits[pick]
-        ones = torch.ones_like(have_a)
-
-        def sub_chain(ns, fwds, stepq, qq, capn, rm, gstack):
-            """Re-code every lane's winning mode at tx size ns with
-            per-tx-block prediction (raster order inside the block, the
-            decoder's coding order; edges come from already-reconstructed
-            sub-blocks, with the spec's availability substitutions).  The
-            prediction is row `pick` of _predict_modes' WAVE_MODES-ordered
-            stack, as in the reference."""
-            k = 16 // ns
-            recb = torch.zeros((L_, 16, 16), dtype=torch.int32, device=dev)
-            lvb = torch.zeros((L_, 16, 16), dtype=torch.int16, device=dev)
-            distb = torch.zeros(L_, dtype=torch.float32, device=dev)
-            rateb = torch.zeros(L_, dtype=torch.float32, device=dev)
-            qf = qq.to(torch.float32)
-            gain_l = gstack[grp_b]                      # (L, ns*ns)
-            tcdf = rm.tabs[qctx]
-            sel = pick[None, :, None, None].expand(1, L_, ns, ns)
-            for si in range(k):
-                for sj in range(k):
-                    y0, x0 = si * ns, sj * ns
-                    if si == 0:
-                        a2 = above32[:, x0 : x0 + 2 * ns]
-                        if sj > 0:  # frame-top row: decoder substitutes
-                            # from the left neighbor's TOP pixel
-                            a2 = torch.where(have_a[:, None], a2,
-                                             recb[:, 0, x0 - 1][:, None])
-                    else:
-                        # above-right: real rec through col 15 (the sub
-                        # above-right is already decoded in raster),
-                        # clamp-replicated past the block edge
-                        a2 = recb[:, y0 - 1, clamped(x0, 2 * ns, 15)]
-                    if sj == 0:
-                        l2 = left[:, clamped(y0, 2 * ns, 15)]
-                        if si > 0:  # frame-left col substitution
-                            l2 = torch.where(have_l[:, None], l2,
-                                             recb[:, y0 - 1, 0][:, None])
-                    else:
-                        # below-left of an interior sub is never decoded
-                        # yet: replicate
-                        l2 = recb[:, clamped(y0, 2 * ns, y0 + ns - 1),
-                                  x0 - 1]
-                    if si == 0 and sj == 0:
-                        co = corner
-                    elif si == 0:
-                        co = torch.where(have_a, above32[:, x0 - 1],
-                                         recb[:, 0, x0 - 1])
-                    elif sj == 0:
-                        co = torch.where(have_l, left[:, y0 - 1],
-                                         recb[:, y0 - 1, 0])
-                    else:
-                        co = recb[:, y0 - 1, x0 - 1]
-                    ha = have_a if si == 0 else ones
-                    hl = have_l if sj == 0 else ones
-                    ps = _predict_modes(a2, l2, co, ha, hl, base, n=ns)
-                    pred = torch.gather(ps, 0, sel)[0]
-                    srcs = src_b[:, y0 : y0 + ns, x0 : x0 + ns]
-                    resid = (srcs - pred).reshape(L_, ns * ns).to(
-                        torch.float32)
-                    coefs = torch.zeros_like(resid)
-                    for t, m in zip(tx_ids, grp_masks):
-                        coefs = coefs + torch.where(m[:, None],
-                                                    resid @ fwds[t], 0.0)
-                    lvq = quantize_coefs(coefs, stepq, capn)
-                    lvq = rd_zero(lvq, coefs, qf, lam, tcdf, gain_l,
-                                  noise_gate=gate)
-                    dq = (lvq * qq).reshape(L_, ns, ns)
-                    inv = torch.zeros((L_, ns, ns), dtype=torch.int32,
-                                      device=dev)
-                    for t, m in zip(tx_ids, grp_masks):
-                        inv = inv + torch.where(
-                            m[:, None, None],
-                            inverse_transform(dq, ns, ns, t), 0)
-                    recs = torch.clamp(pred + inv, 0, pix_max)
-                    e = recs - srcs
-                    distb = distb + (e * e).sum(dim=(1, 2)).to(torch.float32)
-                    rateb = rateb + rm(lvq.reshape(L_, ns, ns), qctx)
-                    recb[:, y0 : y0 + ns, x0 : x0 + ns] = recs
-                    lvb[:, y0 : y0 + ns, x0 : x0 + ns] = lvq.reshape(
-                        L_, ns, ns).to(torch.int16)
-            return lvb, recb, distb, rateb
-
-        lv8, rec8, dist8, rate8 = sub_chain(8, fwd8t, step8, q8, cap8,
-                                            rm8y, g8s)
-        lv4, rec4, dist4, rate4 = sub_chain(4, fwd4t, step4, q4, cap4,
-                                            rm4y, g4s)
-        cost8 = dist8 + lam * (rate8 + mbits_b + _TXD_BITS[1])
-        cost4 = dist4 + lam * (rate4 + mbits_b + _TXD_BITS[2])
-        txd_b = torch.where(cost8 < torch.minimum(cost_b, cost4), 1,
-                            torch.where(cost4 < cost_b, 2, 0)).to(torch.int8)
-        d1 = (txd_b == 1)[:, None, None]
-        d2 = (txd_b == 2)[:, None, None]
-        lv_b = torch.where(d1, lv8, torch.where(d2, lv4, lv_b.to(torch.int16)))
-        rec_b = torch.where(d1, rec8, torch.where(d2, rec4, rec_b))
-
-        # ---- chroma: DC only ----
-        au, lu_e, _ = _edges_from_blocks(rec_u, r_i, c_i, have_a, have_l,
-                                         ur_ok, base, 8)
-        av, lv_e, _ = _edges_from_blocks(rec_v, r_i, c_i, have_a, have_l,
-                                         ur_ok, base, 8)
-
-        def dc8(above2n, left8):
-            sa = above2n[:, :8].sum(dim=1, dtype=torch.int32)
-            sl = left8.sum(dim=1, dtype=torch.int32)
-            val = torch.where(have_a & have_l, (sa + sl + 8) >> 4,
-                              torch.where(have_a, (sa + 4) >> 3,
-                                          torch.where(have_l, (sl + 4) >> 3,
-                                                      base)))
-            return val[:, None, None].expand(val.shape[0], 8, 8)
-
-        lvu_b, recu_b = code_chroma(src_u[r_i, c_i], dc8(au, lu_e))
-        lvv_b, recv_b = code_chroma(src_v[r_i, c_i], dc8(av, lv_e))
-
-        # the padded lanes carry duplicate (0, 0) indices: write the valid
-        # lanes only (they come first in every diagonal)
-        nv = int(n_valid[d])
-        rv_, cv_ = r_i[:nv], c_i[:nv]
-        rec_y[rv_, cv_] = rec_b[:nv]
-        rec_u[rv_, cv_] = recu_b[:nv]
-        rec_v[rv_, cv_] = recv_b[:nv]
-        lv_y[rv_, cv_] = lv_b[:nv]
-        lv_u[rv_, cv_] = lvu_b[:nv].to(torch.int16)
-        lv_v[rv_, cv_] = lvv_b[:nv].to(torch.int16)
-        modes[rv_, cv_] = mode_b[:nv]
-        txds[rv_, cv_] = txd_b[:nv]
-
+def wave_outputs(grids) -> dict:
+    """encode_intra_wave's result from the eight carried grids."""
+    rec_y, rec_u, rec_v, lv_y, lv_u, lv_v, modes, txds = grids
     return {"levels_y": lv_y, "levels_u": lv_u, "levels_v": lv_v,
             "modes": modes, "txd": txds,
             "recon_y": from_blocks(rec_y), "recon_u": from_blocks(rec_u),
             "recon_v": from_blocks(rec_v)}
+
+
+def encode_intra_wave(y, u, v, qindex: int, bit_depth: int = 8,
+                      lam_scale: float = 1.0, noise_gate: float = 0.0):
+    """Full-frame wavefront intra encode.  Returns level grids, recon
+    planes, per-block luma modes and tx depths (uv is DC_PRED everywhere).
+
+    lam_scale: RDO lambda multiplier (a GOP keyframe is referenced by every
+    following frame of the scene, so its distortion weighs more than its
+    bits).  noise_gate: (3*sigma)^2 RDOQ noise floor, a Python float
+    (0 = only exact zeros fall under it).
+
+    Each diagonal is two calls, kernels/intra_wave.py's wave_luma16 and
+    wave_sub_chroma: the hand kernels on the card, their plain versions on
+    the CPU.  The schedule's lane and valid counts are host ints, so the
+    loop never waits for the device."""
+    tabs, (src_y, src_u, src_v), diags, grids = wave_setup(
+        y, u, v, qindex, bit_depth, lam_scale, noise_gate)
+    for diag in diags:
+        best = wave_luma16(src_y, grids[0], tabs, *diag)
+        wave_sub_chroma(src_y, src_u, src_v, *grids, tabs, *diag, *best)
+    return wave_outputs(grids)
 
 
 def _wave_key_body(frame, qindex: int, height: int, width: int,

@@ -165,22 +165,28 @@ class RateModel:
                                    dtype=f32, device=device)
 
     def __call__(self, lv: torch.Tensor, qctx: int) -> torch.Tensor:
-        """lv: (..., n, n) int levels -> (...,) float32 expected bits.
-        Magnitudes 0..15 read the table; larger ones use the closed form
-        tab[15] - 1 + exp_golomb(a - 15), as the table rows were built."""
-        tab = self.tabs[qctx]
-        sk = self.skip[qctx]
-        a = lv.abs()
-        nz = lv != 0
-        eob = torch.where(nz, self.rank + 1, 0).amax(dim=(-2, -1))
-        coded = self.rank < eob[..., None, None]
-        small = torch.zeros(a.shape, dtype=torch.float32, device=lv.device)
-        for k in range(16):
-            small = small + torch.where(a == k, tab[k], 0.0)
-        big = (tab[15] - 1.0
-               + 2.0 * torch.floor(torch.log2(torch.clamp(
-                   a.to(torch.float32) - 14.0, min=2.0))) + 1.0)
-        bits = torch.where(a > 15, big, small)
-        coef = torch.where(coded, bits, 0.0).sum(dim=(-2, -1))
-        return torch.where(eob == 0, sk[1],
-                           sk[0] + self.eob[qctx][eob.long()] + coef)
+        """lv: (..., n, n) int levels -> (...,) float32 expected bits."""
+        return coef_bits(lv, self.tabs[qctx], self.skip[qctx], self.rank,
+                         self.eob[qctx])
+
+
+def coef_bits(lv: torch.Tensor, tab: torch.Tensor, sk: torch.Tensor,
+              rank: torch.Tensor, eob_bits: torch.Tensor) -> torch.Tensor:
+    """RateModel's bits with one quality bucket's rows: tab (256,) per
+    magnitude, sk (2,) txb_skip, rank (n, n) scan positions, eob_bits
+    (n*n + 1,).  lv: (..., n, n) int levels -> (...,) float32.
+    Magnitudes 0..15 read the table; larger ones use the closed form
+    tab[15] - 1 + exp_golomb(a - 15), as the table rows were built."""
+    a = lv.abs()
+    nz = lv != 0
+    eob = torch.where(nz, rank + 1, 0).amax(dim=(-2, -1))
+    coded = rank < eob[..., None, None]
+    small = torch.zeros(a.shape, dtype=torch.float32, device=lv.device)
+    for k in range(16):
+        small = small + torch.where(a == k, tab[k], 0.0)
+    big = (tab[15] - 1.0
+           + 2.0 * torch.floor(torch.log2(torch.clamp(
+               a.to(torch.float32) - 14.0, min=2.0))) + 1.0)
+    bits = torch.where(a > 15, big, small)
+    coef = torch.where(coded, bits, 0.0).sum(dim=(-2, -1))
+    return torch.where(eob == 0, sk[1], sk[0] + eob_bits[eob.long()] + coef)

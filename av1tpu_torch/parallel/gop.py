@@ -106,9 +106,15 @@ def _encode_scene(scene: dict, dev: torch.device, height: int, width: int,
     and the filter (_scenes_cdef), then one inter step per frame with the
     filtered keyframe as GOLDEN and the MV field carried (_scenes_step),
     each frame's buffer fetched while the next frame's step is queued."""
+    from av1tpu_torch.kernels.intra_wave import wave_luma16, wave_sub_chroma
+    from av1tpu_torch.kernels.transform_quant import transform_quantize
     from av1tpu_torch.models import inter_v, intra_wave
     from av1tpu_torch.models.cdef import cdef_fused, select_strengths
 
+    # the hand kernels' launch counts are per process: each scene reports
+    # what it launched, so that the parent can count a batch's launches
+    kernels = (transform_quantize, wave_luma16, wave_sub_chroma)
+    before = [k.launches for k in kernels]
     seconds = {}
     t = time.perf_counter()
     if dev.type == "cuda":
@@ -166,6 +172,8 @@ def _encode_scene(scene: dict, dev: torch.device, height: int, width: int,
     return {"key_buf": key_buf, "inter_bufs": inter_bufs,
             "cdef_s": np.asarray(cdef_s), "ref": ref.cpu().numpy(),
             "device": str(dev), "pid": os.getpid(), "seconds": seconds,
+            "launches": {k.__name__: k.launches - b
+                         for k, b in zip(kernels, before)},
             "peak_bytes": (torch.cuda.max_memory_allocated(dev)
                            if dev.type == "cuda" else None)}
 
@@ -356,9 +364,10 @@ class SceneBatchEncoder:
                skip8_host_fn=None, key_lam_scale: float = 1.0) -> list:
         """Run the batch.  Returns per scene a dict with key_buf,
         inter_bufs (L_s - 1 of them), cdef_s and the final recon ref, all
-        numpy; and where it ran: device, pid, seconds per stage and, on a
-        GPU, peak_bytes allocated.  skip8_host_fn(key_buf) -> (H/8, W/8)
-        bool is the keyframe's CDEF skip map extractor; it runs in the
+        numpy; and where it ran: device, pid, seconds per stage, the hand
+        kernels' launches by name and, on a GPU, peak_bytes allocated.
+        skip8_host_fn(key_buf) -> (H/8, W/8) bool is the keyframe's CDEF
+        skip map extractor; it runs in the
         workers, so it must pickle (default: key_skip8)."""
         if skip8_host_fn is None:
             skip8_host_fn = functools.partial(key_skip8, height=self.h,

@@ -7,9 +7,10 @@ Phases, each printed with its seconds; any failure raises and the script
 exits non-zero:
 
 1. environment: torch version, the card's name and power limit, TF32 off;
-2. build: the CUDA kernels (nvcc, sm_90a), the C++ packer and, where
-   pkg-config finds libavcodec, libavformat and libavutil, av1_tool and
-   the daemon, from the sources in this checkout, side by side;
+2. build: the CUDA kernels (one nvcc per source, sm_90a), the C++ packer
+   and, where pkg-config finds libavcodec, libavformat and libavutil,
+   av1_tool and the daemon, from the sources in this checkout, side by
+   side;
 3. kernel vs plain: transform_quantize at the main path's shapes, held
    against its plain PyTorch version (levels may flip only at a rounding
    boundary, by 1; dq exact), both timed (time_tq): device time apart
@@ -29,9 +30,21 @@ exits non-zero:
    16x16 column of the first block row of the one probed frame's luma
    plane (the probe's first-row chain is the kernel's function; every
    other residual coder of this path prunes with rd_zero, which reads the
-   coefficients, and so has no kernel yet).  Spies assert that the
-   keyframe recon, the inter carry (recon and MV field) and GOLDEN live on
-   the card, and the bytes must come out below the fast preset's.
+   coefficients, and so has no kernel yet).  The wavefront keyframe's
+   two kernels launch once per diagonal each (254 at 1088x1920).  Spies
+   assert that the keyframe recon, the inter carry (recon and MV field)
+   and GOLDEN live on the card, and the bytes must come out below the fast
+   preset's.
+7b. wave kernels vs plain, on phase 7's keyframe with the CLI's arguments
+   (wave_vs_plain): (a) the plain keyframe on the card with the two
+   kernels run at every diagonal from its carried state: recon identical
+   wherever pick, tx depth and levels agree, levels within 1 where the
+   decisions agree, at most 0.1% of the 8,160 lanes with another pick or
+   tx depth (each printed with the plain costs of both choices); (b) the
+   kernels' keyframe alone: PSNR-Y within 0.05 dB and nonzero levels
+   within 1% of the plain one; (c) its time (events, and device time
+   queued behind a sleep), each kernel per keyframe and per launch at the
+   largest lane count, the plain versions' time there, and the bounds;
 8. modes parity: phase 4 again (quality preset) in the command's other
    modes: the default metric, tpu_vmaf (its score within 1e-3, and once
    more under torch.backends.cudnn.flags(allow_tf32=True): the metric
@@ -61,8 +74,10 @@ exits non-zero:
    frames per scene, q 72, quality preset), workers=1 against the batch
    on two workers, after a warm-up at the small size in the parent and in
    each worker: encode seconds, scenes per second, key_device, bytes
-   (equal), peak memory per device and process; 120 launches per scene,
-   all in the parent's probe (the workers' keyframe is the wavefront one);
+   (equal), peak memory per device and process; 120 transform_quantize
+   launches per scene, all in the parent's probe, and 254 of each wave
+   kernel per scene's keyframe, in the workers (in the parent at
+   workers=1);
 13. container and daemon.  (a) Where pkg-config finds libavcodec,
    libavformat and libavutil: the daemon's cycle, a 640x360 8-frame mpeg4
    mkv with a tone track in a library directory, `av1tpu-daemon --once`
@@ -85,6 +100,14 @@ exits non-zero:
    1920x1088 frame.  Each run leaves its IVF, its recon and its stats in
    $AV1TPU_SMOKE_OUT (a temporary directory when unset), where
    tools/card_decode_check.py decodes them on a host that has libav.
+
+Every path's launches of the two wavefront kernels are asserted equal to
+its wavefront keyframes times their diagonals (models/intra_wave.py:
+wave_diagonals, from the schedule): one 1080p keyframe per scene in
+phases 7, 9, 10 and 12 (b), the 128x64 clip's two scenes in the workers of
+12 (a), the 640x360 clip's scenes at its coded 384x640 in 13 (a); none on
+the fast and all-intra paths.  The scene batch's workers report their
+counts with each scene.
 
 The line before the last is the kernels' JSON record (launches summed over
 the timed runs, with the count of each path beside it); the last line is
@@ -121,6 +144,41 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 def _phase(name: str, t0: float) -> None:
     print(f"phase {name}: {time.perf_counter() - t0:.3f} s", flush=True)
+
+
+def kernel_wrappers() -> tuple:
+    """The hand kernels' wrappers, each with its launch counter."""
+    from av1tpu_torch.kernels.intra_wave import wave_luma16, wave_sub_chroma
+    from av1tpu_torch.kernels.transform_quant import transform_quantize
+
+    return transform_quantize, wave_luma16, wave_sub_chroma
+
+
+def zero_launches() -> None:
+    for k in kernel_wrappers():
+        k.launches = 0
+
+
+def read_launches() -> dict:
+    """{kernel name: launches since zero_launches}."""
+    return {k.__name__: k.launches for k in kernel_wrappers()}
+
+
+def add_launches(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in {*a, *b}}
+
+
+def assert_wave(launches: dict, keyframes: int, h: int | None = None,
+                w: int | None = None) -> None:
+    """Each wavefront kernel launched once per diagonal of each of the
+    path's `keyframes` wavefront keyframes coded at h x w (default: the
+    padded 1080p frame; the count from the schedule,
+    models/intra_wave.py:_diagonals)."""
+    from av1tpu_torch.models.intra_wave import wave_diagonals
+
+    want = keyframes * wave_diagonals(h or ROWS * 16, w or COLS * 16)
+    got = (launches["wave_luma16"], launches["wave_sub_chroma"])
+    assert got == (want, want), (got, want)
 
 
 def moving_clip(w: int, h: int, n: int, seed: int, dy: int, dx: int):
@@ -189,7 +247,7 @@ def tq_bound_us(b: int, n2: int) -> tuple[float, str]:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def device_us(torch, fn, n: int) -> float:
+def device_us(torch, fn, n: int, sleep_cycles: int = SLEEP_CYCLES) -> float:
     """Device time of one fn() in microseconds, apart from the host: CUDA
     events around n calls queued back to back behind a sleep kernel, so the
     device runs them without waiting for the host; L2 stays warm, as in
@@ -200,7 +258,7 @@ def device_us(torch, fn, n: int) -> float:
     torch.cuda.synchronize()
     s0, s1, e = (torch.cuda.Event(enable_timing=True) for _ in range(3))
     s0.record()
-    torch.cuda._sleep(SLEEP_CYCLES)
+    torch.cuda._sleep(sleep_cycles)
     s1.record()
     t = time.perf_counter()
     for _ in range(n):
@@ -334,11 +392,10 @@ def modes_parity(torch) -> None:
 
 
 def _timed_slice(torch, clip, name: str, partitions: bool):
-    """One warm-up and one timed 1080p encode with the kernel's launch
-    count set to 0 just before the timed run and read just after.  Returns
-    (streams, stats, launches)."""
+    """One warm-up and one timed 1080p encode with the kernels' launch
+    counts set to 0 just before the timed run and read just after.
+    Returns (streams, stats, launches by kernel)."""
     from av1tpu_torch.cli import encode_clip
-    from av1tpu_torch.kernels.transform_quant import transform_quantize
 
     kw = dict(chunk=CHUNK, metric="psnr", gop=True, partitions=partitions,
               device="cuda")
@@ -347,10 +404,10 @@ def _timed_slice(torch, clip, name: str, partitions: bool):
     torch.cuda.synchronize()
     print(f"{name} warm-up: {time.perf_counter() - t:.3f} s", flush=True)
     torch.cuda.reset_peak_memory_stats()
-    transform_quantize.launches = 0
+    zero_launches()
     streams, stats = encode_clip(clip, QINDEX, **kw)
     torch.cuda.synchronize()
-    launches = transform_quantize.launches
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     print(f"{name} stats:", json.dumps(stats), flush=True)
     print(f"{name}: frames={clip.num_frames} fps={stats['encode_fps']} "
@@ -367,11 +424,11 @@ ROWS, COLS = 1088 // 16, 1920 // 16       # the padded 1080p block grid
 
 
 def slice_1080p(torch, clip):
-    """Phase 5.  Returns (the kernel's launch count in the timed run, the
-    stats): one launch per first-row column and per later block row, for
-    the probe's luma, the probe's U and V together and the keyframe's U
-    and V together (the keyframe's luma takes the RDO path, which has no
-    kernel)."""
+    """Phase 5.  Returns (the kernels' launches in the timed run, the
+    stats): transform_quantize once per first-row column and per later
+    block row, for the probe's luma, the probe's U and V together and the
+    keyframe's U and V together (the keyframe's luma takes the RDO path,
+    which has no kernel); no wavefront kernel."""
     import av1tpu_torch.models.inter_v as inter_v
     import av1tpu_torch.models.intra_v as intra_v
 
@@ -397,15 +454,18 @@ def slice_1080p(torch, clip):
     finally:
         intra_v.encode_intra_v_key_recon = key_fn
         inter_v.encode_gop_chunk = gop_fn
-    assert launches == 3 * (COLS + ROWS - 1), launches
+    assert launches["transform_quantize"] == 3 * (COLS + ROWS - 1), launches
+    assert_wave(launches, 0)            # the fast keyframe is intra_v's
     assert seen["key"] == {"cuda"} and seen["carry"] == {"cuda"}, seen
     return launches, stats
 
 
 def quality_slice_1080p(torch, clip, fast_stats):
-    """Phase 7.  Returns the kernel's launch count in the timed run: one
-    launch per 16x16 column of the first block row of the probed frame's
-    luma plane (one frame is probed per scene at a fixed q)."""
+    """Phase 7.  Returns (the kernels' launches in the timed run, the
+    arguments of its wavefront keyframe): transform_quantize once per
+    16x16 column of the first block row of the probed frame's luma plane
+    (one frame is probed per scene at a fixed q), each wavefront kernel
+    once per diagonal of the scene's keyframe."""
     import av1tpu_torch.models.inter_v as inter_v
     import av1tpu_torch.models.intra_wave as intra_wave
 
@@ -413,9 +473,12 @@ def quality_slice_1080p(torch, clip, fast_stats):
     key_fn, gop_fn = (intra_wave.encode_intra_wave_key_recon,
                       inter_v.encode_gop_chunk_part)
 
+    key_args: list = []
+
     def key_spy(*a, **k):
         buf, recon = key_fn(*a, **k)
         seen["key"].add(recon.device.type)
+        key_args.append((a, k))
         return buf, recon
 
     def gop_spy(*a, **k):
@@ -432,14 +495,192 @@ def quality_slice_1080p(torch, clip, fast_stats):
     finally:
         intra_wave.encode_intra_wave_key_recon = key_fn
         inter_v.encode_gop_chunk_part = gop_fn
-    assert launches == COLS, launches
+    assert launches["transform_quantize"] == COLS, launches
+    assert_wave(launches, stats["scenes"])
     assert all(v == {"cuda"} for v in seen.values()), seen
     print(f"quality vs fast at {clip.num_frames} frames: bytes "
           f"{stats['bytes']} vs {fast_stats['bytes']}, psnr_y "
           f"{stats['psnr_y']} vs {fast_stats['psnr_y']}, fps "
           f"{stats['encode_fps']} vs {fast_stats['encode_fps']}", flush=True)
     assert stats["bytes"] < fast_stats["bytes"]
-    return launches
+    return launches, key_args[-1]
+
+
+def wave_bounds(n: int) -> dict:
+    """Least time of one launch of each wavefront kernel on a diagonal of
+    n valid lanes, {name: (us, "bytes" or "operations")}: the larger of
+    the fp32 operations of the forward products at the fp32 peak (the
+    integer inverse, quantize and rate work are not counted) and the bytes
+    at the memory rate (every table the launch reads once, each lane's
+    inputs read once and outputs written once).  The work is the same for
+    any data: every candidate and sub-block is coded."""
+    tables = 4 * (3 * 256 + 3 * 64 + 3 * 16 + 3 * 64)   # quantizer rows
+    tables += 4 * (4 * 256 + 4 * 64 + 4 * 16 + 64)      # gains
+    tables += 4 * (4 * 256 + 257 + 65 + 17 + 6) + 4 * (256 + 64 + 16)
+    edges = 4 * (16 + 16 + 16 + 1)                      # above, ur, left
+    lane = 8 + 8 + 3                                     # r, c, flags
+    luma_ops = n * 13 * 2 * 256 * 256
+    luma_bytes = (4 * 4 * 256 * 256 + tables
+                  + n * (lane + 4 * 256 + edges)         # src, rec edges
+                  + n * (8 + 2 * 256 + 4 * 256 + 4 + 8))  # outputs
+    sub_ops = n * (4 * 2 * 64 * 64 + 16 * 2 * 16 * 16 + 2 * 2 * 64 * 64)
+    sub_bytes = (4 * 4 * (64 * 64 + 16 * 16) + tables
+                 + n * (lane + 4 * (256 + 2 * 64) + edges + 2 * 4 * 16)
+                 + n * (8 + 2 * 256 + 4 * 256 + 4 + 8)   # wave_luma16's
+                 + n * (4 * 256 + 2 * 256 + 2 * (4 * 64 + 2 * 64) + 2))
+    out = {}
+    for name, ops, nbytes in (("wave_luma16", luma_ops, luma_bytes),
+                              ("wave_sub_chroma", sub_ops, sub_bytes)):
+        t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+        out[name] = (max(t_ops, t_bytes) * 1e6,
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def wave_vs_plain(torch, key_args) -> dict:
+    """Phase 7b: the wavefront kernels against their plain versions on the
+    keyframe that phase 7's quality encode coded (the temporally filtered
+    first frame of the 1080p clip, with the CLI's key q, lam_scale, noise
+    gate and bit depth).  (a) The plain keyframe on the card, and at every
+    diagonal the two kernels from its carried state (wave_compare):
+    wherever pick, tx depth and levels agree the recon must be identical,
+    where the decisions agree a level may differ by 1 only, and at most
+    0.1% of the lanes may take another pick or tx depth (each printed with
+    the plain version's costs of both choices).  (b) The kernels' keyframe
+    alone (encode_intra_wave) against the plain one: PSNR-Y within 0.05 dB,
+    nonzero levels within 1%.  (c) Times: the kernels' keyframe (CUDA
+    events after a warm-up, and its device time queued behind a sleep),
+    each kernel's device time per keyframe and per launch at the largest
+    lane count, the plain versions' at that diagonal, and the bounds.
+    Returns the kernels' records for the JSON line."""
+    from av1tpu_torch.kernels.intra_wave import (
+        wave_compare, wave_luma16, wave_luma16_plain, wave_sub_chroma,
+        wave_sub_chroma_plain,
+    )
+    from av1tpu_torch.models.intra_v import unfuse
+    from av1tpu_torch.models.intra_wave import (
+        encode_intra_wave, wave_outputs, wave_setup,
+    )
+
+    (frame, q, h, w), kw = key_args[0][:4], key_args[1]
+    lam_scale, gate, bd = kw["lam_scale"], kw["noise_gate"], kw["bit_depth"]
+    y, u, v = unfuse(frame, h, w)
+    print(f"wave keyframe: {w}x{h} q={q} lam_scale={lam_scale} "
+          f"noise_gate={gate} bit_depth={bd}", flush=True)
+
+    # (a) same input
+    t = time.perf_counter()
+    o = wave_compare(y, u, v, q, bd, lam_scale, gate,
+                     sync=torch.cuda.synchronize)
+    compare_s = time.perf_counter() - t
+    flips = o["picks"] + o["txds"]
+    for f in flips:
+        print(f"wave decision differs: {json.dumps(f)}", flush=True)
+    print(f"wave same-input: lanes={o['lanes']} pick_differs="
+          f"{len(o['picks'])} txd_differs={len(o['txds'])} "
+          f"level_only_lanes={o['level_lanes']} (max |diff| "
+          f"{o['level_max_diff']}) recon_mismatch_lanes={o['recon_lanes']}; "
+          f"plain keyframe {o['plain_seconds']:.3f} s of {compare_s:.3f} s",
+          flush=True)
+    assert o["recon_lanes"] == 0, o["recon_lanes"]
+    assert o["level_max_diff"] <= 1, o["level_max_diff"]
+    assert len(flips) <= o["lanes"] // 1000, len(flips)
+
+    # (b) the kernels' keyframe alone (the first run warms up)
+    encode_intra_wave(y, u, v, q, bd, lam_scale, gate)
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    k = encode_intra_wave(y, u, v, q, bd, lam_scale, gate)
+    b.record()
+    b.synchronize()
+    key_ms = a.elapsed_time(b)
+    p = o["plain"]
+
+    def psnr(rec):
+        e = (rec.double() - y.double()) ** 2
+        return float(10 * torch.log10(((1 << bd) - 1) ** 2 / e.mean()))
+
+    def nonzero(out):
+        return sum(int((out[n] != 0).sum())
+                   for n in ("levels_y", "levels_u", "levels_v"))
+
+    modes_diff = int((k["modes"] != p["modes"]).sum())
+    txd_diff = int((k["txd"] != p["txd"]).sum())
+    pk, pp = psnr(k["recon_y"]), psnr(p["recon_y"])
+    nk, npl = nonzero(k), nonzero(p)
+    print(f"wave whole keyframe: modes differ {modes_diff}, txd differ "
+          f"{txd_diff} of {k['modes'].numel()} blocks; psnr_y kernels {pk} "
+          f"plain {pp}; nonzero levels kernels {nk} plain {npl}", flush=True)
+    assert abs(pk - pp) <= 0.05, (pk, pp)
+    assert abs(nk - npl) <= 0.01 * npl, (nk, npl)
+
+    # (c) times
+    tabs, (sy, su, sv), diags, grids = wave_setup(y, u, v, q, bd, lam_scale,
+                                                  gate)
+    bests = []
+    for diag in diags:       # realistic carried state for the timings
+        bests.append(wave_luma16(sy, grids[0], tabs, *diag))
+        wave_sub_chroma(sy, su, sv, *grids, tabs, *diag, *bests[-1])
+    assert all(torch.equal(x, z) for x, z in zip(
+        wave_outputs(grids).values(), k.values()))
+
+    def luma_all():
+        for diag in diags:
+            wave_luma16(sy, grids[0], tabs, *diag)
+
+    def sub_all():       # rewrites each block with the same values
+        for diag, best in zip(diags, bests):
+            wave_sub_chroma(sy, su, sv, *grids, tabs, *diag, *best)
+
+    def both_all():
+        for diag in diags:
+            best = wave_luma16(sy, grids[0], tabs, *diag)
+            wave_sub_chroma(sy, su, sv, *grids, tabs, *diag, *best)
+
+    big = max(range(len(diags)), key=lambda d: diags[d][6])
+    dg, best = diags[big], bests[big]
+    n = dg[6]
+    key_dev = {name: device_us(torch, fn, 1, sleep_cycles=8 * SLEEP_CYCLES)
+               / 1e3 for name, fn in (("wave_luma16", luma_all),
+                                      ("wave_sub_chroma", sub_all),
+                                      ("both", both_all))}
+    per = {"wave_luma16": device_us(
+               torch, lambda: wave_luma16(sy, grids[0], tabs, *dg), 100),
+           "wave_sub_chroma": device_us(
+               torch, lambda: wave_sub_chroma(sy, su, sv, *grids, tabs, *dg,
+                                              *best), 100)}
+    plain = {"wave_luma16": _median_ms(
+                 torch, lambda: wave_luma16_plain(sy, grids[0], tabs, *dg),
+                 n=5),
+             "wave_sub_chroma": _median_ms(
+                 torch, lambda: wave_sub_chroma_plain(
+                     sy, su, sv, *grids, tabs, *dg, *best), n=5)}
+    bounds = wave_bounds(n)
+    key_bound = {name: sum(wave_bounds(d[6])[name][0] for d in diags) / 1e3
+                 for name in bounds}
+    print(f"wave keyframe time: {key_ms:.3f} ms with the host (events), "
+          f"{key_dev['both']:.3f} ms of device queued behind a sleep "
+          f"({len(diags)} diagonals, {2 * len(diags)} launches); plain "
+          f"keyframe {o['plain_seconds'] * 1e3:.1f} ms; bound "
+          f"{sum(key_bound.values()):.4f} ms", flush=True)
+    recs = {}
+    for name in ("wave_luma16", "wave_sub_chroma"):
+        recs[name] = {
+            "lanes": n, "device_us": per[name], "plain_ms": plain[name],
+            "bound_us": bounds[name][0], "bound_by": bounds[name][1],
+            "keyframe_device_ms": key_dev[name],
+            "keyframe_bound_ms": key_bound[name],
+            "keyframe_ms": key_ms, "plain_keyframe_ms":
+                o["plain_seconds"] * 1e3,
+            "decisions_differ": len(flips),
+            "max_abs_err": o["level_max_diff"]}
+        print(f"{name} at {n} lanes: device {per[name]:.3f} us per launch, "
+              f"plain {plain[name]:.3f} ms per call, bound "
+              f"{bounds[name][0]:.4f} us ({bounds[name][1]}, roofline "
+              f"{bounds[name][0] / per[name]:.4f}); per keyframe device "
+              f"{key_dev[name]:.3f} ms, bound {key_bound[name]:.4f} ms",
+              flush=True)
+    return recs
 
 
 def run_cli(argv: list) -> tuple[list, dict]:
@@ -475,7 +716,6 @@ def daemon_1080p(torch, y4m: str, tmp: str):
     """Phase 9.  Returns (launches, stats)."""
     import av1tpu_torch.models.inter_v as inter_v
     import av1tpu_torch.models.intra_wave as intra_wave
-    from av1tpu_torch.kernels.transform_quant import transform_quantize
 
     seen = {"key": set(), "carry": set(), "mv": set()}
     key_fn, gop_fn = (intra_wave.encode_intra_wave_key_recon,
@@ -496,10 +736,10 @@ def daemon_1080p(torch, y4m: str, tmp: str):
     intra_wave.encode_intra_wave_key_recon = key_spy
     inter_v.encode_gop_chunk_part = gop_spy
     try:
-        transform_quantize.launches = 0
+        zero_launches()
         progress, stats = run_cli(_daemon_argv(y4m, ivf))
         torch.cuda.synchronize()
-        launches = transform_quantize.launches
+        launches = read_launches()
     finally:
         intra_wave.encode_intra_wave_key_recon = key_fn
         inter_v.encode_gop_chunk_part = gop_fn
@@ -512,7 +752,8 @@ def daemon_1080p(torch, y4m: str, tmp: str):
     assert 0.0 <= stats["tpu_vmaf"] <= 100.0 and "metric_score" not in stats
     assert stats["psnr_y"] >= 30.0, stats["psnr_y"]
     assert stats["frames"] == ivf_frames(ivf) == CLI_FRAMES
-    assert launches == COLS * stats["scenes"], launches
+    assert launches["transform_quantize"] == COLS * stats["scenes"], launches
+    assert_wave(launches, stats["scenes"])
     assert all(v == {"cuda"} for v in seen.values()), seen
     return launches, stats
 
@@ -543,13 +784,11 @@ def metric_pass(torch, clip) -> dict:
 
 def layered_1080p(torch, y4m: str, tmp: str, daemon_stats):
     """Phase 10.  Returns the launches."""
-    from av1tpu_torch.kernels.transform_quant import transform_quantize
-
     ivf = os.path.join(tmp, "layered.ivf")
-    transform_quantize.launches = 0
+    zero_launches()
     _, stats = run_cli(_daemon_argv(y4m, ivf, "--layers", "2"))
     torch.cuda.synchronize()
-    launches = transform_quantize.launches
+    launches = read_launches()
     print(f"layers 2: fps={stats['encode_fps']} bytes={stats['bytes']} "
           f"(1 layer {daemon_stats['bytes']}, ratio "
           f"{stats['bytes'] / daemon_stats['bytes']:.4f}) "
@@ -558,7 +797,8 @@ def layered_1080p(torch, y4m: str, tmp: str, daemon_stats):
     assert stats["bytes"] <= 1.02 * daemon_stats["bytes"]
     assert stats["psnr_y"] >= 30.0, stats["psnr_y"]
     assert ivf_frames(ivf) == CLI_FRAMES
-    assert launches == COLS * stats["scenes"], launches
+    assert launches["transform_quantize"] == COLS * stats["scenes"], launches
+    assert_wave(launches, stats["scenes"])
     return launches
 
 
@@ -568,15 +808,14 @@ def all_intra_1080p(torch, y4m: str, tmp: str, preset: str):
     path, which has no kernel) or the quality frame's first-row luma
     chain (COLS), plus one probe encode per scene (fast: luma and the U+V
     stack, 2 * (COLS + ROWS - 1); quality: COLS), whose recon gives both
-    the metric score and the PSNR."""
-    from av1tpu_torch.kernels.transform_quant import transform_quantize
-
+    the metric score and the PSNR.  No wavefront keyframe: the all-intra
+    chunks are intra_v's and intra_part's."""
     ivf = os.path.join(tmp, f"intra_{preset}.ivf")
-    transform_quantize.launches = 0
+    zero_launches()
     _, stats = run_cli(_daemon_argv(y4m, ivf, "--all-intra", "--max-frames",
                                     str(INTRA_FRAMES), "--preset", preset))
     torch.cuda.synchronize()
-    launches = transform_quantize.launches
+    launches = read_launches()
     per_frame, probe = ((COLS + ROWS - 1, 2 * (COLS + ROWS - 1))
                         if preset == "fast" else (COLS, COLS))
     want = INTRA_FRAMES * per_frame + stats["scenes"] * probe
@@ -586,7 +825,8 @@ def all_intra_1080p(torch, y4m: str, tmp: str, preset: str):
           f"launches={launches} (derived {want})", flush=True)
     assert stats["keyframes"] == stats["frames"] == ivf_frames(ivf)
     assert stats["frames"] == INTRA_FRAMES
-    assert launches == want, (launches, want)
+    assert launches["transform_quantize"] == want, (launches, want)
+    assert_wave(launches, 0)
     return launches
 
 
@@ -636,6 +876,13 @@ class _BatchSpy:
         (self.cli._device_count, self.gop.scene_devices, self.gop.ScenePool,
          self.gop.SceneBatchEncoder.encode) = self.saved
 
+    def launches(self) -> dict:
+        """The hand kernels' launches the workers reported, summed."""
+        out: dict = {}
+        for r in self.results:
+            out = add_launches(out, r["launches"])
+        return out
+
     def where(self) -> dict:
         """{(device, pid): (scenes, peak bytes allocated)}."""
         out: dict = {}
@@ -654,35 +901,43 @@ def batch_devices(torch) -> tuple[list, str]:
     return scene_devices(1, "cuda") * 2, "one GPU listed twice"
 
 
-def batch_parity(torch, quality_runs) -> None:
-    """Phase 12 (a)."""
+def batch_parity(torch, quality_runs) -> dict:
+    """Phase 12 (a).  Returns the kernels' launches, the parent's and the
+    workers' summed: the workers code each scene's wavefront keyframe."""
     import av1tpu_torch.cli as cli
     from av1tpu_torch.parallel import gop
 
     (s_gpu, _), (s_cpu, _) = quality_runs
     devices, case = batch_devices(torch)
+    zero_launches()
     with _BatchSpy(gop, cli, devices) as spy:
         s_b, st_b = cli.encode_clip(two_scene_clip(), 120, device="cuda",
                                     workers=2, chunk=4, metric="psnr",
                                     partitions=True, scene_threshold=2.5,
                                     gop=True)
+    torch.cuda.synchronize()
+    parent = read_launches()
+    launches = add_launches(parent, spy.launches())
     where = spy.where()
     print(f"batch parity ({case}): devices {[str(d) for d in devices]}, "
           f"scenes per (device, pid) "
           f"{ {f'{d}/{p}': v[0] for (d, p), v in where.items()} }, "
           f"tus {len(s_b)}, identical to workers=1 on the card "
           f"{sum(a == b for a, b in zip(s_b, s_gpu))}, to the CPU "
-          f"{sum(a == b for a, b in zip(s_b, s_cpu))}, bytes {st_b['bytes']}",
-          flush=True)
+          f"{sum(a == b for a, b in zip(s_b, s_cpu))}, bytes {st_b['bytes']}, "
+          f"launches parent {parent} workers {spy.launches()}", flush=True)
     assert len(spy.results) == st_b["scenes"] == 2 and len(where) == 2
     assert {d for d, _ in where} == {str(d) for d in devices}
     assert s_b == s_gpu == s_cpu
+    assert_wave(parent, 0)
+    assert_wave(launches, st_b["scenes"], 64, 128)
+    return launches
 
 
 def batch_1080p(torch) -> int:
-    """Phase 12 (b).  Returns the kernel's launches in the timed batch."""
+    """Phase 12 (b).  Returns the kernels' launches in the timed batch,
+    the parent's and the workers' summed."""
     import av1tpu_torch.cli as cli
-    from av1tpu_torch.kernels.transform_quant import transform_quantize
     from av1tpu_torch.parallel import gop
 
     clip = batch_clip(1920, 1080, BATCH_FRAMES)
@@ -699,12 +954,13 @@ def batch_1080p(torch) -> int:
         torch.cuda.synchronize()
         for workers in (1, 2):
             torch.cuda.reset_peak_memory_stats()
-            transform_quantize.launches = 0
+            zero_launches()
             with _BatchSpy(gop, cli, devices, pool) as spy:
                 streams, stats = cli.encode_clip(clip, QINDEX,
                                                  workers=workers, **kw)
             torch.cuda.synchronize()
-            launches = transform_quantize.launches
+            parent = read_launches()
+            launches = add_launches(parent, spy.launches())
             peaks = {"parent": torch.cuda.max_memory_allocated()}
             peaks.update({f"{d}/{p}": v[1]
                           for (d, p), v in spy.where().items()})
@@ -715,12 +971,19 @@ def batch_1080p(torch) -> int:
                   f"{stats['encode_fps']} fps, key_device "
                   f"{stats['stage_seconds']['key_device']} s (summed over "
                   f"scenes), bytes {stats['bytes']}, psnr_y "
-                  f"{stats['psnr_y']}, launches {launches}, peak bytes "
-                  f"allocated {peaks}", flush=True)
+                  f"{stats['psnr_y']}, launches parent {parent} workers "
+                  f"{spy.launches()}, peak bytes allocated {peaks}",
+                  flush=True)
             print(f"batch 1080p workers={workers} stats:", json.dumps(stats),
                   flush=True)
             assert stats["scenes"] == 2 and len(streams) == 2 * BATCH_FRAMES
-            assert launches == COLS * stats["scenes"], launches
+            # the probes run in the parent, the keyframes in the workers
+            assert parent["transform_quantize"] == COLS * stats["scenes"], (
+                parent)
+            assert launches["transform_quantize"] == COLS * stats["scenes"]
+            assert_wave(launches, stats["scenes"])
+            if workers > 1:
+                assert_wave(parent, 0)
             assert len(spy.results) == (2 if workers > 1 else 0)
             runs[workers] = (streams, stats, launches)
     (s1, st1, _), (s2, st2, launches) = runs[1], runs[2]
@@ -859,17 +1122,16 @@ def card_encode(torch, name: str, argv_to, out_dir: str,
     """The command argv_to(ivf) at --chunk 1 on `device`, with ReconSpy.
     Keeps in out_dir what a decode check needs: NAME.ivf, NAME_recon.npz
     (each frame's recon at the coded size, and its index) and NAME.json
-    (the card, the launches, the stats).  Returns (stats, launches)."""
-    from av1tpu_torch.kernels.transform_quant import transform_quantize
-
+    (the card, the launches, the stats).  Returns (stats, launches by
+    kernel)."""
     ivf = os.path.join(out_dir, name + ".ivf")
-    transform_quantize.launches = 0
+    zero_launches()
     with ReconSpy() as spy:
         _, stats = run_cli([*argv_to(ivf), "--chunk", "1", "--device",
                             device])
     if device == "cuda":
         torch.cuda.synchronize()
-    launches = transform_quantize.launches
+    launches = read_launches()
     recons = spy.recons()
     recon = np.stack(list(recons.values()))
     np.savez_compressed(
@@ -910,7 +1172,7 @@ def container_daemon(torch, tmp: str, out_dir: str, tool, daemon,
     None where the host has no libav: then the daemon's command runs on
     the y4m alone.  A rehearsal on the CPU passes device "cpu", a small
     size and options for the command.  Returns the launches of the
-    in-process run."""
+    in-process run, by kernel."""
     from av1tpu_torch.utils.yuv import synthetic_clip, write_y4m
 
     w, h, n = size
@@ -963,8 +1225,12 @@ def container_daemon(torch, tmp: str, out_dir: str, tool, daemon,
           f"scenes={stats['scenes']} launches={launches}", flush=True)
     assert stats["frames"] == ivf_frames(
         os.path.join(out_dir, "daemon_command.ivf")) == n
-    assert launches == (w // 16 * stats["scenes"] if device == "cuda"
-                        else 0), launches
+    on_card = device == "cuda"
+    assert launches["transform_quantize"] == (
+        w // 16 * stats["scenes"] if on_card else 0), launches
+    # the quality preset's keyframe, one per scene, at the coded size
+    assert_wave(launches, stats["scenes"] if on_card else 0,
+                (h + 63) & ~63, (w + 63) & ~63)
     if tool is not None:
         # the replaced file's video, remuxed to IVF, against this run's TUs
         remuxed = os.path.join(tmp, "replaced.ivf")
@@ -986,7 +1252,7 @@ def container_1080p(torch, tmp: str, out_dir: str, tool,
                     size=(DECODE_W, DECODE_H, CONTAINER_FRAMES)) -> int:
     """Phase 13 (b).  tool: the port's av1_tool, or None where the host
     has no libav (then no decode).  A rehearsal on the CPU passes device
-    "cpu" and a small size.  Returns the launches."""
+    "cpu" and a small size.  Returns the launches by kernel."""
     from av1tpu_torch.utils.yuv import synthetic_clip, write_y4m
 
     w, h, n = size
@@ -1001,8 +1267,10 @@ def container_1080p(torch, tmp: str, out_dir: str, tool,
           f"scenes={stats['scenes']} launches={launches}", flush=True)
     assert stats["frames"] == n
     # at chunk 1 the scene detector's minimum scene length is 1
-    assert launches == (3 * (COLS + ROWS - 1) * stats["scenes"]
-                        if device == "cuda" else 0), launches
+    assert launches["transform_quantize"] == (
+        3 * (COLS + ROWS - 1) * stats["scenes"] if device == "cuda" else 0), (
+        launches)
+    assert_wave(launches, 0)
     if tool is not None:
         dec, diffs = decode_check(tool, out_dir, "fast_1080p", tmp)
         assert dec is not None
@@ -1058,8 +1326,12 @@ def main() -> int:
     _phase("quality_parity", t)
 
     t = time.perf_counter()
-    launches_quality = quality_slice_1080p(torch, clip, fast_stats)
+    launches_quality, key_args = quality_slice_1080p(torch, clip, fast_stats)
     _phase("quality_slice_1080p", t)
+
+    t = time.perf_counter()
+    wave_recs = wave_vs_plain(torch, key_args)
+    _phase("wave_vs_plain", t)
 
     t = time.perf_counter()
     modes_parity(torch)
@@ -1084,7 +1356,7 @@ def main() -> int:
         _phase("all_intra_1080p", t)
 
     t = time.perf_counter()
-    batch_parity(torch, quality_runs)
+    launches_batch_parity = batch_parity(torch, quality_runs)
     launches_batch = batch_1080p(torch)
     _phase("scene_batch", t)
 
@@ -1092,6 +1364,7 @@ def main() -> int:
                "daemon": launches_daemon, "layered": launches_layered,
                "all_intra_fast": launches_intra["fast"],
                "all_intra_quality": launches_intra["quality"],
+               "batch_parity": launches_batch_parity,
                "batch": launches_batch}
 
     t = time.perf_counter()
@@ -1111,20 +1384,39 @@ def main() -> int:
     _phase("container", t)
     main_rec = recs[0]                   # (120, 256): a luma block row
     shape_key = [f"{r['b']}x{r['n2']}" for r in recs]
+
+    def path_counts(name):
+        return {p: c[name] for p, c in by_path.items()}
+
+    wave = [{
+        "name": name, "route": "cuda",
+        "source": "av1tpu_torch/csrc/intra_wave.cu",
+        "replaces": "av1tpu/models/intra_wave.py:383",
+        "launches": sum(path_counts(name).values()),
+        "launches_by_path": path_counts(name),
+        "max_abs_err": r["max_abs_err"],
+        "ms": r["device_us"] / 1e3, "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_us"] / 1e3, "bound_by": r["bound_by"],
+        # no PyTorch call computes the diagonal step
+        "library_ms": None,
+        **{k: r[k] for k in ("lanes", "keyframe_device_ms",
+                             "keyframe_bound_ms", "keyframe_ms",
+                             "plain_keyframe_ms", "decisions_differ")}}
+        for name, r in wave_recs.items()]
     print(json.dumps({"kernels": [{
         "name": "transform_quantize", "route": "cuda",
         "source": "av1tpu_torch/csrc/transform_quant.cu",
         "replaces": "av1tpu/kernels/transform_quant.py:64",
-        "launches": sum(by_path.values()),
-        "launches_by_path": by_path,
+        "launches": sum(path_counts("transform_quantize").values()),
+        "launches_by_path": path_counts("transform_quantize"),
         "max_abs_err": max(r["max_abs_err"] for r in recs),
         "ms": main_rec["device_us"] / 1e3,
         "plain_ms": main_rec["plain_device_us"] / 1e3,
         "bound_ms": main_rec["bound_us"] / 1e3,
         "bound_by": main_rec["bound_by"], "library_ms": None,
         **{k: dict(zip(shape_key, (r[k] for r in recs)))
-           for k in ("device_us", "call_us", "host_us", "bound_us")}}],
-        "metric_pass_ms": metric_ms}), flush=True)
+           for k in ("device_us", "call_us", "host_us", "bound_us")}},
+        *wave], "metric_pass_ms": metric_ms}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

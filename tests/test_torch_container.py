@@ -92,6 +92,11 @@ def test_daemon_accepts_the_torch_config(daemon, tmp_path):
     assert "cuda" not in cs.torch_template().lower()
 
 
+# what phase 13 counts on the CPU: the plain versions launch nothing
+NO_LAUNCHES = {"transform_quantize": 0, "wave_luma16": 0,
+               "wave_sub_chroma": 0}
+
+
 def test_daemon_cycle_runs_the_port(daemon, tool, tmp_path, monkeypatch,
                                     capsys):
     """chip_smoke.py phase 13 (a) on the CPU, with --preset fast appended:
@@ -105,7 +110,7 @@ def test_daemon_cycle_runs_the_port(daemon, tool, tmp_path, monkeypatch,
     out.mkdir()
     assert cs.container_daemon(torch, str(tmp_path), str(out), tool, daemon,
                                device="cpu", size=(192, 128, FRAMES),
-                               extra=("--preset", "fast")) == 0
+                               extra=("--preset", "fast")) == NO_LAUNCHES
     log = capsys.readouterr().out
     assert "job status=success stage=complete" in log
     assert f"TUs identical to the replaced file's: {FRAMES} of {FRAMES}" \
@@ -122,7 +127,8 @@ def test_fast_run_kept_for_the_decode_check(tool, tmp_path, capsys):
     out = tmp_path / "out"
     out.mkdir()
     assert cs.container_1080p(torch, str(tmp_path), str(out), tool,
-                              device="cpu", size=(192, 128, FRAMES)) == 0
+                              device="cpu", size=(192, 128, FRAMES)) == (
+        NO_LAUNCHES)
     assert sorted(p.name for p in out.iterdir()) == [
         "fast_1080p.ivf", "fast_1080p.json", "fast_1080p_recon.npz"]
     spec = importlib.util.spec_from_file_location(

@@ -1,7 +1,9 @@
 """Tests that need an NVIDIA GPU: the CUDA transform+quantize kernel agrees
-with its plain PyTorch version at the main path's shapes, its wrapper
-rejects what the kernel does not take, and the scene batch runs on the
-visible GPUs.  They skip where CUDA is absent.
+with its plain PyTorch version at the main path's shapes, the wavefront
+keyframe's two kernels agree with theirs from the same carried state, the
+wrappers reject what the kernels do not take, and the scene batch runs on
+the visible GPUs (its workers launching the wavefront kernels).  They skip
+where CUDA is absent.
 This file imports no JAX, so it also runs on a GPU machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -11,10 +13,17 @@ import numpy as np
 import pytest
 import torch
 
+from av1tpu_torch.kernels.intra_wave import (
+    wave_compare, wave_luma16, wave_sub_chroma,
+)
 from av1tpu_torch.kernels.transform_quant import (
     TQPlane, count_level_flips, transform_quantize, transform_quantize_ref,
 )
+from av1tpu_torch.models.intra_wave import (
+    wave_diagonals, wave_setup,
+)
 from av1tpu_torch.ops.transforms import forward_matrix
+from av1tpu_torch.utils.yuv import synthetic_clip
 
 
 def _case(n, b, seed, tx_type=0):
@@ -105,6 +114,11 @@ def test_scene_batch_on_the_gpus(dev):
         res = gop.SceneBatchEncoder(scenes, pool, 64, 64).encode(8192, 8192)
     assert [r["device"] for r in res] == [str(d) for d in devices]
     assert all(r["peak_bytes"] > 0 for r in res)
+    # each worker's keyframe: two wavefront launches per diagonal
+    nd = wave_diagonals(64, 64)
+    for r in res:
+        assert r["launches"]["wave_luma16"] == nd, r["launches"]
+        assert r["launches"]["wave_sub_chroma"] == nd, r["launches"]
     for sc, r in zip(scenes, res):
         here = gop._encode_scene(
             dict(sc, frames=torch.from_numpy(sc["frames"])), dev, 64, 64, 8,
@@ -114,3 +128,75 @@ def test_scene_batch_on_the_gpus(dev):
         assert len(r["inter_bufs"]) == len(sc["frames"]) - 1
         for a, b in zip(here["inter_bufs"], r["inter_bufs"]):
             assert np.array_equal(a, b)
+
+
+def _wave_planes(bd, dev, w=192, h=128, seed=7):
+    c = synthetic_clip(w, h, 1, seed=seed)
+    planes = [torch.from_numpy(a[0].astype(np.int32)) for a in (c.y, c.u, c.v)]
+    if bd == 10:
+        planes = [p * 4 + 2 for p in planes]
+    return [p.to(dev) for p in planes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bd,q,gate", [(8, 72, 0.0), (10, 40, 6.25)])
+def test_wave_kernels_match_plain(dev, bd, q, gate):
+    """Each diagonal's two kernels from the plain version's carried state
+    on a 128x192 frame: where pick, tx depth and levels agree the recon,
+    mode and chroma are identical (the integer path is exact); a level may
+    differ by 1 where the decisions agree (a quantize or rd_zero rounding
+    boundary, float32 sums in another order than cuBLAS's); a decision may
+    flip at a near-tie, in at most 1 of the 96 lanes."""
+    before = (wave_luma16.launches, wave_sub_chroma.launches)
+    o = wave_compare(*_wave_planes(bd, dev), q, bit_depth=bd, lam_scale=0.3,
+                     noise_gate=gate)
+    torch.cuda.synchronize()
+    nd = wave_diagonals(128, 192)
+    assert (wave_luma16.launches, wave_sub_chroma.launches) == (
+        before[0] + nd, before[1] + nd)
+    print({k: v for k, v in o.items() if k != "plain"})
+    assert o["lanes"] == 96
+    assert o["recon_lanes"] == 0
+    assert o["level_max_diff"] <= 1
+    assert len(o["picks"]) + len(o["txds"]) <= 1
+
+
+@pytest.mark.cuda
+def test_wave_wrappers_reject_bad_inputs(dev):
+    y, u, v = _wave_planes(8, dev, 64, 48)
+    tabs, (sy, su, sv), diags, grids = wave_setup(y, u, v, 72, 8, 1.0, 0.0)
+    diag = diags[3]
+    best = wave_luma16(sy, grids[0], tabs, *diag)
+    wave_sub_chroma(sy, su, sv, *grids, tabs, *diag, *best)
+    with pytest.raises(TypeError):                  # int32 rows
+        wave_luma16(sy, grids[0], tabs, diag[0].int(), *diag[1:])
+    with pytest.raises(ValueError):                 # on the CPU
+        wave_luma16(sy.cpu(), grids[0], tabs, *diag)
+    with pytest.raises(ValueError):                 # not contiguous
+        wave_luma16(sy.t().contiguous().t(), grids[0], tabs, *diag)
+    with pytest.raises(ValueError):                 # no valid lane
+        wave_luma16(sy, grids[0], tabs, *diag[:6], 0)
+    with pytest.raises(ValueError):                 # the grid's shape
+        wave_sub_chroma(sy, su, sv, grids[0][:, :2].contiguous(),
+                        *grids[1:], tabs, *diag, *best)
+    with pytest.raises(TypeError):                  # the levels' dtype
+        wave_sub_chroma(sy, su, sv, *grids[:3], grids[3].int(), *grids[4:],
+                        tabs, *diag, *best)
+    with pytest.raises(TypeError):                  # a float64 cost
+        wave_sub_chroma(sy, su, sv, *grids, tabs, *diag, *best[:3],
+                        best[3].double(), best[4])
+    # the tables: one tensor on another device, or of another dtype
+    t = {k: getattr(tabs, k) for k in ("fwd16", "mode_vals")}
+    with pytest.raises(ValueError):
+        wave_tables_like(tabs, fwd16=t["fwd16"].cpu())
+    with pytest.raises(TypeError):
+        wave_tables_like(tabs, mode_vals=t["mode_vals"].int())
+
+
+def wave_tables_like(tabs, **changed):
+    """A WaveTables with tabs' tensors and scalars, some tensors changed."""
+    from av1tpu_torch.kernels.intra_wave import _SPEC, WaveTables
+
+    return WaveTables(lam=tabs.lam, lam_txd0=tabs.lam_txd0, gate=tabs.gate,
+                      bit_depth=tabs.bit_depth,
+                      **dict({k: getattr(tabs, k) for k in _SPEC}, **changed))

@@ -40,7 +40,10 @@ PKG = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(PKG)
 BUILD_DIR = os.path.join(PKG, "_build")
 CUDA_SOURCES = tuple(os.path.join(PKG, "csrc", f)
-                     for f in ("transform_quant.cu", "intra_wave.cu"))
+                     for f in ("transform_quant.cu", "intra_wave.cu",
+                               "inter_code.cu", "cdef.cu"))
+# headers the sources include: a change rebuilds, nothing compiles them alone
+CUDA_HEADERS = (os.path.join(PKG, "csrc", "itx.cuh"),)
 PACK_SOURCES = (os.path.join(REPO, "native", "coding", "pack.cpp"),
                 os.path.join(REPO, "native", "coding", "tables_gen.h"))
 TOOL_SOURCES = (os.path.join(REPO, "native", "tools", "av1_tool.c"),)
@@ -109,7 +112,7 @@ def build_cuda() -> tuple[str, str]:
     output holds -Xptxas -v's registers, shared memory and spills per
     kernel (empty when the library was already up to date)."""
     out = os.path.join(BUILD_DIR, "libav1cuda.so")
-    if not _stale(out, CUDA_SOURCES):
+    if not _stale(out, CUDA_SOURCES + CUDA_HEADERS):
         return out, ""
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -120,7 +123,7 @@ def build_cuda() -> tuple[str, str]:
             objdir)
         _, link_log = _compile(out, lambda: [
             nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared"],
-            objs, CUDA_SOURCES)
+            objs, CUDA_SOURCES + CUDA_HEADERS)
     return out, log + link_log
 
 
@@ -142,6 +145,13 @@ def cuda_lib() -> ctypes.CDLL:
         "av1_wave_sub_chroma": [vp, vp, vp, vp, ci, vp, vp, vp, vp, vp, vp,
                                 vp, vp, vp, vp, vp, vp, ci, vp, vp, vp, vp,
                                 vp, vp],
+        # CodeTabs*, coefs, src, pred, nblocks, lv, rec, dist, rate, dskip,
+        # stream
+        "av1_code_blocks": [vp, vp, vp, vp, ci, vp, vp, vp, vp, vp, vp],
+        # y, u, v, skip8, weights, h, w, pri_y, sec_y, pri_uv, sec_uv,
+        # damping, coeff_shift, out y, u, v, stream
+        "av1_cdef_filter": [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
+                            ci, vp, vp, vp, vp],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -58,6 +58,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "itx.cuh"
+
 // kernels/intra_wave.py:WaveTabsC, field for field (outside the anonymous
 // namespace: the C entry points take it, and must keep external linkage)
 struct WaveTabs {
@@ -80,8 +82,6 @@ struct WaveTabs {
 
 namespace {
 
-typedef unsigned int u32;
-
 constexpr int NT = 256;       // threads per block: one per 16x16 pixel
 constexpr int NWARP = NT / 32;
 constexpr int NPOS = 13;      // candidates (WAVE_MODES)
@@ -96,161 +96,10 @@ enum { DC = 0, V = 1, H = 2, D45 = 3, D135 = 4, D113 = 5, D157 = 6,
 __constant__ int kWaveModes[NPOS] = {DC, V, H, D45, D67, SMOOTH, SMOOTH_V,
                                      SMOOTH_H, PAETH, D135, D113, D157,
                                      D203};
-// round(cos(i * pi / 128) * 4096), the spec's cos128 table
-__constant__ int kCos[65] = {
-    4096, 4095, 4091, 4085, 4076, 4065, 4052, 4036, 4017, 3996, 3973, 3948,
-    3920, 3889, 3857, 3822, 3784, 3745, 3703, 3659, 3612, 3564, 3513, 3461,
-    3406, 3349, 3290, 3229, 3166, 3102, 3035, 2967, 2896, 2824, 2751, 2675,
-    2598, 2520, 2440, 2359, 2276, 2191, 2106, 2019, 1931, 1842, 1751, 1660,
-    1567, 1474, 1380, 1285, 1189, 1092, 995, 897, 799, 700, 601, 501, 401,
-    301, 201, 101, 0};
-constexpr int SINPI1 = 1321, SINPI2 = 2482, SINPI3 = 3344, SINPI4 = 3803;
 // float32(0.87) and float32(3.66): models/intra_wave.py:_TXD_BITS[1:]
 constexpr u32 TXD8_BITS = 0x3f5eb852u, TXD4_BITS = 0x406a3d71u;
 
-// ---- integer inverse transforms (ops/transforms.py), wrapping int32 ----
-
-__device__ __forceinline__ u32 rs(u32 x, int n) {
-  return n == 0 ? x : (u32)((int)(x + (1u << (n - 1))) >> n);
-}
-
-__device__ __forceinline__ u32 btf(int w0, u32 a, int w1, u32 b) {
-  return rs((u32)w0 * a + (u32)w1 * b, 12);
-}
-
-#define C(i) kCos[i]
-
-__device__ void idct4(const u32* x, u32* o) {
-  u32 b0 = x[0], b1 = x[2], b2 = x[1], b3 = x[3];
-  u32 s0 = btf(C(32), b0, C(32), b1), s1 = btf(C(32), b0, -C(32), b1);
-  u32 s2 = btf(C(48), b2, -C(16), b3), s3 = btf(C(16), b2, C(48), b3);
-  o[0] = s0 + s3; o[1] = s1 + s2; o[2] = s1 - s2; o[3] = s0 - s3;
-}
-
-__device__ void idct8(const u32* x, u32* o) {
-  u32 ev[4] = {x[0], x[2], x[4], x[6]}, e[4];
-  idct4(ev, e);
-  u32 b4 = x[1], b5 = x[5], b6 = x[3], b7 = x[7];
-  u32 s4 = btf(C(56), b4, -C(8), b7), s5 = btf(C(24), b5, -C(40), b6);
-  u32 s6 = btf(C(40), b5, C(24), b6), s7 = btf(C(8), b4, C(56), b7);
-  u32 t4 = s4 + s5, t5 = s4 - s5, t6 = s7 - s6, t7 = s6 + s7;
-  u32 u5 = btf(-C(32), t5, C(32), t6), u6 = btf(C(32), t5, C(32), t6);
-  o[0] = e[0] + t7; o[1] = e[1] + u6; o[2] = e[2] + u5; o[3] = e[3] + t4;
-  o[4] = e[3] - t4; o[5] = e[2] - u5; o[6] = e[1] - u6; o[7] = e[0] - t7;
-}
-
-__device__ void idct16(const u32* x, u32* o) {
-  u32 ev[8], e[8];
-  for (int i = 0; i < 8; ++i) ev[i] = x[2 * i];
-  idct8(ev, e);
-  u32 b0 = x[1], b1 = x[9], b2 = x[5], b3 = x[13];
-  u32 b4 = x[3], b5 = x[11], b6 = x[7], b7 = x[15];
-  u32 s8 = btf(C(60), b0, -C(4), b7), s9 = btf(C(28), b1, -C(36), b6);
-  u32 s10 = btf(C(44), b2, -C(20), b5), s11 = btf(C(12), b3, -C(52), b4);
-  u32 s12 = btf(C(52), b3, C(12), b4), s13 = btf(C(20), b2, C(44), b5);
-  u32 s14 = btf(C(36), b1, C(28), b6), s15 = btf(C(4), b0, C(60), b7);
-  u32 t8 = s8 + s9, t9 = s8 - s9, t10 = s11 - s10, t11 = s10 + s11;
-  u32 t12 = s12 + s13, t13 = s12 - s13, t14 = s15 - s14, t15 = s14 + s15;
-  u32 u9 = btf(-C(16), t9, C(48), t14), u10 = btf(-C(48), t10, -C(16), t13);
-  u32 u13 = btf(-C(16), t10, C(48), t13), u14 = btf(C(48), t9, C(16), t14);
-  u32 v8 = t8 + t11, v9 = u9 + u10, v10 = u9 - u10, v11 = t8 - t11;
-  u32 v12 = t15 - t12, v13 = u14 - u13, v14 = u13 + u14, v15 = t12 + t15;
-  u32 w10 = btf(-C(32), v10, C(32), v13), w11 = btf(-C(32), v11, C(32), v12);
-  u32 w12 = btf(C(32), v11, C(32), v12), w13 = btf(C(32), v10, C(32), v13);
-  u32 odd[8] = {v15, v14, w13, w12, w11, w10, v9, v8};
-  for (int i = 0; i < 8; ++i) {
-    o[i] = e[i] + odd[i];
-    o[8 + i] = e[7 - i] - odd[7 - i];
-  }
-}
-
-__device__ void iadst4(const u32* x, u32* o) {
-  u32 x0 = x[0], x1 = x[1], x2 = x[2], x3 = x[3];
-  u32 s0 = (u32)SINPI1 * x0 + (u32)SINPI4 * x2 + (u32)SINPI2 * x3;
-  u32 s1 = (u32)SINPI2 * x0 - (u32)SINPI1 * x2 - (u32)SINPI4 * x3;
-  u32 s3b = (u32)SINPI3 * x1;
-  u32 s2 = (u32)SINPI3 * (x0 - x2 + x3);
-  o[0] = rs(s0 + s3b, 12); o[1] = rs(s1 + s3b, 12); o[2] = rs(s2, 12);
-  o[3] = rs(s0 + s1 - s3b, 12);
-}
-
-__device__ void iadst8(const u32* x, u32* o) {
-  u32 b[8] = {x[7], x[0], x[5], x[2], x[3], x[4], x[1], x[6]};
-  u32 s0 = btf(C(4), b[0], C(60), b[1]), s1 = btf(C(60), b[0], -C(4), b[1]);
-  u32 s2 = btf(C(20), b[2], C(44), b[3]), s3 = btf(C(44), b[2], -C(20), b[3]);
-  u32 s4 = btf(C(36), b[4], C(28), b[5]), s5 = btf(C(28), b[4], -C(36), b[5]);
-  u32 s6 = btf(C(52), b[6], C(12), b[7]), s7 = btf(C(12), b[6], -C(52), b[7]);
-  u32 t0 = s0 + s4, t1 = s1 + s5, t2 = s2 + s6, t3 = s3 + s7;
-  u32 t4 = s0 - s4, t5 = s1 - s5, t6 = s2 - s6, t7 = s3 - s7;
-  u32 u4 = btf(C(16), t4, C(48), t5), u5 = btf(C(48), t4, -C(16), t5);
-  u32 u6 = btf(-C(48), t6, C(16), t7), u7 = btf(C(16), t6, C(48), t7);
-  u32 v0 = t0 + t2, v1 = t1 + t3, v2 = t0 - t2, v3 = t1 - t3;
-  u32 v4 = u4 + u6, v5 = u5 + u7, v6 = u4 - u6, v7 = u5 - u7;
-  u32 w2 = btf(C(32), v2, C(32), v3), w3 = btf(C(32), v2, -C(32), v3);
-  u32 w6 = btf(C(32), v6, C(32), v7), w7 = btf(C(32), v6, -C(32), v7);
-  o[0] = v0; o[1] = 0u - v4; o[2] = w6; o[3] = 0u - w2;
-  o[4] = w3; o[5] = 0u - w7; o[6] = v5; o[7] = 0u - v1;
-}
-
-__device__ void iadst16(const u32* x, u32* o) {
-  u32 b[16] = {x[15], x[0], x[13], x[2], x[11], x[4], x[9], x[6],
-               x[7], x[8], x[5], x[10], x[3], x[12], x[1], x[14]};
-  const int ang[8] = {2, 10, 18, 26, 34, 42, 50, 58};
-  u32 s[16];
-  for (int i = 0; i < 8; ++i) {
-    int a = ang[i];   // cos128 of a and 64 - a, both in [0, 64]
-    s[2 * i] = btf(C(a), b[2 * i], C(64 - a), b[2 * i + 1]);
-    s[2 * i + 1] = btf(C(64 - a), b[2 * i], -C(a), b[2 * i + 1]);
-  }
-  u32 t[16];
-  for (int i = 0; i < 8; ++i) {
-    t[i] = s[i] + s[i + 8];
-    t[8 + i] = s[i] - s[i + 8];
-  }
-  u32 u[16];
-  for (int i = 0; i < 8; ++i) u[i] = t[i];
-  u[8] = btf(C(8), t[8], C(56), t[9]);
-  u[9] = btf(C(56), t[8], -C(8), t[9]);
-  u[10] = btf(C(40), t[10], C(24), t[11]);
-  u[11] = btf(C(24), t[10], -C(40), t[11]);
-  u[12] = btf(-C(56), t[12], C(8), t[13]);
-  u[13] = btf(C(8), t[12], C(56), t[13]);
-  u[14] = btf(-C(24), t[14], C(40), t[15]);
-  u[15] = btf(C(40), t[14], C(24), t[15]);
-  u32 v[16];
-  for (int i = 0; i < 4; ++i) {
-    v[i] = u[i] + u[i + 4];
-    v[4 + i] = u[i] - u[i + 4];
-    v[8 + i] = u[8 + i] + u[12 + i];
-    v[12 + i] = u[8 + i] - u[12 + i];
-  }
-  u32 w[16];
-  for (int i = 0; i < 16; ++i) w[i] = v[i];
-  for (int k = 4; k < 16; k += 8) {
-    w[k] = btf(C(16), v[k], C(48), v[k + 1]);
-    w[k + 1] = btf(C(48), v[k], -C(16), v[k + 1]);
-    w[k + 2] = btf(-C(48), v[k + 2], C(16), v[k + 3]);
-    w[k + 3] = btf(C(16), v[k + 2], C(48), v[k + 3]);
-  }
-  u32 y[16];
-  for (int k = 0; k < 16; k += 4) {
-    y[k] = w[k] + w[k + 2];
-    y[k + 1] = w[k + 1] + w[k + 3];
-    y[k + 2] = w[k] - w[k + 2];
-    y[k + 3] = w[k + 1] - w[k + 3];
-  }
-  u32 z[16];
-  for (int i = 0; i < 16; ++i) z[i] = y[i];
-  for (int i = 2; i < 16; i += 4) {
-    z[i] = btf(C(32), y[i], C(32), y[i + 1]);
-    z[i + 1] = btf(C(32), y[i], -C(32), y[i + 1]);
-  }
-  const int perm[16] = {0, 8, 12, 4, 6, 14, 10, 2, 3, 11, 15, 7, 5, 13, 9, 1};
-  for (int i = 0; i < 16; ++i)
-    o[i] = (i & 1) ? 0u - z[perm[i]] : z[perm[i]];
-}
-
-#undef C
+// ---- the 2-D inverse (the 1-D transforms are itx.cuh's) ----
 
 // one 1-D inverse of length n (4, 8 or 16), DCT or ADST
 __device__ void inv1d(int n, bool adst, const u32* x, u32* o) {

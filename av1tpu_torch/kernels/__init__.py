@@ -1,0 +1,14 @@
+"""The port's hand kernels: each module holds a CUDA kernel's wrapper, with
+its launch counter, beside its plain PyTorch version."""
+
+
+def hand_kernels() -> tuple:
+    """Every hand kernel's wrapper, each with its launch counter
+    (`wrapper.launches`, a plain integer)."""
+    from av1tpu_torch.kernels.cdef import cdef_filter
+    from av1tpu_torch.kernels.inter_code import code_blocks
+    from av1tpu_torch.kernels.intra_wave import wave_luma16, wave_sub_chroma
+    from av1tpu_torch.kernels.transform_quant import transform_quantize
+
+    return (transform_quantize, wave_luma16, wave_sub_chroma, code_blocks,
+            cdef_filter)

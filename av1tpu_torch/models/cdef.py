@@ -7,6 +7,9 @@
   shifts of the padded pre-CDEF image, constrain() and the min/max clamp
   are elementwise, and the per-pixel result is selected by the block
   direction.  Strengths are host ints.
+
+Both are the plain version of kernels/cdef.py:cdef_filter, the hand kernel
+that `cdef_planes` calls for a frame and a preset.
 """
 
 from __future__ import annotations
@@ -158,56 +161,18 @@ def cdef_planes(y, u, v, skip8, pri_y: int, sec_y: int, pri_uv: int,
     """Apply CDEF to deblocked recon planes (one frame-wide preset).
     skip8: (H/8, W/8) bool, True = unit unfiltered.  pri/sec are the CODED
     header values as host ints (sec 3 means 4); all-zero strengths pass
-    the planes through."""
+    the planes through, any other preset is one kernels/cdef.py:cdef_filter
+    call."""
+    from av1tpu_torch.kernels.cdef import cdef_filter
+
     pri_y, sec_y, pri_uv, sec_uv = (int(pri_y), int(sec_y), int(pri_uv),
                                     int(sec_uv))
     y32, u32, v32 = (p.to(torch.int32) for p in (y, u, v))
     if not (pri_y or sec_y or pri_uv or sec_uv):
         return y32, u32, v32
-    coeff_shift = bit_depth - 8
-    h, w = y.shape
-    sec_y_eff = (sec_y + (sec_y == 3)) << coeff_shift
-    sec_uv_eff = (sec_uv + (sec_uv == 3)) << coeff_shift
-
-    # direction search only when some primary strength is nonzero
-    if pri_y > 0 or pri_uv > 0:
-        dir8, var8 = cdef_dirs(y, coeff_shift)
-    else:
-        dir8 = torch.zeros((h // 8, w // 8), dtype=torch.int32,
-                           device=y.device)
-        var8 = dir8
-
-    live = ~skip8
-    out = []
-    if pri_y > 0 or sec_y > 0:
-        # luma primary: variance-modulated per block (spec adjust_strength)
-        v6 = var8 >> 6
-        i = torch.where(v6 > 0, torch.clamp(_floor_log2(v6), max=12), 0)
-        pri_y_blk = torch.where(var8 > 0,
-                                ((pri_y << coeff_shift) * (4 + i) + 8) >> 4,
-                                0)
-        par_y = (pri_y_blk >> coeff_shift) & 1
-        yy = _filter_plane(y32, rep2d(dir8, 8), rep2d(pri_y_blk, 8),
-                           rep2d(par_y, 8), sec_y_eff,
-                           damping + coeff_shift, h, w)
-        out.append(torch.where(rep2d(live, 8), yy, y32))
-    else:
-        out.append(y32)
-
-    ch, cw = u.shape
-    if pri_uv > 0 or sec_uv > 0:
-        dir_c = rep2d(dir8, 4)
-        pri_c = torch.full((ch, cw), pri_uv << coeff_shift,
-                           dtype=torch.int32, device=y.device)
-        livec = rep2d(live, 4)
-        dmp_c = damping - 1 + coeff_shift
-        for p in (u32, v32):
-            pp = _filter_plane(p, dir_c, pri_c, pri_uv & 1, sec_uv_eff,
-                               dmp_c, ch, cw)
-            out.append(torch.where(livec, pp, p))
-    else:
-        out += [u32, v32]
-    return tuple(out)
+    return cdef_filter(y32.contiguous(), u32.contiguous(), v32.contiguous(),
+                       skip8.contiguous(), pri_y, sec_y, pri_uv, sec_uv,
+                       damping, bit_depth)
 
 
 def skip16_from_levels(y16, u8, v8):

@@ -27,10 +27,10 @@ as the reference's compiled graph computes them (a chain of constant
 factors folded into one float32 constant, intra_v.fold_consts) and passed
 as Python floats.
 
-Every residual coder here prunes with rdoq.rd_zero, which reads the
-coefficients after the quantizer, so the inter step launches no hand
-kernel: these sites are the front half of the fused coder still to be
-written.
+Every residual coder here is a forward product (a matmul) followed by
+kernels/inter_code.py:code_blocks (the quantize, rd_zero, the inverse
+transform, the recon, the SSEs and the rate), with each site's constants
+checked once into a cached CodePlane (`_coder`).
 """
 
 from __future__ import annotations
@@ -40,12 +40,12 @@ import functools
 import numpy as np
 import torch
 
+from av1tpu_torch.kernels.inter_code import CodePlane, code_blocks
 from av1tpu_torch.models.intra_v import (
     LAM_PIX, _plane_params, ac_squared, fold_consts, from_blocks, log2_rate,
-    pack_bits, plane_params_np, quantize_coefs, rep2d, sig_bitmap,
-    stable_partition, to_blocks, unfuse,
+    pack_bits, plane_params_np, rep2d, sig_bitmap, stable_partition,
+    to_blocks, unfuse,
 )
-from av1tpu_torch.ops.transforms import inverse_transform
 from av1tpu_torch.state import tables
 
 f32 = np.float32
@@ -371,33 +371,48 @@ def _chroma_mc_pair(ref_u: torch.Tensor, ref_v: torch.Tensor,
     return out[0], out[1]
 
 
-def _code_plane_inter(src: torch.Tensor, pred: torch.Tensor, qindex: int,
-                      n: int, bit_depth: int, tab=None, lam=None):
-    """Batched residual coding: (rows, cols, n, n) src/pred -> (levels i16,
-    recon blocks, dist (rows, cols), dskip).  With tab (the rate row of
-    the frame's quality bucket) and lam, near-threshold levels are
-    RD-pruned (rdoq.rd_zero)."""
-    from av1tpu_torch.models.rdoq import rd_zero
+@functools.cache
+def _coder(qindex: int, bit_depth: int, device, n: int, ptype: int,
+           quant_n: int, dq_shift: int, lam: np.float32, gate,
+           with_rate: bool) -> CodePlane:
+    """The CodePlane of one coder site, built and checked once: n x n
+    blocks of plane type ptype, quantized with the rows of the quant_n x
+    quant_n transform with step * 2^-dq_shift (32x32: the step halved and
+    the dequantize shifted by 1; TX_64X64: the 32x32 rows at a quarter,
+    shifted by 2), the rate rows of the frame's quality bucket, lambda
+    lam and the optional noise gate; with_rate returns the RateModel's
+    bits."""
+    from av1tpu_torch.models.rates import qctx_index
 
-    dev = src.device
+    T = tables(device)
+    step, q, cap = _plane_params(qindex, quant_n, bit_depth, device)
+    if dq_shift:
+        step = step * (0.5 ** dq_shift)
+    rm = T.rate_model(n, ptype)
+    qctx = qctx_index(qindex)
+    rate = (dict(skip=rm.skip[qctx], rank=rm.rank.contiguous(),
+                 eob=rm.eob[qctx])
+            if with_rate else {})
+    return CodePlane(n=n, step=step, q=q, cap=cap, gains=T.coef_gains(n),
+                     tab=rm.tabs[qctx], lam=lam, gate=gate,
+                     dq_shift=dq_shift, bit_depth=bit_depth, **rate)
+
+
+def _code_plane_inter(src: torch.Tensor, pred: torch.Tensor,
+                      plane: CodePlane):
+    """Batched residual coding: (rows, cols, n, n) src/pred -> (levels i16,
+    recon blocks, dist (rows, cols), dskip).  Near-threshold levels are
+    RD-pruned (rdoq.rd_zero) with the plane's rate row and lambda."""
+    n = plane.n
     rows, cols = src.shape[:2]
-    pix_max = (1 << bit_depth) - 1
-    fwdt = tables(dev).fwdt(n, 0)
-    step, q, cap = _plane_params(qindex, n, bit_depth, dev)
-    resid = (src - pred).reshape(-1, n * n).to(torch.float32)
-    coefs = resid @ fwdt
-    lv = quantize_coefs(coefs, step, cap)
-    if lam is not None and tab is not None:
-        lv = rd_zero(lv, coefs, q.to(torch.float32), lam, tab,
-                     tables(dev).coef_gains(n))
-    r = inverse_transform((lv * q).reshape(-1, n, n), n, n, 0)
-    rec = torch.clamp(pred.reshape(-1, n, n) + r, 0, pix_max)
-    e = rec - src.reshape(-1, n, n)
-    dist = (e * e).sum(dim=(1, 2), dtype=torch.int32).to(
-        torch.float32).reshape(rows, cols)
-    dskip = (resid * resid).sum(dim=1).reshape(rows, cols)
+    s = src.reshape(-1, n, n).contiguous()
+    p = pred.reshape(-1, n, n).contiguous()
+    coefs = (s - p).reshape(-1, n * n).to(torch.float32) @ tables(
+        src.device).fwdt(n, 0)
+    lv, rec, dist, _, dskip = code_blocks(coefs, s, p, plane)
     return (lv.reshape(rows, cols, n, n).to(torch.int16),
-            rec.reshape(rows, cols, n, n), dist, dskip)
+            rec.reshape(rows, cols, n, n), dist.reshape(rows, cols),
+            dskip.reshape(rows, cols))
 
 
 def _search_mv(y: torch.Tensor, ref_y: torch.Tensor, lam: np.float32,
@@ -469,26 +484,18 @@ def encode_inter_v(y, u, v, ref_y, ref_u, ref_v, qindex: int,
     frame's reconstruction.  Returns dict with levels_y (r16, c16, 16, 16)
     int16, levels_u/v (r16, c16, 8, 8) int16, mv (r16, c16, 2) int32
     1/8-pel (row, col), and recon planes (int32)."""
-    from av1tpu_torch.models.rates import qctx_index
-
     dev = y.device
     lam, lamp = inter_lambdas(qindex, bit_depth, dev)
     pix_max = (1 << bit_depth) - 1
     mv8, pred_y, src_b, _ = _search_mv(y, ref_y, lam, pix_max)
     pred_u, pred_v = _chroma_mc_pair(ref_u, ref_v, mv8, pix_max)
 
-    qctx = qctx_index(qindex)
-    T = tables(dev)
     lp = float(lamp)
-    ly, ry, dy, dsky = _code_plane_inter(src_b, pred_y, qindex, 16,
-                                         bit_depth, T.rate_tabs(16, 0)[qctx],
-                                         lp)
-    lu, ru, du_, dsku = _code_plane_inter(to_blocks(u, 8), pred_u, qindex,
-                                          8, bit_depth,
-                                          T.rate_tabs(8, 1)[qctx], lp)
-    lv, rv, dv_, dskv = _code_plane_inter(to_blocks(v, 8), pred_v, qindex,
-                                          8, bit_depth,
-                                          T.rate_tabs(8, 1)[qctx], lp)
+    py, pc = (_coder(qindex, bit_depth, dev, n, ptype, n, 0, lamp, None,
+                     False) for n, ptype in ((16, 0), (8, 1)))
+    ly, ry, dy, dsky = _code_plane_inter(src_b, pred_y, py)
+    lu, ru, du_, dsku = _code_plane_inter(to_blocks(u, 8), pred_u, pc)
+    lv, rv, dv_, dskv = _code_plane_inter(to_blocks(v, 8), pred_v, pc)
     # joint skip-vs-code RD per 16-block (one skip flag covers all planes)
     coded = (dy + du_ + dv_
              + lp * (_rate_of(ly) + _rate_of(lu) + _rate_of(lv)))
@@ -792,35 +799,22 @@ def _join_blocks(b: torch.Tensor, f: int):
             .reshape(rows // f, cols // f, f * n, f * n))
 
 
-def _code_nn(src, pred, fwdt, step, q, dq_shift: int, cap, pix_max: int,
-             rm, qctx: int, lam: float, gains, noise_gate=None):
-    """Generic n x n DCT residual coding on (..., n, n) blocks.  Returns
-    (levels i32, recon, dist_pix f32, rate f32, dskip f32).  rm: the
-    rates.RateModel of the size (expected bits from the coefficient CDFs);
-    near-threshold levels whose bit cost exceeds their distortion value
-    are pruned (rdoq.rd_zero).  noise_gate: optional (k*sigma)^2 noise
-    floor, a Python float."""
-    from av1tpu_torch.models.rdoq import rd_zero
-
-    n = src.shape[-1]
+def _code_nn(src, pred, fwdt, plane: CodePlane):
+    """Generic n x n DCT residual coding on (..., n, n) blocks: the forward
+    product, then code_blocks with the site's CodePlane (_coder).  Returns
+    (levels i32 (..., cw, cw), recon, dist_pix f32, rate f32, dskip f32):
+    the rate is the plane's RateModel bits (expected bits from the
+    coefficient CDFs); near-threshold levels whose bit cost exceeds their
+    distortion value are pruned (rdoq.rd_zero), inside the plane's noise
+    gate too.  TX_64X64 (n = 64) codes the top-left 32x32 levels."""
+    n, cw = plane.n, plane.cw
     sh = src.shape[:-2]
-    resid = (src - pred).reshape(-1, n * n).to(torch.float32)
-    coefs = resid @ fwdt
-    lv = quantize_coefs(coefs, step, cap)
-    lv = rd_zero(lv, coefs, q.to(torch.float32) * (0.5 ** dq_shift), lam,
-                 rm.tabs[qctx], gains, noise_gate=noise_gate)
-    dq = lv * q
-    if dq_shift:
-        dq = torch.sign(dq) * (dq.abs() >> dq_shift)
-    r = inverse_transform(dq.reshape(-1, n, n), n, n, 0)
-    rec = torch.clamp(pred.reshape(-1, n, n) + r, 0, pix_max)
-    e = rec - src.reshape(-1, n, n)
-    dist = (e * e).sum(dim=(1, 2)).to(torch.float32)
-    # skip distortion: recon == prediction (pred is already pixel-clipped
-    # MC output, so the residual energy is exact)
-    dskip = (resid * resid).sum(dim=1).reshape(sh)
-    lv = lv.reshape(sh + (n, n))
-    return lv, rec.reshape(sh + (n, n)), dist.reshape(sh), rm(lv, qctx), dskip
+    s = src.reshape(-1, n, n).contiguous()
+    p = pred.reshape(-1, n, n).contiguous()
+    coefs = (s - p).reshape(-1, n * n).to(torch.float32) @ fwdt
+    lv, rec, dist, rate, dskip = code_blocks(coefs, s, p, plane)
+    return (lv.reshape(sh + (cw, cw)), rec.reshape(sh + (n, n)),
+            dist.reshape(sh), rate.reshape(sh), dskip.reshape(sh))
 
 
 def _skip_rdo(lam: float, yt, ut, vt, py, pu, pv):
@@ -870,27 +864,21 @@ def _inter_partition(src_b, pred_b, src_cb, pred_cb, mv8, qindex: int,
     GOLDEN (they never split to 8x8, and 32/64 merges require a uniform
     reference).  Returns dict of per-size level grids, split maps and
     recon planes (union-layout-ready)."""
-    from av1tpu_torch.models.rates import qctx_index
-    from av1tpu_torch.models.rdoq import rd_zero
-
     dev = mv8.device
     rows, cols = mv8.shape[:2]
     rows32, cols32 = rows // 2, cols // 2
     rows64, cols64 = rows // 4, cols // 4
-    pix_max = (1 << bit_depth) - 1
     T = tables(dev)
 
     fwd16t, fwd32t, fwd8t = T.fwdt(16, 0), T.fwdt(32, 0), T.fwdt(8, 0)
-    f64t = T.fwd64t()
-    step16, q16, cap16 = _plane_params(qindex, 16, bit_depth, dev)
-    step32, q32, cap32 = _plane_params(qindex, 32, bit_depth, dev)
-    step8, q8, cap8 = _plane_params(qindex, 8, bit_depth, dev)
-    lam_full, lam, lam_split = (float(x) for x in part_lambdas(
-        qindex, bit_depth, dev))
-    qctx = qctx_index(qindex)
-    rm16y, rm8c = T.rate_model(16, 0), T.rate_model(8, 1)
-    rm32y, rm16c = T.rate_model(32, 0), T.rate_model(16, 1)
-    rm64y, rm32c = T.rate_model(64, 0), T.rate_model(32, 1)
+    lams = part_lambdas(qindex, bit_depth, dev)
+    lam_full, lam, lam_split = (float(x) for x in lams)
+
+    def coder(n, ptype, quant_n=None, dq_shift=0):
+        """The CodePlane of n x n blocks of plane type ptype (every site
+        here prunes with the full frame lambda and the noise gate)."""
+        return _coder(qindex, bit_depth, dev, n, ptype, quant_n or n,
+                      dq_shift, lams[0], noise_gate, True)
 
     # MV equality maps (and reference uniformity: a merged block codes
     # ONE ref, so all children must agree)
@@ -907,37 +895,26 @@ def _inter_partition(src_b, pred_b, src_cb, pred_cb, mv8, qindex: int,
         c64 = g.reshape(rows64, 4, cols64, 4).sum(dim=(1, 3))
         eq64 = eq64 & ((c64 == 0) | (c64 == 16))
 
-    g8, g16 = T.coef_gains(8), T.coef_gains(16)
-    g32, g64 = T.coef_gains(32), T.coef_gains(64)
-
-    def code_uv(src_pair, pred_pair, fwdt, step, q, dq_shift, cap, rm,
-                gains):
+    def code_uv(src_pair, pred_pair, fwdt, plane):
         """u and v coded in one _code_nn call (stacked leading axis)."""
         t = _code_nn(torch.stack(list(src_pair)),
-                     torch.stack(list(pred_pair)), fwdt, step, q, dq_shift,
-                     cap, pix_max, rm, qctx, lam_full, gains, noise_gate)
+                     torch.stack(list(pred_pair)), fwdt, plane)
         return tuple(x[0] for x in t), tuple(x[1] for x in t)
 
     # ---- 16 leaf (luma + chroma) ----
-    y16t = _code_nn(src_b, pred_b, fwd16t, step16, q16, 0, cap16, pix_max,
-                    rm16y, qctx, lam_full, g16, noise_gate)
-    cl = code_uv(src_cb, pred_cb, fwd8t, step8, q8, 0, cap8, rm8c, g8)
+    y16t = _code_nn(src_b, pred_b, fwd16t, coder(16, 0))
+    cl = code_uv(src_cb, pred_cb, fwd8t, coder(8, 1))
     _, (lv16, rec16, d16, r16), (lu8, recu8, du8, ru8), \
         (lv8, recv8, dv8, rv8) = _skip_rdo(lam_full, y16t, cl[0], cl[1],
                                            pred_b, pred_cb[0], pred_cb[1])
 
     # ---- 8x8 split (motion boundaries; TX_8X8 luma + TX_4X4 chroma) ----
     if sub8 is not None:
-        fwd4t = T.fwdt(4, 0)
-        step4, q4, cap4 = _plane_params(qindex, 4, bit_depth, dev)
-        rm8y, rm4c = T.rate_model(8, 0), T.rate_model(4, 1)
         src8 = _quads(src_b, 8)
         sc4 = [_quads(s, 4) for s in src_cb]
         pc4 = sub8["pred_uv"]              # (2, rows8, cols8, 4, 4)
-        y8t = _code_nn(src8, sub8["pred"], fwd8t, step8, q8, 0, cap8,
-                       pix_max, rm8y, qctx, lam_full, g8, noise_gate)
-        c4 = code_uv(sc4, (pc4[0], pc4[1]), fwd4t, step4, q4, 0, cap4,
-                     rm4c, T.coef_gains(4))
+        y8t = _code_nn(src8, sub8["pred"], fwd8t, coder(8, 0))
+        c4 = code_uv(sc4, (pc4[0], pc4[1]), T.fwdt(4, 0), coder(4, 1))
         _, (l8y, rec8y, d8, r8), (l4u, rec4u, du4, ru4), \
             (l4v, rec4v, dv4, rv4) = _skip_rdo(lam_full, y8t, c4[0], c4[1],
                                                sub8["pred"], pc4[0], pc4[1])
@@ -958,11 +935,10 @@ def _inter_partition(src_b, pred_b, src_cb, pred_cb, mv8, qindex: int,
     # ---- 32 merge (luma 32 DCT shift1 + chroma 16 DCT) ----
     s32 = _join_blocks(src_b, 2)
     p32 = _join_blocks(pred_b, 2)
-    y32t = _code_nn(s32, p32, fwd32t, step32 * 0.5, q32, 1, cap32, pix_max,
-                    rm32y, qctx, lam_full, g32, noise_gate)
+    y32t = _code_nn(s32, p32, fwd32t, coder(32, 0, dq_shift=1))
     sc16 = [_join_blocks(s, 2) for s in src_cb]
     pc16 = [_join_blocks(p, 2) for p in pred_cb]
-    cc = code_uv(sc16, pc16, fwd16t, step16, q16, 0, cap16, rm16c, g16)
+    cc = code_uv(sc16, pc16, fwd16t, coder(16, 1))
     _, (lv32, rec32, d32, r32), (lu16, recu16, du16, ru16), \
         (lv16c, recv16, dv16, rv16) = _skip_rdo(lam_full, y32t, cc[0], cc[1],
                                                 p32, pc16[0], pc16[1])
@@ -985,28 +961,10 @@ def _inter_partition(src_b, pred_b, src_cb, pred_cb, mv8, qindex: int,
     # ---- 64 merge (luma TX_64X64, coded 32x32, shift2; chroma 32 shift1)
     s64 = _join_blocks(src_b, 4)
     p64 = _join_blocks(pred_b, 4)
-    resid64 = (s64 - p64).reshape(-1, 4096).to(torch.float32)
-    coef64 = resid64 @ f64t
-    lv64 = quantize_coefs(coef64, step32 * 0.25, cap32)
-    lv64 = rd_zero(lv64, coef64, q32.to(torch.float32) * 0.25, lam_full,
-                   rm64y.tabs[qctx], g64, noise_gate=noise_gate)
-    dq64 = torch.sign(lv64) * ((lv64.abs() * q32) >> 2)
-    full = torch.zeros((rows64 * cols64, 64, 64), dtype=torch.int32,
-                       device=dev)
-    full[:, :32, :32] = dq64.reshape(-1, 32, 32)
-    rec64 = torch.clamp(p64.reshape(-1, 64, 64)
-                        + inverse_transform(full, 64, 64, 0), 0, pix_max)
-    e64 = rec64 - s64.reshape(-1, 64, 64)
-    d64 = (e64 * e64).sum(dim=(1, 2)).to(torch.float32).reshape(rows64,
-                                                               cols64)
-    lv64 = lv64.reshape(rows64, cols64, 32, 32)
-    dsk64 = (resid64 * resid64).sum(dim=1).reshape(rows64, cols64)
-    y64t = (lv64, rec64.reshape(rows64, cols64, 64, 64), d64,
-            rm64y(lv64, qctx), dsk64)
+    y64t = _code_nn(s64, p64, T.fwd64t(), coder(64, 0, 32, dq_shift=2))
     sc32 = [_join_blocks(s, 4) for s in src_cb]
     pc32 = [_join_blocks(p, 4) for p in pred_cb]
-    c32 = code_uv(sc32, pc32, fwd32t, step32 * 0.5, q32, 1, cap32, rm32c,
-                  g32)
+    c32 = code_uv(sc32, pc32, fwd32t, coder(32, 1, dq_shift=1))
     _, (lv64, rec64q, d64, r64l), (lu32, recu32, du32, ru32), \
         (lv32c, recv32, dv32, rv32) = _skip_rdo(lam_full, y64t, c32[0],
                                                 c32[1], p64, pc32[0],

@@ -106,14 +106,13 @@ def _encode_scene(scene: dict, dev: torch.device, height: int, width: int,
     and the filter (_scenes_cdef), then one inter step per frame with the
     filtered keyframe as GOLDEN and the MV field carried (_scenes_step),
     each frame's buffer fetched while the next frame's step is queued."""
-    from av1tpu_torch.kernels.intra_wave import wave_luma16, wave_sub_chroma
-    from av1tpu_torch.kernels.transform_quant import transform_quantize
+    from av1tpu_torch.kernels import hand_kernels
     from av1tpu_torch.models import inter_v, intra_wave
     from av1tpu_torch.models.cdef import cdef_fused, select_strengths
 
     # the hand kernels' launch counts are per process: each scene reports
     # what it launched, so that the parent can count a batch's launches
-    kernels = (transform_quantize, wave_luma16, wave_sub_chroma)
+    kernels = hand_kernels()
     before = [k.launches for k in kernels]
     seconds = {}
     t = time.perf_counter()

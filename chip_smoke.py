@@ -45,6 +45,17 @@ exits non-zero:
    within 1% of the plain one; (c) its time (events, and device time
    queued behind a sleep), each kernel per keyframe and per launch at the
    largest lane count, the plain versions' time there, and the bounds;
+7c. inter kernels vs plain, on phase 7's first inter frame with the CLI's
+   arguments (inter_vs_plain): (a) the partition RDO with code_blocks and
+   with its plain version on the card: differing levels and skip, split
+   and merge decisions (at most 0.1% of the 8,160 blocks), recon identical
+   in every block whose decisions and levels agree; (b) each of the frame's
+   8 coder batches on identical inputs (levels, recon and SSE exact, rate
+   and skip SSE within 1e-4) and cdef_filter on the step's CDEF input
+   (every pixel equal); (c) the whole step both ways; (d) device time per
+   launch of each batch and of the CDEF, the plain versions' time, the
+   cuBLAS forward product's time, and the bounds (code_bounds,
+   cdef_bounds);
 8. modes parity: phase 4 again (quality preset) in the command's other
    modes: the default metric, tpu_vmaf (its score within 1e-3, and once
    more under torch.backends.cudnn.flags(allow_tf32=True): the metric
@@ -106,12 +117,22 @@ its wavefront keyframes times their diagonals (models/intra_wave.py:
 wave_diagonals, from the schedule): one 1080p keyframe per scene in
 phases 7, 9, 10 and 12 (b), the 128x64 clip's two scenes in the workers of
 12 (a), the 640x360 clip's scenes at its coded 384x640 in 13 (a); none on
-the fast and all-intra paths.  The scene batch's workers report their
-counts with each scene.
+the fast and all-intra paths.  Those of code_blocks and cdef_filter are
+asserted equal to what each path's scenes imply (coder_cdef_want, from
+each scene's frames and chosen preset, spied by ScenePlan or reported by
+the batch's workers): 8 code_blocks launches per quality inter frame, 3 per
+fast one; per scene, one cdef_filter per nonzero preset of the keyframe's
+strength search (7 of the 8) and, where the chosen preset is not all
+zero, one for the keyframe and one per reference inter frame; none on the
+all-intra paths.  The scene batch's workers report their counts with each
+scene.  Phases 7 and 9 also hold bytes within 1% and PSNR-Y within 0.05
+dB of what these cells gave before the inter step's kernels (362,224 B
+and 41.471 dB; 104,684 B; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).
 
 The line before the last is the kernels' JSON record (launches summed over
-the timed runs, with the count of each path beside it); the last line is
-{"ok": true, "device": {...}}.  Imports nothing of JAX or av1tpu.
+the timed runs, with the count of each path beside it: transform_quantize,
+wave_luma16, wave_sub_chroma, code_blocks and cdef_filter); the last line
+is {"ok": true, "device": {...}}.  Imports nothing of JAX or av1tpu.
 """
 
 from __future__ import annotations
@@ -148,10 +169,9 @@ def _phase(name: str, t0: float) -> None:
 
 def kernel_wrappers() -> tuple:
     """The hand kernels' wrappers, each with its launch counter."""
-    from av1tpu_torch.kernels.intra_wave import wave_luma16, wave_sub_chroma
-    from av1tpu_torch.kernels.transform_quant import transform_quantize
+    from av1tpu_torch.kernels import hand_kernels
 
-    return transform_quantize, wave_luma16, wave_sub_chroma
+    return hand_kernels()
 
 
 def zero_launches() -> None:
@@ -179,6 +199,79 @@ def assert_wave(launches: dict, keyframes: int, h: int | None = None,
     want = keyframes * wave_diagonals(h or ROWS * 16, w or COLS * 16)
     got = (launches["wave_luma16"], launches["wave_sub_chroma"])
     assert got == (want, want), (got, want)
+
+
+# code_blocks launches per inter frame: the partitioned step codes luma and
+# the U+V stack at the 16 grid, the 8x8 split, the 32 merge and the 64
+# merge (models/inter_v.py:_inter_partition); the fast step codes Y, U and
+# V apart (encode_inter_v)
+CODER_SITES = {"quality": 8, "fast": 3}
+
+
+def cdef_search_launches() -> int:
+    """cdef_filter launches of one keyframe's strength search: one per
+    preset that is not all zero (an all-zero preset passes through)."""
+    from av1tpu_torch.models.cdef import CDEF_PRESETS
+
+    return int(sum(bool(p.any()) for p in CDEF_PRESETS))
+
+
+def coder_cdef_want(scenes, preset: str, layered: bool = False) -> dict:
+    """The launches of code_blocks and cdef_filter that a GOP encode's
+    scenes [(frames, chosen CDEF preset), ...] imply: every inter frame
+    codes CODER_SITES[preset] batches; each scene's strength search filters
+    once per nonzero preset, and where the chosen preset is not all zero,
+    the keyframe and every reference inter frame are filtered once (a
+    2-layer chunk's odd frames are no references)."""
+    code = cdef = 0
+    for n, chosen in scenes:
+        code += CODER_SITES[preset] * (n - 1)
+        refs = (n - 1) // 2 if layered else n - 1
+        cdef += cdef_search_launches() + (1 + refs) * bool(np.any(chosen))
+    return {"code_blocks": code, "cdef_filter": cdef}
+
+
+def assert_coder_cdef(launches: dict, want: dict) -> None:
+    got = {k: launches[k] for k in want}
+    assert got == want, (got, want)
+
+
+class ScenePlan:
+    """While encodes run in this process, each scene's frame count (the
+    segments of core/scenes.split_scenes) and its chosen CDEF preset
+    (models/cdef.select_strengths), in order."""
+
+    def __enter__(self):
+        from av1tpu_torch.core import scenes
+        from av1tpu_torch.models import cdef
+
+        self.segments: list = []
+        self.presets: list = []
+        self.saved = ((scenes, "split_scenes", scenes.split_scenes,
+                       self.segments.extend),
+                      (cdef, "select_strengths", cdef.select_strengths,
+                       self.presets.append))
+        for mod, name, fn, keep in self.saved:
+            setattr(mod, name, self._spy(fn, keep))
+        return self
+
+    @staticmethod
+    def _spy(fn, keep):
+        def spy(*a, **k):
+            out = fn(*a, **k)
+            keep(out)
+            return out
+        return spy
+
+    def __exit__(self, *exc):
+        for mod, name, fn, _ in self.saved:
+            setattr(mod, name, fn)
+
+    def scenes(self) -> list:
+        """[(frames, chosen preset)] of the scenes coded in this process."""
+        assert len(self.segments) == len(self.presets), (self.segments,
+                                                         self.presets)
+        return [(e - s, p) for (s, e), p in zip(self.segments, self.presets)]
 
 
 def moving_clip(w: int, h: int, n: int, seed: int, dy: int, dx: int):
@@ -405,7 +498,8 @@ def _timed_slice(torch, clip, name: str, partitions: bool):
     print(f"{name} warm-up: {time.perf_counter() - t:.3f} s", flush=True)
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
-    streams, stats = encode_clip(clip, QINDEX, **kw)
+    with ScenePlan() as plan:
+        streams, stats = encode_clip(clip, QINDEX, **kw)
     torch.cuda.synchronize()
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
@@ -417,6 +511,8 @@ def _timed_slice(torch, clip, name: str, partitions: bool):
     assert all(len(s) > 0 for s in streams)
     assert stats["scenes"] == 1, stats["scenes"]
     assert stats["psnr_y"] >= 30.0, stats["psnr_y"]
+    assert_coder_cdef(launches, coder_cdef_want(
+        plan.scenes(), "quality" if partitions else "fast"))
     return streams, stats, launches
 
 
@@ -474,6 +570,7 @@ def quality_slice_1080p(torch, clip, fast_stats):
                       inter_v.encode_gop_chunk_part)
 
     key_args: list = []
+    gop_args: list = []
 
     def key_spy(*a, **k):
         buf, recon = key_fn(*a, **k)
@@ -482,6 +579,8 @@ def quality_slice_1080p(torch, clip, fast_stats):
         return buf, recon
 
     def gop_spy(*a, **k):
+        if not gop_args:
+            gop_args.append((a, k))
         seen["golden"].add(k["gld_fused"].device.type)
         bufs, ref, mv = gop_fn(*a, **k)
         seen["carry"].add(ref.device.type)
@@ -503,7 +602,11 @@ def quality_slice_1080p(torch, clip, fast_stats):
           f"{stats['psnr_y']} vs {fast_stats['psnr_y']}, fps "
           f"{stats['encode_fps']} vs {fast_stats['encode_fps']}", flush=True)
     assert stats["bytes"] < fast_stats["bytes"]
-    return launches, key_args[-1]
+    # this cell before the inter step's kernels (NVIDIA H100 80GB HBM3,
+    # 700.00 W; PERF.md): they may flip a near-tie, not move the stream
+    assert abs(stats["bytes"] - 362224) <= 0.01 * 362224, stats["bytes"]
+    assert abs(stats["psnr_y"] - 41.471) <= 0.05, stats["psnr_y"]
+    return launches, key_args[-1], gop_args[0]
 
 
 def wave_bounds(n: int) -> dict:
@@ -683,6 +786,258 @@ def wave_vs_plain(torch, key_args) -> dict:
     return recs
 
 
+def code_bounds(b: int, n: int) -> tuple[float, str]:
+    """Least time of one code_blocks launch on b blocks of n x n, in us:
+    the larger of its float32 operations at the fp32 peak (per coded
+    coefficient the quantize's divide and add, rd_zero's seven and the
+    rate's add; the integer inverse, recon and SSEs are not counted) and
+    its bytes at the memory rate (coefficients, source and prediction read
+    once; levels, recon and three per-block floats written once; the
+    plane's rows read once)."""
+    nc = min(n, 32) ** 2
+    ops = b * nc * 10
+    nbytes = (4 * b * nc + 2 * 4 * b * n * n + 4 * b * nc + 4 * b * n * n
+              + 3 * 4 * b + 4 * (7 * nc + 256 + 2 + nc + 1))
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e6,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def cdef_bounds(h: int, w: int) -> tuple[float, str]:
+    """Least time of one cdef_filter launch on an h x w frame, in us: its
+    bytes at the memory rate (the three int32 planes read once and written
+    once, the skip map and the 90 direction weights read once).  All of
+    its work is integer, which no fp32 or tensor peak counts, so bytes
+    bound it."""
+    nbytes = 2 * 4 * (h * w * 3 // 2) + (h // 8) * (w // 8) + 4 * 90
+    return nbytes / PEAK_BYTES * 1e6, "bytes"
+
+
+@contextlib.contextmanager
+def plain_inter_kernels():
+    """Within the block the inter step's code_blocks and cdef_filter run
+    their plain versions (on the tensors' device, the card): the plain
+    side of a kernel-versus-plain comparison."""
+    from av1tpu_torch.kernels import cdef as kcdef
+    from av1tpu_torch.kernels import inter_code
+    from av1tpu_torch.models import inter_v
+
+    saved = (inter_v.code_blocks, kcdef.cdef_filter)
+    inter_v.code_blocks = inter_code.code_blocks_plain
+    kcdef.cdef_filter = kcdef.cdef_filter_plain
+    try:
+        yield
+    finally:
+        inter_v.code_blocks, kcdef.cdef_filter = saved
+
+
+def inter_vs_plain(torch, gop_args) -> dict:
+    """Phase 7c: the inter step's two kernels against their plain versions
+    on phase 7's first 1080p inter frame (its arguments caught by the GOP
+    spy).  (a) encode_inter_part with code_blocks and with its plain
+    version on the card from the same inputs: differing levels, and the
+    skip (a block's levels all zero), split and merge decisions, at most
+    0.1% of the blocks; the recon identical in every 16x16 block whose
+    decisions and levels agree.  (b) Each of the frame's 8 coder batches,
+    the kernel against the plain version on the same inputs: levels, recon
+    and SSE exact, rate and skip SSE within 1e-4; and the step's CDEF
+    input, cdef_filter against its plain version: every pixel equal.  (c)
+    The whole step both ways: its buffer and recon.  (d) Times: each batch
+    and the CDEF (device per launch queued behind a sleep, the plain
+    version's event time, the cuBLAS product's device time), with the
+    bounds.  Returns the two kernels' records for the JSON line."""
+    from av1tpu_torch.kernels import cdef as kcdef
+    from av1tpu_torch.kernels import inter_code
+    from av1tpu_torch.models import cdef as mcdef
+    from av1tpu_torch.models import inter_v
+    from av1tpu_torch.models.intra_v import unfuse
+    from av1tpu_torch.state import tables
+
+    (frames, ref, q, h, w), kw = gop_args[0][:5], gop_args[1]
+    bd, gate = kw["bit_depth"], kw["noise_gate"]
+    lf3 = tuple(int(x) for x in kw["lf"]) if any(kw["lf"]) else None
+    cdef_s = tuple(int(x) for x in kw["cdef_s"])
+    prev_mv = (kw["prev_mv"] if kw["prev_mv"] is not None else
+               torch.zeros((h // 16, w // 16, 2), dtype=torch.int32,
+                           device=ref.device))
+    y, u, v = unfuse(frames[0], h, w)
+    planes = (y, u, v, *unfuse(ref, h, w))
+    gld = dict(zip(("gld_y", "gld_u", "gld_v"),
+                   unfuse(kw["gld_fused"], h, w)))
+    print(f"inter frame: {w}x{h} q={q} lf={lf3} cdef={cdef_s} "
+          f"noise_gate={gate} bit_depth={bd}", flush=True)
+
+    # (a) the partition RDO, kernel vs plain, from the same inputs; the
+    # kernel run also catches each coder batch's inputs
+    sites = []
+    coder = inter_v.code_blocks
+
+    def catch(coefs, src, pred, plane):
+        sites.append((coefs, src, pred, plane))
+        return coder(coefs, src, pred, plane)
+
+    inter_v.code_blocks = catch
+    try:
+        ko = inter_v.encode_inter_part(*planes, q, bit_depth=bd,
+                                       prev_mv=prev_mv, noise_gate=gate,
+                                       **gld)
+    finally:
+        inter_v.code_blocks = coder
+    assert len(sites) == CODER_SITES["quality"], len(sites)
+    with plain_inter_kernels():
+        po = inter_v.encode_inter_part(*planes, q, bit_depth=bd,
+                                       prev_mv=prev_mv, noise_gate=gate,
+                                       **gld)
+    torch.cuda.synchronize()
+    assert torch.equal(ko["mv"], po["mv"]) and torch.equal(ko["ref16"],
+                                                           po["ref16"])
+    rows, cols = h // 16, w // 16
+    level_diff = {k: int((ko[k] != po[k]).sum()) for k in (
+        "lv16", "lu8", "lv8", "lv32", "lu16", "lv16c", "lv64", "lu32",
+        "lv32c", "lv8y", "lu4", "lv4")}
+    max_level = max(int((ko[k].int() - po[k].int()).abs().max())
+                    for k in level_diff)
+
+    def per16(a, f):
+        """A per-f-grid map (r/f, c/f) at the 16 grid."""
+        return a.repeat_interleave(f, 0).repeat_interleave(f, 1)
+
+    agree = torch.ones((rows, cols), dtype=torch.bool, device=y.device)
+    decisions = {}
+    for name, f in (("split16", 1), ("split32", 2), ("split64", 4)):
+        d = ko[name] != po[name]
+        decisions[name] = int(d.sum())
+        agree &= ~per16(d, f)
+    skip_diff = 0
+    for f, names in ((1, ("lv16", "lu8", "lv8")),
+                     (2, ("lv32", "lu16", "lv16c")),
+                     (4, ("lv64", "lu32", "lv32c"))):
+        zk = torch.stack([(ko[n] == 0).flatten(2).all(2) for n in names]
+                         ).all(0)
+        zp = torch.stack([(po[n] == 0).flatten(2).all(2) for n in names]
+                         ).all(0)
+        skip_diff += int((zk != zp).sum())
+        for n in names:
+            agree &= ~per16((ko[n] != po[n]).flatten(2).any(2), f)
+    for n, sub in (("lv8y", 2), ("lu4", 2), ("lv4", 2)):
+        d = (ko[n] != po[n]).flatten(2).any(2)
+        agree &= ~d.reshape(rows, sub, cols, sub).any(3).any(1)
+    decisions["skip"] = skip_diff
+    recon_mismatch = 0
+    for n, b in (("recon_y", 16), ("recon_u", 8), ("recon_v", 8)):
+        d = (ko[n] != po[n]).reshape(rows, b, cols, b).any(3).any(1)
+        recon_mismatch += int((d & agree).sum())
+    print(f"inter same-input: blocks={rows * cols} decisions differ "
+          f"{decisions}, levels differ {level_diff} (max |diff| "
+          f"{max_level}), blocks whose decisions and levels agree "
+          f"{int(agree.sum())}, recon mismatches among them "
+          f"{recon_mismatch}", flush=True)
+    assert recon_mismatch == 0, recon_mismatch
+    assert sum(decisions.values()) <= rows * cols // 1000, decisions
+
+    # (b) each batch on identical inputs, and the step's CDEF input
+    site_err = {"levels": 0, "rate_rel": 0.0, "dskip_rel": 0.0}
+    for coefs, src, pred, plane in sites:
+        got = inter_code.code_blocks(coefs, src, pred, plane)
+        want = inter_code.code_blocks_plain(coefs, src, pred, plane)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got[:3], want[:3])), (
+            plane.n, plane.dq_shift)
+        for i, key in ((3, "rate_rel"), (4, "dskip_rel")):
+            rel = float(((got[i] - want[i]).abs()
+                         / want[i].abs().clamp(min=1.0)).max())
+            assert rel <= 1e-4, (key, rel)
+            site_err[key] = max(site_err[key], rel)
+    caught = []
+    cdef_fn = mcdef.cdef_planes
+
+    def catch_cdef(*a):
+        caught.append(a)
+        return cdef_fn(*a)
+
+    mcdef.cdef_planes = catch_cdef
+    try:
+        kbuf, kref, _ = inter_v._gop_step_part_body(
+            frames[0], ref, q, h, w, 1 << 20, lf3, cdef_s, kw["gld_fused"],
+            prev_mv, gate, bd)
+    finally:
+        mcdef.cdef_planes = cdef_fn
+    cy, cu, cv, skip8 = (x.contiguous() for x in caught[0][:4])
+    # an all-zero preset launches nothing: compare at the strongest then
+    strengths = cdef_s if any(cdef_s) else tuple(
+        int(x) for x in mcdef.CDEF_PRESETS[-1])
+    cargs = (cy.to(torch.int32), cu.to(torch.int32), cv.to(torch.int32),
+             skip8, *strengths, 3, bd)
+    ck = kcdef.cdef_filter(*cargs)
+    cp = kcdef.cdef_filter_plain(*cargs)
+    torch.cuda.synchronize()
+    cdef_err = max(int((a - b).abs().max()) for a, b in zip(ck, cp))
+    cdef_px = sum(int((a != b).sum()) for a, b in zip(ck, cp))
+    print(f"coder batches on identical inputs: {len(sites)} sites, levels, "
+          f"recon and SSE equal, rate max rel err {site_err['rate_rel']:.3g}, "
+          f"skip SSE {site_err['dskip_rel']:.3g}; cdef_filter vs plain on the "
+          f"step's input: {cdef_px} pixels differ (max |diff| {cdef_err}), "
+          f"skipped units {int(skip8.sum())} of {skip8.numel()}", flush=True)
+    assert cdef_px == 0
+
+    # (c) the whole step both ways
+    with plain_inter_kernels():
+        pbuf, pref, _ = inter_v._gop_step_part_body(
+            frames[0], ref, q, h, w, 1 << 20, lf3, cdef_s, kw["gld_fused"],
+            prev_mv, gate, bd)
+    torch.cuda.synchronize()
+    n = min(kbuf.numel(), pbuf.numel())
+    print(f"inter step kernels vs plain: buffer elements differ "
+          f"{int((kbuf[:n] != pbuf[:n]).sum())} of {n}, recon pixels "
+          f"differ {int((kref != pref).sum())} of {kref.numel()}",
+          flush=True)
+
+    # (d) times, per launch and per frame
+    T = tables(y.device)
+    recs = {"code_blocks": {"per_site": {}}, "cdef_filter": {}}
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "cublas_ms": 0.0}
+    for coefs, src, pred, plane in sites:
+        b, nn = src.shape[0], plane.n
+        key = f"{nn}x{nn}/{plane.dq_shift}/{b}"
+        resid = (src - pred).reshape(b, -1).to(torch.float32)
+        fwdt = T.fwd64t() if nn == 64 else T.fwdt(nn, 0)
+        dev_us = device_us(torch, lambda: inter_code.code_blocks(
+            coefs, src, pred, plane), 100)
+        plain = _median_ms(torch, lambda: inter_code.code_blocks_plain(
+            coefs, src, pred, plane), n=5)
+        mm_us = device_us(torch, lambda: resid @ fwdt, 100)
+        bound, by = code_bounds(b, nn)
+        recs["code_blocks"]["per_site"][key] = {
+            "device_us": dev_us, "plain_ms": plain, "cublas_us": mm_us,
+            "bound_us": bound, "bound_by": by}
+        print(f"code_blocks {key}: device {dev_us:.3f} us, plain "
+              f"{plain:.3f} ms, cuBLAS product {mm_us:.3f} us, bound "
+              f"{bound:.4f} us ({by}, roofline {bound / dev_us:.4f})",
+              flush=True)
+        tot["ms"] += dev_us / 1e3
+        tot["plain_ms"] += plain
+        tot["bound_ms"] += bound / 1e3
+        tot["cublas_ms"] += mm_us / 1e3
+    recs["code_blocks"].update(
+        ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+        bound_by="bytes", cublas_ms=tot["cublas_ms"], max_abs_err=max_level,
+        decisions_differ=decisions, rate_max_rel_err=site_err["rate_rel"],
+        dskip_max_rel_err=site_err["dskip_rel"])
+    dev_us = device_us(torch, lambda: kcdef.cdef_filter(*cargs), 100)
+    plain = _median_ms(torch, lambda: kcdef.cdef_filter_plain(*cargs), n=5)
+    bound, by = cdef_bounds(h, w)
+    recs["cdef_filter"].update(
+        ms=dev_us / 1e3, plain_ms=plain, bound_ms=bound / 1e3, bound_by=by,
+        max_abs_err=cdef_err, pixels_differ=cdef_px)
+    print(f"code_blocks per inter frame ({len(sites)} launches): device "
+          f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.3f} ms, cuBLAS "
+          f"products {tot['cublas_ms']:.4f} ms, bound {tot['bound_ms']:.5f} "
+          f"ms; cdef_filter {w}x{h}: device {dev_us:.3f} us, plain "
+          f"{plain:.3f} ms, bound {bound:.4f} us ({by}, roofline "
+          f"{bound / dev_us:.4f})", flush=True)
+    return recs
+
+
 def run_cli(argv: list) -> tuple[list, dict]:
     """av1tpu_torch.cli.main(argv) with its standard output captured and
     echoed: (progress records, stats record)."""
@@ -737,7 +1092,8 @@ def daemon_1080p(torch, y4m: str, tmp: str):
     inter_v.encode_gop_chunk_part = gop_spy
     try:
         zero_launches()
-        progress, stats = run_cli(_daemon_argv(y4m, ivf))
+        with ScenePlan() as plan:
+            progress, stats = run_cli(_daemon_argv(y4m, ivf))
         torch.cuda.synchronize()
         launches = read_launches()
     finally:
@@ -754,7 +1110,11 @@ def daemon_1080p(torch, y4m: str, tmp: str):
     assert stats["frames"] == ivf_frames(ivf) == CLI_FRAMES
     assert launches["transform_quantize"] == COLS * stats["scenes"], launches
     assert_wave(launches, stats["scenes"])
+    assert_coder_cdef(launches, coder_cdef_want(plan.scenes(), "quality"))
     assert all(v == {"cuda"} for v in seen.values()), seen
+    # this cell before the inter step's kernels (NVIDIA H100 80GB HBM3,
+    # 700.00 W; PERF.md)
+    assert abs(stats["bytes"] - 104684) <= 0.01 * 104684, stats["bytes"]
     return launches, stats
 
 
@@ -786,7 +1146,8 @@ def layered_1080p(torch, y4m: str, tmp: str, daemon_stats):
     """Phase 10.  Returns the launches."""
     ivf = os.path.join(tmp, "layered.ivf")
     zero_launches()
-    _, stats = run_cli(_daemon_argv(y4m, ivf, "--layers", "2"))
+    with ScenePlan() as plan:
+        _, stats = run_cli(_daemon_argv(y4m, ivf, "--layers", "2"))
     torch.cuda.synchronize()
     launches = read_launches()
     print(f"layers 2: fps={stats['encode_fps']} bytes={stats['bytes']} "
@@ -799,6 +1160,8 @@ def layered_1080p(torch, y4m: str, tmp: str, daemon_stats):
     assert ivf_frames(ivf) == CLI_FRAMES
     assert launches["transform_quantize"] == COLS * stats["scenes"], launches
     assert_wave(launches, stats["scenes"])
+    assert_coder_cdef(launches, coder_cdef_want(plan.scenes(), "quality",
+                                                layered=True))
     return launches
 
 
@@ -827,6 +1190,7 @@ def all_intra_1080p(torch, y4m: str, tmp: str, preset: str):
     assert stats["frames"] == INTRA_FRAMES
     assert launches["transform_quantize"] == want, (launches, want)
     assert_wave(launches, 0)
+    assert_coder_cdef(launches, {"code_blocks": 0, "cdef_filter": 0})
     return launches
 
 
@@ -883,6 +1247,11 @@ class _BatchSpy:
             out = add_launches(out, r["launches"])
         return out
 
+    def scenes(self) -> list:
+        """[(frames, chosen CDEF preset)] of the scenes the workers coded
+        (coder_cdef_want's input)."""
+        return [(len(r["inter_bufs"]) + 1, r["cdef_s"]) for r in self.results]
+
     def where(self) -> dict:
         """{(device, pid): (scenes, peak bytes allocated)}."""
         out: dict = {}
@@ -931,6 +1300,8 @@ def batch_parity(torch, quality_runs) -> dict:
     assert s_b == s_gpu == s_cpu
     assert_wave(parent, 0)
     assert_wave(launches, st_b["scenes"], 64, 128)
+    assert_coder_cdef(parent, {"code_blocks": 0, "cdef_filter": 0})
+    assert_coder_cdef(launches, coder_cdef_want(spy.scenes(), "quality"))
     return launches
 
 
@@ -955,7 +1326,8 @@ def batch_1080p(torch) -> int:
         for workers in (1, 2):
             torch.cuda.reset_peak_memory_stats()
             zero_launches()
-            with _BatchSpy(gop, cli, devices, pool) as spy:
+            with _BatchSpy(gop, cli, devices, pool) as spy, \
+                    ScenePlan() as plan:
                 streams, stats = cli.encode_clip(clip, QINDEX,
                                                  workers=workers, **kw)
             torch.cuda.synchronize()
@@ -984,6 +1356,10 @@ def batch_1080p(torch) -> int:
             assert_wave(launches, stats["scenes"])
             if workers > 1:
                 assert_wave(parent, 0)
+                assert_coder_cdef(parent, {"code_blocks": 0,
+                                           "cdef_filter": 0})
+            assert_coder_cdef(launches, coder_cdef_want(
+                spy.scenes() if workers > 1 else plan.scenes(), "quality"))
             assert len(spy.results) == (2 if workers > 1 else 0)
             runs[workers] = (streams, stats, launches)
     (s1, st1, _), (s2, st2, launches) = runs[1], runs[2]
@@ -1123,10 +1499,10 @@ def card_encode(torch, name: str, argv_to, out_dir: str,
     Keeps in out_dir what a decode check needs: NAME.ivf, NAME_recon.npz
     (each frame's recon at the coded size, and its index) and NAME.json
     (the card, the launches, the stats).  Returns (stats, launches by
-    kernel)."""
+    kernel, [(frames, chosen CDEF preset)] per scene)."""
     ivf = os.path.join(out_dir, name + ".ivf")
     zero_launches()
-    with ReconSpy() as spy:
+    with ReconSpy() as spy, ScenePlan() as plan:
         _, stats = run_cli([*argv_to(ivf), "--chunk", "1", "--device",
                             device])
     if device == "cuda":
@@ -1141,7 +1517,7 @@ def card_encode(torch, name: str, argv_to, out_dir: str,
     with open(os.path.join(out_dir, name + ".json"), "w") as f:
         json.dump({"card": card_name() if device == "cuda" else device,
                    "launches": launches, "stats": stats}, f)
-    return stats, launches
+    return stats, launches, plan.scenes()
 
 
 def decode_check(tool: str, out_dir: str, name: str, tmp: str):
@@ -1217,7 +1593,7 @@ def container_daemon(torch, tmp: str, out_dir: str, tool, daemon,
         assert av1_tool(tool, "decode", target)["frames"] == n
 
     # the same command in this process, at chunk 1, with the recon spied
-    stats, launches = card_encode(
+    stats, launches, scenes = card_encode(
         torch, "daemon_command", lambda ivf: _daemon_argv(src, ivf, *extra),
         out_dir, device)
     print(f"daemon command on {device}, {w}x{h} {n} frames from "
@@ -1231,6 +1607,8 @@ def container_daemon(torch, tmp: str, out_dir: str, tool, daemon,
     # the quality preset's keyframe, one per scene, at the coded size
     assert_wave(launches, stats["scenes"] if on_card else 0,
                 (h + 63) & ~63, (w + 63) & ~63)
+    assert_coder_cdef(launches, coder_cdef_want(
+        scenes if on_card else [], "fast" if "fast" in extra else "quality"))
     if tool is not None:
         # the replaced file's video, remuxed to IVF, against this run's TUs
         remuxed = os.path.join(tmp, "replaced.ivf")
@@ -1258,7 +1636,7 @@ def container_1080p(torch, tmp: str, out_dir: str, tool,
     w, h, n = size
     y4m = os.path.join(tmp, "fast.y4m")
     write_y4m(y4m, synthetic_clip(w, h, n, seed=11))
-    stats, launches = card_encode(
+    stats, launches, scenes = card_encode(
         torch, "fast_1080p", lambda ivf: [
             "encode", "-i", y4m, "-o", ivf, "--qindex", str(QINDEX),
             "--preset", "fast"], out_dir, device)
@@ -1271,6 +1649,8 @@ def container_1080p(torch, tmp: str, out_dir: str, tool,
         3 * (COLS + ROWS - 1) * stats["scenes"] if device == "cuda" else 0), (
         launches)
     assert_wave(launches, 0)
+    assert_coder_cdef(launches, coder_cdef_want(
+        scenes if device == "cuda" else [], "fast"))
     if tool is not None:
         dec, diffs = decode_check(tool, out_dir, "fast_1080p", tmp)
         assert dec is not None
@@ -1326,12 +1706,18 @@ def main() -> int:
     _phase("quality_parity", t)
 
     t = time.perf_counter()
-    launches_quality, key_args = quality_slice_1080p(torch, clip, fast_stats)
+    launches_quality, key_args, gop_args = quality_slice_1080p(
+        torch, clip, fast_stats)
     _phase("quality_slice_1080p", t)
 
     t = time.perf_counter()
     wave_recs = wave_vs_plain(torch, key_args)
     _phase("wave_vs_plain", t)
+
+    t = time.perf_counter()
+    inter_recs = inter_vs_plain(torch, gop_args)
+    del gop_args
+    _phase("inter_vs_plain", t)
 
     t = time.perf_counter()
     modes_parity(torch)
@@ -1403,6 +1789,18 @@ def main() -> int:
                              "keyframe_bound_ms", "keyframe_ms",
                              "plain_keyframe_ms", "decisions_differ")}}
         for name, r in wave_recs.items()]
+    inter = [{
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces,
+        "launches": sum(path_counts(name).values()),
+        "launches_by_path": path_counts(name),
+        # no one PyTorch call computes either function
+        "library_ms": None, **inter_recs[name]}
+        for name, source, replaces in (
+            ("code_blocks", "av1tpu_torch/csrc/inter_code.cu",
+             "av1tpu/models/inter_v.py:1022"),
+            ("cdef_filter", "av1tpu_torch/csrc/cdef.cu",
+             "av1tpu/models/cdef_tpu.py:173"))]
     print(json.dumps({"kernels": [{
         "name": "transform_quantize", "route": "cuda",
         "source": "av1tpu_torch/csrc/transform_quant.cu",
@@ -1416,7 +1814,7 @@ def main() -> int:
         "bound_by": main_rec["bound_by"], "library_ms": None,
         **{k: dict(zip(shape_key, (r[k] for r in recs)))
            for k in ("device_us", "call_us", "host_us", "bound_us")}},
-        *wave], "metric_pass_ms": metric_ms}), flush=True)
+        *wave, *inter], "metric_pass_ms": metric_ms}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -200,3 +200,158 @@ def wave_tables_like(tabs, **changed):
     return WaveTables(lam=tabs.lam, lam_txd0=tabs.lam_txd0, gate=tabs.gate,
                       bit_depth=tabs.bit_depth,
                       **dict({k: getattr(tabs, k) for k in _SPEC}, **changed))
+
+
+# the inter coder's sites on the quality path: (n, plane type, the quant
+# rows' size, dq_shift), and the fast preset's two (no rate, no gate)
+CODER_SITES = ((16, 0, 16, 0), (8, 1, 8, 0), (8, 0, 8, 0), (4, 1, 4, 0),
+               (32, 0, 32, 1), (16, 1, 16, 0), (32, 1, 32, 1),
+               (64, 0, 32, 2))
+
+
+def _coder_case(dev, n, bd, b, seed, amp):
+    """b blocks of n x n int32 source and clipped prediction on dev, and
+    their forward product's coefficients."""
+    from av1tpu_torch.state import tables
+
+    rng = np.random.RandomState(seed)
+    pm = (1 << bd) - 1
+    src = torch.from_numpy(rng.randint(0, pm + 1, (b, n, n)).astype(np.int32))
+    pred = torch.clamp(src + torch.from_numpy(
+        rng.randint(-amp, amp + 1, (b, n, n)).astype(np.int32)), 0, pm)
+    src, pred = src.to(dev), pred.to(dev)
+    fwdt = tables(dev).fwd64t() if n == 64 else tables(dev).fwdt(n, 0)
+    coefs = (src - pred).reshape(b, -1).to(torch.float32) @ fwdt
+    return coefs, src, pred
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bd,q,gate", [(8, 72, 4.0), (8, 160, None),
+                                       (10, 40, 6.25)])
+def test_code_blocks_matches_plain(dev, bd, q, gate):
+    """code_blocks against its plain version on the card at every site:
+    levels, recon and the integer SSE exactly (the quantize and rd_zero are
+    written with the plain version's roundings); the rate and the skip SSE
+    are float32 sums in another order than PyTorch's, within 1e-4 of the
+    value (n * eps for the at most 1024 or 4096 positive terms)."""
+    from av1tpu_torch.kernels.inter_code import code_blocks, code_blocks_plain
+    from av1tpu_torch.models import inter_v
+
+    lam = inter_v.part_lambdas(q, bd, dev)[0]
+    fast = [(16, 0, 16, 0, None, False), (8, 1, 8, 0, None, False)]
+    for k, (n, pt, qn, sh, g, rate) in enumerate(
+            [s + (gate, True) for s in CODER_SITES] + fast):
+        plane = inter_v._coder(q, bd, dev, n, pt, qn, sh, lam, g, rate)
+        for amp in (4, 40, (1 << bd) - 1):
+            b = {4: 97, 8: 45, 16: 13}.get(n, 6)
+            coefs, src, pred = _coder_case(dev, n, bd, b, 10 * k + amp, amp)
+            before = code_blocks.launches
+            got = code_blocks(coefs, src, pred, plane)
+            torch.cuda.synchronize()
+            assert code_blocks.launches == before + 1
+            want = code_blocks_plain(coefs, src, pred, plane)
+            for i in range(3):
+                assert torch.equal(got[i], want[i]), (n, sh, amp, i)
+            for i in (3, 4) if rate else (4,):
+                torch.testing.assert_close(got[i], want[i], rtol=1e-4,
+                                           atol=0.0)
+
+
+@pytest.mark.cuda
+def test_code_blocks_rejects_bad_inputs(dev):
+    from av1tpu_torch.kernels.inter_code import CodePlane, code_blocks
+    from av1tpu_torch.models import inter_v
+
+    lam = inter_v.part_lambdas(72, 8, dev)[0]
+    plane = inter_v._coder(72, 8, dev, 16, 0, 16, 0, lam, None, True)
+    coefs, src, pred = _coder_case(dev, 16, 8, 4, 0, 20)
+    code_blocks(coefs, src, pred, plane)
+    with pytest.raises(TypeError):                  # float64 coefficients
+        code_blocks(coefs.double(), src, pred, plane)
+    with pytest.raises(ValueError):                 # on the CPU
+        code_blocks(coefs.cpu(), src.cpu(), pred.cpu(), plane)
+    with pytest.raises(ValueError):                 # not contiguous
+        code_blocks(coefs, src.transpose(1, 2), pred, plane)
+    with pytest.raises(ValueError):                 # another block count
+        code_blocks(coefs[:3].contiguous(), src, pred, plane)
+    with pytest.raises(ValueError):                 # no block
+        code_blocks(coefs[:0], src[:0], pred[:0], plane)
+    with pytest.raises(TypeError):                  # int16 prediction
+        code_blocks(coefs, src, pred.short(), plane)
+    # the bundle: a row of the wrong size, type or device
+    kw = dict(n=16, step=plane.step, q=plane.q, cap=plane.cap,
+              gains=plane.gains, tab=plane.tab, lam=lam, gate=None,
+              dq_shift=0, bit_depth=8)
+    CodePlane(**kw)
+    with pytest.raises(ValueError):
+        CodePlane(**dict(kw, step=plane.step[:64].contiguous()))
+    with pytest.raises(TypeError):
+        CodePlane(**dict(kw, q=plane.q.float()))
+    with pytest.raises(ValueError):
+        CodePlane(**dict(kw, gains=plane.gains.cpu()))
+    with pytest.raises(TypeError):
+        CodePlane(**dict(kw, lam=float(lam)))
+    with pytest.raises(ValueError):
+        CodePlane(**dict(kw, n=12))
+
+
+def _cdef_case(dev, bd, h, w, seed, skip_share):
+    rng = np.random.RandomState(seed)
+    pm = (1 << bd) - 1
+    base = np.repeat(np.repeat(rng.randint(0, pm + 1, (h // 4, w // 4)), 4,
+                               0), 4, 1)
+    y = np.clip(base + rng.randint(-9, 10, (h, w)), 0, pm)
+    u, v = (rng.randint(0, pm + 1, (h // 2, w // 2)) for _ in range(2))
+    skip8 = rng.rand(h // 8, w // 8) < skip_share
+    return [torch.from_numpy(a.astype(np.int32)).to(dev) for a in (y, u, v)
+            ] + [torch.from_numpy(skip8).to(dev)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bd", [8, 10])
+def test_cdef_filter_matches_plain(dev, bd):
+    """cdef_filter against its plain version on the card, bit for bit (all
+    integer): every strength preset of the search and the edge cases (a
+    secondary or chroma strength alone, the largest strengths), units at
+    the frame's edges (a 40x56 frame has no interior row of units), with
+    none, some and all units skipped."""
+    from av1tpu_torch.kernels.cdef import cdef_filter, cdef_filter_plain
+    from av1tpu_torch.models.cdef import CDEF_PRESETS
+
+    presets = [tuple(int(x) for x in p) for p in CDEF_PRESETS[1:]] + [
+        (0, 2, 0, 3), (1, 0, 0, 0), (0, 0, 5, 0), (15, 3, 15, 3)]
+    for h, w, seed in ((1088, 1920, 1), (40, 56, 2)):
+        for skip_share in (0.0, 0.3, 1.0):
+            y, u, v, sk = _cdef_case(dev, bd, h, w, seed, skip_share)
+            for p in presets:
+                before = cdef_filter.launches
+                got = cdef_filter(y, u, v, sk, *p, 3, bd)
+                torch.cuda.synchronize()
+                assert cdef_filter.launches == before + 1
+                want = cdef_filter_plain(y, u, v, sk, *p, 3, bd)
+                for g, wt in zip(got, want):
+                    assert torch.equal(g, wt), (h, w, skip_share, p)
+
+
+@pytest.mark.cuda
+def test_cdef_filter_rejects_bad_inputs(dev):
+    from av1tpu_torch.kernels.cdef import cdef_filter
+
+    y, u, v, sk = _cdef_case(dev, 8, 64, 64, 0, 0.3)
+    cdef_filter(y, u, v, sk, 4, 1, 3, 1)
+    with pytest.raises(ValueError):                 # all zero: no call
+        cdef_filter(y, u, v, sk, 0, 0, 0, 0)
+    with pytest.raises(ValueError):                 # a strength's range
+        cdef_filter(y, u, v, sk, 16, 1, 3, 1)
+    with pytest.raises(TypeError):                  # int16 luma
+        cdef_filter(y.short(), u, v, sk, 4, 1, 3, 1)
+    with pytest.raises(TypeError):                  # an int8 skip map
+        cdef_filter(y, u, v, sk.to(torch.int8), 4, 1, 3, 1)
+    with pytest.raises(ValueError):                 # the chroma's shape
+        cdef_filter(y, u[:16].contiguous(), v, sk, 4, 1, 3, 1)
+    with pytest.raises(ValueError):                 # not a multiple of 8
+        cdef_filter(y[:60].contiguous(), u, v, sk, 4, 1, 3, 1)
+    with pytest.raises(ValueError):                 # mixed devices
+        cdef_filter(y, u.cpu(), v, sk, 4, 1, 3, 1)
+    with pytest.raises(ValueError):                 # not contiguous
+        cdef_filter(y.t().contiguous().t(), u, v, sk, 4, 1, 3, 1)

@@ -1,6 +1,7 @@
 """Port parity for the loop filters and the keyframe temporal filter:
 deblock_planes (uniform grid and the split16 branch), edge_gates_j,
-cdef_planes, the CDEF strength search, the split-aware skip maps and
+cdef_planes and the cdef_filter kernel's wrapper (edge units, all units
+skipped), the CDEF strength search, the split-aware skip maps and
 temporal_filter_key of av1tpu_torch equal av1tpu's (filtered pixels bit
 for bit, noise sigmas to rtol 1e-6)."""
 
@@ -20,6 +21,7 @@ from av1tpu.models.deblock_tpu import deblock_tpu
 from av1tpu.models.intra_v import fuse_planes
 from av1tpu.models.tfilter import temporal_filter_key as jax_tf
 from av1tpu.utils.yuv import synthetic_clip
+from av1tpu_torch.kernels.cdef import cdef_filter
 from av1tpu_torch.models import cdef, deblock, tfilter
 from av1tpu_torch.models.intra_v import encode_intra_v
 from tests.test_inter_pipeline import moving_clip
@@ -149,8 +151,39 @@ def test_cdef_planes_matches_jax(bit_depth, strengths):
     got = cdef.cdef_planes(*(torch.from_numpy(p) for p in rec),
                            torch.from_numpy(skip8), *strengths, 3,
                            bit_depth)
-    for g, w in zip(got, want):
+    # cdef_planes is kernels/cdef.py:cdef_filter for a preset that is not
+    # all zero; its wrapper on CPU tensors runs the plain version
+    direct = cdef_filter(*(torch.from_numpy(p) for p in rec),
+                         torch.from_numpy(skip8), *strengths, 3, bit_depth)
+    for g, d, w in zip(got, direct, want):
         assert np.array_equal(g.numpy(), np.asarray(w))
+        assert torch.equal(d, g)
+
+
+@pytest.mark.parametrize("bit_depth,strengths,frame,skip_share", [
+    (8, (12, 3, 9, 3), (16, 24), 0.0), (10, (6, 2, 4, 1), (24, 16), 0.3),
+    (8, (4, 1, 3, 1), (64, 128), 1.0)])
+def test_cdef_filter_edges_and_skips_match_jax(bit_depth, strengths, frame,
+                                               skip_share):
+    """cdef_filter's wrapper (the plain version on the CPU) against the
+    reference on frames whose every 8x8 unit touches an edge (the taps
+    read CDEF_VERY_LARGE outside), and with every unit skipped (the planes
+    pass through)."""
+    h, w = frame
+    rec, _ = _recon(bit_depth, 120, seed=9)
+    rec = [np.ascontiguousarray(rec[0][:h, :w])] + [
+        np.ascontiguousarray(p[: h // 2, : w // 2]) for p in rec[1:]]
+    skip8 = np.random.RandomState(4).rand(h // 8, w // 8) < skip_share
+    want = cdef_tpu(*(jnp.asarray(p) for p in rec), jnp.asarray(skip8),
+                    *strengths, bit_depth=bit_depth)
+    got = cdef_filter(*(torch.from_numpy(p) for p in rec),
+                      torch.from_numpy(skip8), *strengths, 3, bit_depth)
+    for g, wt, p in zip(got, want, rec):
+        assert np.array_equal(g.numpy(), np.asarray(wt))
+        if skip_share == 1.0:
+            assert np.array_equal(g.numpy(), p)
+    if skip_share == 0.0:
+        assert not np.array_equal(got[0].numpy(), rec[0])   # it filtered
 
 
 @pytest.mark.parametrize("q", [60, 200])

@@ -259,21 +259,26 @@ def test_compare_reports_what_differs(monkeypatch):
 
 def test_scene_worker_reports_its_launches(monkeypatch):
     """A scene-batch worker's result carries the hand kernels' launches of
-    its scene (counted here by making the plain pair count as the kernels
-    would): one of each wavefront kernel per keyframe diagonal.  A
-    one-frame 16x64 scene: its keyframe, CDEF search and filter, no inter
-    step."""
+    its scene (counted here by making the plain versions count as the
+    kernels would): one of each wavefront kernel per keyframe diagonal, and
+    one CDEF filter per nonzero preset of the strength search plus the
+    keyframe's, where its chosen preset is not all zero.  A one-frame
+    16x64 scene: its keyframe, CDEF search and filter, no inter step."""
+    from av1tpu_torch.kernels import cdef as KC
+    from av1tpu_torch.models.cdef import CDEF_PRESETS
     from av1tpu_torch.models.intra_v import fuse_planes
     from av1tpu_torch.parallel import gop
 
-    for name, wrapper in (("wave_luma16_plain", K.wave_luma16),
-                          ("wave_sub_chroma_plain", K.wave_sub_chroma)):
-        fn = getattr(K, name)
+    for mod, name, wrapper in (
+            (K, "wave_luma16_plain", K.wave_luma16),
+            (K, "wave_sub_chroma_plain", K.wave_sub_chroma),
+            (KC, "cdef_filter_plain", KC.cdef_filter)):
+        fn = getattr(mod, name)
 
         def counted(*a, _fn=fn, _w=wrapper, **k):
             _w.launches += 1
             return _fn(*a, **k)
-        monkeypatch.setattr(K, name, counted)
+        monkeypatch.setattr(mod, name, counted)
     c = synthetic_clip(64, 16, 1, seed=9)
     frames = fuse_planes(c.y[0], c.u[0], c.v[0])[None]
     scene = {"frames": torch.from_numpy(frames), "q": 100, "key_q": 80,
@@ -282,6 +287,9 @@ def test_scene_worker_reports_its_launches(monkeypatch):
                             8192, False, lambda b: gop.key_skip8(b, 16, 64),
                             0.3)
     nd = M.wave_diagonals(16, 64)
-    assert res["launches"] == {"transform_quantize": 0, "wave_luma16": nd,
-                               "wave_sub_chroma": nd}
+    searched = int(sum(bool(p.any()) for p in CDEF_PRESETS))
+    assert res["launches"] == {
+        "transform_quantize": 0, "wave_luma16": nd, "wave_sub_chroma": nd,
+        "code_blocks": 0,
+        "cdef_filter": searched + bool(np.any(res["cdef_s"]))}
     assert res["inter_bufs"] == []

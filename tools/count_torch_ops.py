@@ -10,27 +10,64 @@ the frame size (only the tensors grow), so they are counted here on a
 128x192 frame with torch's dispatch mode (the probe's count does grow with
 the frame's block rows and columns, and is given for this size only):
 every aten operation, split into those that only make a view (no device
-work) and the rest (each launches at least one kernel on a GPU).  Prints one JSON line.  These are counts of
-what the program does, not device measurements.
+work) and the rest (each launches at least one kernel on a GPU).
+
+Each count is given twice: "plain", what the CPU runs (every hand kernel's
+plain version, operation by operation), and "card", what the card runs,
+where each call of a hand kernel's wrapper is one operation, its launch
+(the plain version then runs uncounted; the wrapper's output allocations
+are not counted).  The inter frames' "card" counts are also split by the
+port function that dispatched them (the innermost av1tpu_torch function on
+the stack; a function's count excludes its callees').  Prints one JSON
+line.  These are counts of what the program does, not device measurements.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import sys
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+PKG = os.path.join(REPO, "av1tpu_torch") + os.sep
 
 VIEW_OPS = ("view", "reshape", "expand", "permute", "transpose", "slice",
             "select", "unsqueeze", "squeeze", "alias", "as_strided", "t.",
             "unbind", "split", "detach", "_unsafe_view", "unfold")
 
+# (module, plain version the wrapper calls on the CPU, kernel name)
+KERNEL_PLAINS = (
+    ("av1tpu_torch.kernels.transform_quant", "transform_quantize_ref",
+     "transform_quantize"),
+    ("av1tpu_torch.kernels.intra_wave", "wave_luma16_plain", "wave_luma16"),
+    ("av1tpu_torch.kernels.intra_wave", "wave_sub_chroma_plain",
+     "wave_sub_chroma"),
+    ("av1tpu_torch.kernels.inter_code", "code_blocks_plain", "code_blocks"),
+    ("av1tpu_torch.kernels.cdef", "cdef_filter_plain", "cdef_filter"))
+
+
+def _caller() -> str:
+    """models/inter_v.py:_code_nn for the innermost port function on the
+    stack."""
+    f = sys._getframe(2)
+    while f is not None:
+        name = f.f_code.co_filename
+        if name.startswith(PKG):
+            return f"{name[len(PKG):]}:{f.f_code.co_name}"
+        f = f.f_back
+    return "(outside the port)"
+
 
 def main() -> int:
+    import importlib
+
     import numpy as np
     import torch
-    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._python_dispatch import (
+        TorchDispatchMode, _disable_current_modes,
+    )
 
     from av1tpu_torch.models import inter_v, intra_part, intra_wave
     from av1tpu_torch.models.intra_v import fuse_planes
@@ -40,6 +77,7 @@ def main() -> int:
         def __init__(self):
             super().__init__()
             self.views = self.work = 0
+            self.by_fn = collections.Counter()
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             name = func.name().split("::")[-1]
@@ -47,12 +85,41 @@ def main() -> int:
                 self.views += 1
             else:
                 self.work += 1
+                self.by_fn[_caller()] += 1
             return func(*args, **(kwargs or {}))
 
-    def counted(fn):
-        with Count() as c:
-            fn()
-        return {"work": c.work, "views": c.views}
+    active: list = []
+
+    def as_launch(fn, kernel):
+        """fn run uncounted, counted as one kernel launch."""
+        def launch(*a, **k):
+            with _disable_current_modes():
+                out = fn(*a, **k)
+            c = active[-1]
+            c.work += 1
+            c.by_fn[f"kernel {kernel}"] += 1
+            return out
+        return launch
+
+    def counted(fn, card: bool, split: bool = False):
+        saved = []
+        if card:
+            for mod_name, plain, kernel in KERNEL_PLAINS:
+                mod = importlib.import_module(mod_name)
+                saved.append((mod, plain, getattr(mod, plain)))
+                setattr(mod, plain, as_launch(getattr(mod, plain), kernel))
+        try:
+            with Count() as c:
+                active.append(c)
+                fn()
+        finally:
+            active.clear()
+            for mod, plain, f in saved:
+                setattr(mod, plain, f)
+        out = {"work": c.work, "views": c.views}
+        if split:
+            out["by_function"] = dict(c.by_fn.most_common())
+        return out
 
     h, w = 128, 192
     clip = synthetic_clip(w, h, 3, seed=11)
@@ -63,20 +130,28 @@ def main() -> int:
     ref = torch.cat([p.reshape(-1) for p in planes[0]])
     nd = 2 * (h // 16 - 1) + w // 16
     out = {"frame": [h, w], "diagonals": nd}
-    key = counted(lambda: intra_wave.encode_intra_wave(*planes[0], 72,
-                                                       lam_scale=0.3))
-    out["wave_keyframe_per_diagonal"] = {k: round(v / nd) for k, v in
-                                         key.items()}
-    out["probe_frame_128x192"] = counted(lambda: intra_part.encode_intra_part(
-        *planes[0], 72))
-    out["inter_frame_fast"] = counted(lambda: inter_v._gop_step_body(
-        fused[1], ref, 72, h, w, 1 << 20, (9, 4, 4), (2, 1, 2, 1)))
-    out["inter_frame_quality"] = counted(
-        lambda: inter_v._gop_step_part_body(
+
+    def fast():
+        inter_v._gop_step_body(fused[1], ref, 72, h, w, 1 << 20, (9, 4, 4),
+                               (2, 1, 2, 1))
+
+    def quality():
+        inter_v._gop_step_part_body(
             fused[1], ref, 72, h, w, 1 << 20, (9, 4, 4), (2, 1, 2, 1),
             gld_fused=ref,
             prev_mv=torch.zeros((h // 16, w // 16, 2), dtype=torch.int32),
-            noise_gate=4.0))
+            noise_gate=4.0)
+
+    for mode, card in (("plain", False), ("card", True)):
+        key = counted(lambda: intra_wave.encode_intra_wave(
+            *planes[0], 72, lam_scale=0.3), card)
+        out[mode] = {
+            "wave_keyframe_per_diagonal": {k: round(v / nd)
+                                           for k, v in key.items()},
+            "probe_frame_128x192": counted(
+                lambda: intra_part.encode_intra_part(*planes[0], 72), card),
+            "inter_frame_fast": counted(fast, card, split=card),
+            "inter_frame_quality": counted(quality, card, split=True)}
     print(json.dumps(out))
     return 0
 

@@ -41,7 +41,8 @@ REPO = os.path.dirname(PKG)
 BUILD_DIR = os.path.join(PKG, "_build")
 CUDA_SOURCES = tuple(os.path.join(PKG, "csrc", f)
                      for f in ("transform_quant.cu", "intra_wave.cu",
-                               "inter_code.cu", "cdef.cu"))
+                               "inter_code.cu", "cdef.cu", "deblock.cu",
+                               "motion.cu"))
 # headers the sources include: a change rebuilds, nothing compiles them alone
 CUDA_HEADERS = (os.path.join(PKG, "csrc", "itx.cuh"),)
 PACK_SOURCES = (os.path.join(REPO, "native", "coding", "pack.cpp"),
@@ -152,6 +153,21 @@ def cuda_lib() -> ctypes.CDLL:
         # damping, coeff_shift, out y, u, v, stream
         "av1_cdef_filter": [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
                             ci, vp, vp, vp, vp],
+        # in, out, h, w, luma, vertical, edge_on, split16, limit, blimit,
+        # thresh, bit_depth, stream
+        "av1_deblock_edges": [vp, vp, ci, ci, ci, ci, vp, vp, ci, ci, ci, ci,
+                              vp],
+        # kind, h, w (returns int32 words)
+        "av1_motion_ws_words": [ci, ci, ci],
+        # y, ref, h, w, bias (host), margin, ws, coarse, coarse2, shifts4,
+        # stream
+        "av1_coarse_search": [vp, vp, ci, ci, vp, cf, vp, vp, vp, vp, vp],
+        # y, ref, h, w, shifts4, zeroed ws, vol, sad_g, c0, g_full, stream
+        "av1_global_search": [vp, vp, ci, ci, vp, vp, vp, vp, vp, vp, vp],
+        # y, ref, h, w, base0, base1, base2, c0, g_full, sad_g, unit_r,
+        # unit_s, m14, pix_max, taps (host), tot, out, pred, stream
+        "av1_refine_subpel": [vp, vp, ci, ci, vp, vp, vp, vp, vp, vp, cf, cf,
+                              cf, ci, vp, vp, vp, vp, vp],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

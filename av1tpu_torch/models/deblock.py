@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from av1tpu_torch.kernels.deblock import deblock_edges
+
 
 def _thresholds(lvl: int, sharpness: int):
     """Filter thresholds of a host-int level."""
@@ -278,14 +280,6 @@ def _deblock_plane_v(plane, nblk: int, edge_on, limit, blimit, thresh, bd,
     return new.reshape(h, w)
 
 
-def _deblock_plane(plane, nblk: int, v_on, h_on, limit, blimit, thresh,
-                   bd, luma: bool):
-    p = _deblock_plane_v(plane, nblk, v_on, limit, blimit, thresh, bd, luma)
-    pt = _deblock_plane_v(p.T.contiguous(), nblk, h_on, limit, blimit,
-                          thresh, bd, luma)
-    return pt.T.contiguous()
-
-
 def deblock_planes(y, u, v, v_on16, h_on16, lvl_y: int, lvl_u: int,
                    lvl_v: int, sharpness: int = 0, bit_depth: int = 8,
                    split16=None):
@@ -300,47 +294,19 @@ def deblock_planes(y, u, v, v_on16, h_on16, lvl_y: int, lvl_u: int,
     edge).  Per plane all vertical edges come before all horizontal ones,
     and within a direction the interior passes run first: with the caps
     every edge's read/modify region is disjoint from the outer passes'
-    regions, so this equals the sequential in-place edge walk."""
+    regions, so this equals the sequential in-place edge walk.
 
-    def ex(a, n):  # block-edge map -> per-line map
-        return torch.repeat_interleave(a, n, dim=0)
-
-    if split16 is not None:
-        s = split16.to(torch.bool)
-        cap_v = ~(s[:, 1:] | s[:, :-1])        # (rows, cols-1)
-        cap_h = ~(s[1:, :] | s[:-1, :])        # (rows-1, cols)
-        out = []
-        for plane, lvl, nblk, luma in ((y, lvl_y, 16, True),
-                                       (u, lvl_u, 8, False),
-                                       (v, lvl_v, 8, False)):
-            if lvl <= 0:
-                out.append(plane)
-                continue
-            li, bl, th = _thresholds(lvl, sharpness)
-            inner = _filter_luma8_lines if luma else _filter_chroma4_lines
-
-            def filt(w, inner=inner, li=li, bl=bl, th=th):
-                return inner(w, li, bl, th, bit_depth)
-
-            geo = (16, 8, 4, 3) if luma else (8, 4, 2, 2)
-            p = _deblock_interior_v(plane, *geo, ex(s, nblk), filt)
-            p = _deblock_plane_v(p, nblk, ex(v_on16, nblk), li, bl, th,
-                                 bit_depth, luma, allow14=ex(cap_v, nblk))
-            p = p.T.contiguous()
-            p = _deblock_interior_v(p, *geo, ex(s.T, nblk), filt)
-            p = _deblock_plane_v(p, nblk, ex(h_on16.T, nblk), li, bl, th,
-                                 bit_depth, luma, allow14=ex(cap_h.T, nblk))
-            out.append(p.T.contiguous())
-        return tuple(out)
-
+    Each direction of each plane whose level is above 0 is one call of
+    kernels/deblock.py:deblock_edges (on the card, one kernel launch)."""
+    s = split16.to(torch.bool) if split16 is not None else None
     out = []
-    for plane, lvl, nblk, luma in ((y, lvl_y, 16, True), (u, lvl_u, 8, False),
-                                   (v, lvl_v, 8, False)):
+    for plane, lvl, luma in ((y, lvl_y, True), (u, lvl_u, False),
+                             (v, lvl_v, False)):
         if lvl <= 0:
             out.append(plane)
             continue
-        li, bl, th = _thresholds(lvl, sharpness)
-        out.append(_deblock_plane(plane, nblk, ex(v_on16, nblk),
-                                  ex(h_on16.T, nblk), li, bl, th, bit_depth,
-                                  luma))
+        p = deblock_edges(plane, v_on16, lvl, sharpness,
+                          bit_depth, luma, True, s)
+        out.append(deblock_edges(p, h_on16, lvl, sharpness, bit_depth, luma,
+                                 False, s))
     return tuple(out)

@@ -41,6 +41,9 @@ import numpy as np
 import torch
 
 from av1tpu_torch.kernels.inter_code import CodePlane, code_blocks
+from av1tpu_torch.kernels.motion import (
+    coarse_search, global_search, refine_subpel,
+)
 from av1tpu_torch.models.intra_v import (
     LAM_PIX, _plane_params, ac_squared, fold_consts, from_blocks, log2_rate,
     pack_bits, plane_params_np, rep2d, sig_bitmap, stable_partition,
@@ -77,6 +80,14 @@ def _edge_pad(x: torch.Tensor, p: int) -> torch.Tensor:
     ri = torch.clamp(torch.arange(-p, h + p, device=x.device), 0, h - 1)
     ci = torch.clamp(torch.arange(-p, w + p, device=x.device), 0, w - 1)
     return x[..., ri, :][..., ci]
+
+
+def _exact_total(sads: torch.Tensor, dims) -> torch.Tensor:
+    """Frame totals of integer-valued block SADs over dims: the exact
+    integer sum, rounded once to float32.  (A float32 sum depends on its
+    order once it passes 2^24, as a 1080p frame's totals do; the exact sum
+    is the same on every device and in the hand kernels' 64-bit atomics.)"""
+    return sads.sum(dim=dims, dtype=torch.int64).to(torch.float32)
 
 
 def _mv_bias(m: np.ndarray, lam: np.float32) -> np.ndarray:
@@ -127,7 +138,7 @@ def _coarse_search(src_q: torch.Tensor, ref_q: torch.Tensor, lam: np.float32,
 
     # coherence snap to the frame-dominant shift where nearly as good
     all_sad = torch.stack(sad_cols, 1)                    # (dy, dx, r, c)
-    totals = all_sad.sum(dim=(2, 3))
+    totals = _exact_total(all_sad, (2, 3))
     g = torch.argmin(totals.reshape(-1))
     g_dy, g_dx = g // nd, g % nd
     sad_g = all_sad.reshape(nd * nd, rows, cols)[g]
@@ -222,8 +233,10 @@ def _global_full(src: torch.Tensor, ref: torch.Tensor,
     coarse global candidates and zero, then two descent steps from the
     running winner, judged by whole-plane SAD.  Returns (c0 (2,) 4-px
     base, g_full (2,), sad_g (rows, cols) per-block SAD at g_full).
-    The candidate shifts are read on the host (two syncs per call): the
-    reference's dynamic slices become static slices."""
+    The candidate shifts are read on the host (three syncs per call): the
+    reference's dynamic slices become static slices.  This is the plain
+    version of kernels/motion.py:global_search, whose kernels read them
+    on the card."""
     dev = src.device
     h, w = src.shape
     P = MAX_MV_PX + 8
@@ -250,7 +263,7 @@ def _global_full(src: torch.Tensor, ref: torch.Tensor,
         dt = torch.tensor(ds, dtype=torch.int32, device=dev)
         for i, d in enumerate(ds):
             sadb = sad_at(*d)
-            tot = sadb.sum()
+            tot = _exact_total(sadb, (0, 1))
             take = tot < best_tot
             best_tot = torch.where(take, tot, best_tot)
             g_full = torch.where(take, dt[i], g_full)
@@ -316,7 +329,7 @@ def _subpel_refine(src_b: torch.Tensor, P24: torch.Tensor,
             i += 1
 
     # dominant-offset coherence snap
-    totals = torch.stack([s.sum() for s in sads])
+    totals = _exact_total(torch.stack(sads), (1, 2))
     gi = torch.argmin(totals)
     d_g = offs[gi]
     hor_g = torch.zeros(shape + (24, 16), dtype=torch.int32, device=dev)
@@ -425,42 +438,30 @@ def _search_mv(y: torch.Tensor, ref_y: torch.Tensor, lam: np.float32,
     the previous frame.  Returns (mv8 1/8-pel, pred_y (rows, cols, 16, 16),
     src_b, (p40, mv_px)): the 40x40 patches and the full-pel winner feed
     the 8x8 sub-block stage's extended MC."""
-    lam = f32(lam)
-    src_q = _block_sad(y, 4) // 16          # 4x4 mean pool (exact ints /16)
-    ref_q = _block_sad(ref_y, 4) // 16
-    coarse, coarse2, shifts4 = _coarse_search(
-        src_q, ref_q, f32(f32(lam * f32(_MV_BIAS)) / f32(16.0)),
-        f32(f32(lam * f32(14.0)) / f32(16.0)))
-    src_b = to_blocks(y, 16)
+    p = _search_parts(y, ref_y, lam, pix_max, prev_mv)
+    return p["mv8"], p["pred_y"], p["src_b"], (p["p40"], p["mv_px"])
 
+
+def _search_parts(y: torch.Tensor, ref_y: torch.Tensor, lam: np.float32,
+                  pix_max: int, prev_mv=None) -> dict:
+    """_search_mv's stages with every intermediate: kernels/motion.py's
+    coarse_search, global_search and refine_subpel (on the card, their
+    kernels: nothing is read back to the host), then the 40x40 patches."""
+    lam = f32(lam)
+    coarse, coarse2, shifts4 = coarse_search(y, ref_y, lam)
     bases = [coarse, coarse2]
     if prev_mv is not None:
         # temporal base: nearest 4-aligned point (the +-2 refine sweep
         # then covers the exact previous MV), clipped to the coarse range
         bases.append(torch.clamp(((prev_mv + 2) >> 2) << 2,
                                  -4 * _COARSE_R, 4 * _COARSE_R))
-
-    mv_px = best_sad = best_cost = base_f = None
-    for b in bases:
-        m, sd, c = _refine_search(src_b, _patches_select(ref_y, b), b, lam)
-        if mv_px is None:
-            mv_px, best_sad, best_cost, base_f = m, sd, c, b
-        else:
-            take = c < best_cost
-            mv_px = torch.where(take[..., None], m, mv_px)
-            best_sad = torch.where(take, sd, best_sad)
-            best_cost = torch.where(take, c, best_cost)
-            base_f = torch.where(take[..., None], b, base_f)
-
-    c0, g_full, sad_g = _global_full(y, ref_y, shifts4)
-    snap = sad_g <= best_sad + float(f32(lam * f32(14.0)))
-    mv_px = torch.where(snap[..., None], g_full, mv_px)
-    coarse_f = torch.where(snap[..., None], c0[None, None], base_f)
-    off_f = mv_px - coarse_f
-    p40 = _patches40_select(ref_y, coarse_f, off_f)
-    mv8, pred_y = _subpel_refine(src_b, p40[..., 8:32, 8:32], mv_px, lam,
-                                 pix_max)
-    return mv8, pred_y, src_b, (p40, mv_px)
+    c0, g_full, sad_g = global_search(y, ref_y, shifts4)
+    mv8, pred_y, mv_px, coarse_f, off_f = refine_subpel(
+        y, ref_y, bases, c0, g_full, sad_g, lam, pix_max)
+    return dict(coarse=coarse, coarse2=coarse2, shifts4=shifts4, c0=c0,
+                g_full=g_full, sad_g=sad_g, mv8=mv8, pred_y=pred_y,
+                mv_px=mv_px, src_b=to_blocks(y, 16),
+                p40=_patches40_select(ref_y, coarse_f, off_f))
 
 
 def _rate_of(lv: torch.Tensor) -> torch.Tensor:

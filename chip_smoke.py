@@ -56,6 +56,19 @@ exits non-zero:
    launch of each batch and of the CDEF, the plain versions' time, the
    cuBLAS forward product's time, and the bounds (code_bounds,
    cdef_bounds);
+7d. search and deblock kernels vs plain, on phase 7's first inter frame
+   and its temporal filter's first neighbour (search_deblock_vs_plain):
+   (a) the motion search (coarse_search, global_search, refine_subpel)
+   and its plain versions on the card from the same inputs, without and
+   with a temporal base and at the temporal filter's lambda: every output
+   equal (mv8, mv_px, pred_y, p40, coarse, coarse2, shifts4, c0, g_full,
+   sad_g), any differing block printed with both values; (b)
+   deblock_planes through deblock_edges and through its plain version on
+   the quality step's recon (edge gates and split16), the fast step's
+   recon and a 10-bit frame: every pixel equal; (c) each wrapper's device
+   time per call and per launch, per search and per frame, the plain
+   versions' time, and the bounds (search_bounds, deblock_bounds: bytes,
+   integer work not counted);
 8. modes parity: phase 4 again (quality preset) in the command's other
    modes: the default metric, tpu_vmaf (its score within 1e-3, and once
    more under torch.backends.cudnn.flags(allow_tf32=True): the metric
@@ -124,14 +137,22 @@ the batch's workers): 8 code_blocks launches per quality inter frame, 3 per
 fast one; per scene, one cdef_filter per nonzero preset of the keyframe's
 strength search (7 of the 8) and, where the chosen preset is not all
 zero, one for the keyframe and one per reference inter frame; none on the
-all-intra paths.  The scene batch's workers report their counts with each
-scene.  Phases 7 and 9 also hold bytes within 1% and PSNR-Y within 0.05
-dB of what these cells gave before the inter step's kernels (362,224 B
-and 41.471 dB; 104,684 B; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).
+all-intra paths.  Those of the motion search's three kernels and of
+deblock_edges likewise (search_deblock_want): 3 + 6 + 2 launches per
+search, one search per inter frame and one per temporal filter neighbour
+(7 per scene of more than one frame, in the process that plans the
+scenes: the scene batch's parent); 2 deblock_edges launches per plane
+whose level is not 0, on the fast keyframe and every reference inter
+frame; none on the all-intra paths.  The scene batch's workers report
+their counts with each scene.  Phases 7 and 9 also hold bytes within 1%
+and PSNR-Y within 0.05 dB of what these cells gave before the inter
+step's kernels (362,224 B and 41.471 dB; 104,684 B; NVIDIA H100 80GB HBM3,
+700.00 W; PERF.md).
 
 The line before the last is the kernels' JSON record (launches summed over
 the timed runs, with the count of each path beside it: transform_quantize,
-wave_luma16, wave_sub_chroma, code_blocks and cdef_filter); the last line
+wave_luma16, wave_sub_chroma, code_blocks, cdef_filter, coarse_search,
+global_search, refine_subpel and deblock_edges); the last line
 is {"ok": true, "device": {...}}.  Imports nothing of JAX or av1tpu.
 """
 
@@ -229,6 +250,50 @@ def coder_cdef_want(scenes, preset: str, layered: bool = False) -> dict:
         refs = (n - 1) // 2 if layered else n - 1
         cdef += cdef_search_launches() + (1 + refs) * bool(np.any(chosen))
     return {"code_blocks": code, "cdef_filter": cdef}
+
+
+def search_deblock_want(scenes, preset: str, layered: bool = False,
+                        q: int = QINDEX, inter: bool = True) -> dict:
+    """The launches of the motion search's three kernels and of
+    deblock_edges that a GOP encode's scenes [(frames, chosen CDEF preset),
+    ...] at q imply (the CLI's defaults: temporal filter on, the keyframe
+    q boosted by KEY_Q_BOOST): one search per neighbour of each keyframe's
+    temporal filter (7 per scene of more than one frame, in the process
+    that plans the scenes) and, with inter, one per inter frame; each
+    search launches COARSE_LAUNCHES + GLOBAL_LAUNCHES + REFINE_LAUNCHES
+    kernels.  One deblock_edges launch per direction of each plane whose
+    level (models/deblock.py:lf_levels) is not 0, on the fast preset's
+    keyframe (the wavefront keyframe signals its loop filter off) and on
+    every reference inter frame.  The all-intra chunks run neither."""
+    from av1tpu_torch.cli import KEY_Q_BOOST
+    from av1tpu_torch.kernels import motion
+    from av1tpu_torch.models.deblock import lf_levels
+
+    def planes(qq):
+        ly, _, lu, lv = lf_levels(qq)
+        return sum(lvl > 0 for lvl in (ly, lu, lv))
+
+    searches = filtered = 0
+    for n, _ in scenes:
+        searches += 7 * (n > 1)
+        if not inter:
+            continue
+        searches += n - 1
+        filtered += planes(q) * ((n - 1) // 2 if layered else n - 1)
+        if preset == "fast":
+            filtered += planes(max(q - KEY_Q_BOOST, 1) if n > 1 else q)
+    return {"coarse_search": motion.COARSE_LAUNCHES * searches,
+            "global_search": motion.GLOBAL_LAUNCHES * searches,
+            "refine_subpel": motion.REFINE_LAUNCHES * searches,
+            "deblock_edges": 2 * filtered}
+
+
+def inter_want(scenes, preset: str, layered: bool = False,
+               q: int = QINDEX) -> dict:
+    """coder_cdef_want and search_deblock_want of a path that plans and
+    codes its scenes in one process."""
+    return {**coder_cdef_want(scenes, preset, layered),
+            **search_deblock_want(scenes, preset, layered, q)}
 
 
 def assert_coder_cdef(launches: dict, want: dict) -> None:
@@ -511,7 +576,7 @@ def _timed_slice(torch, clip, name: str, partitions: bool):
     assert all(len(s) > 0 for s in streams)
     assert stats["scenes"] == 1, stats["scenes"]
     assert stats["psnr_y"] >= 30.0, stats["psnr_y"]
-    assert_coder_cdef(launches, coder_cdef_want(
+    assert_coder_cdef(launches, inter_want(
         plan.scenes(), "quality" if partitions else "fast"))
     return streams, stats, launches
 
@@ -558,19 +623,28 @@ def slice_1080p(torch, clip):
 
 def quality_slice_1080p(torch, clip, fast_stats):
     """Phase 7.  Returns (the kernels' launches in the timed run, the
-    arguments of its wavefront keyframe): transform_quantize once per
+    arguments of its wavefront keyframe, of its first inter chunk and of
+    its first temporal filter): transform_quantize once per
     16x16 column of the first block row of the probed frame's luma plane
     (one frame is probed per scene at a fixed q), each wavefront kernel
     once per diagonal of the scene's keyframe."""
     import av1tpu_torch.models.inter_v as inter_v
     import av1tpu_torch.models.intra_wave as intra_wave
+    import av1tpu_torch.models.tfilter as tfilter
 
     seen = {"key": set(), "carry": set(), "mv": set(), "golden": set()}
-    key_fn, gop_fn = (intra_wave.encode_intra_wave_key_recon,
-                      inter_v.encode_gop_chunk_part)
+    key_fn, gop_fn, tf_fn = (intra_wave.encode_intra_wave_key_recon,
+                             inter_v.encode_gop_chunk_part,
+                             tfilter.temporal_filter_key)
 
     key_args: list = []
     gop_args: list = []
+    tf_args: list = []
+
+    def tf_spy(*a, **k):
+        if not tf_args:
+            tf_args.append((a, k))
+        return tf_fn(*a, **k)
 
     def key_spy(*a, **k):
         buf, recon = key_fn(*a, **k)
@@ -589,11 +663,13 @@ def quality_slice_1080p(torch, clip, fast_stats):
 
     intra_wave.encode_intra_wave_key_recon = key_spy
     inter_v.encode_gop_chunk_part = gop_spy
+    tfilter.temporal_filter_key = tf_spy
     try:
         _, stats, launches = _timed_slice(torch, clip, "quality slice", True)
     finally:
         intra_wave.encode_intra_wave_key_recon = key_fn
         inter_v.encode_gop_chunk_part = gop_fn
+        tfilter.temporal_filter_key = tf_fn
     assert launches["transform_quantize"] == COLS, launches
     assert_wave(launches, stats["scenes"])
     assert all(v == {"cuda"} for v in seen.values()), seen
@@ -606,7 +682,7 @@ def quality_slice_1080p(torch, clip, fast_stats):
     # 700.00 W; PERF.md): they may flip a near-tie, not move the stream
     assert abs(stats["bytes"] - 362224) <= 0.01 * 362224, stats["bytes"]
     assert abs(stats["psnr_y"] - 41.471) <= 0.05, stats["psnr_y"]
-    return launches, key_args[-1], gop_args[0]
+    return launches, key_args[-1], gop_args[0], tf_args[0]
 
 
 def wave_bounds(n: int) -> dict:
@@ -1038,6 +1114,247 @@ def inter_vs_plain(torch, gop_args) -> dict:
     return recs
 
 
+def search_bounds(h: int, w: int, nbases: int = 2) -> dict:
+    """Least time of each motion-search wrapper's call on an h x w frame,
+    in us: its bytes at the memory rate (each input read once, each output
+    written once: the int32 luma planes, the bases, the global outputs,
+    the MV fields and the 16x16 predictions).  All of its work is integer
+    (SADs and 8-tap filters), which no fp32 or tensor peak counts, so
+    bytes bound it; the integer operations are not counted."""
+    nblk = (h // 16) * (w // 16)
+    planes = 2 * 4 * h * w
+    nbytes = {
+        "coarse_search": planes + 2 * 8 * nblk + 32,
+        "global_search": planes + 32 + 2 * 8 + 4 * nblk,
+        "refine_subpel": (planes + nbases * 8 * nblk + 2 * 8 + 4 * nblk
+                          + 4 * 8 * nblk + 4 * 256 * nblk)}
+    return {k: (v / PEAK_BYTES * 1e6, "bytes") for k, v in nbytes.items()}
+
+
+def deblock_bounds(h: int, w: int, split: bool) -> tuple[float, str]:
+    """Least time of one deblock_edges launch on an h x w int32 plane, in
+    us: its bytes at the memory rate (the plane read once and written
+    once, the edge map and the split map read once, one byte per 16-grid
+    edge or block).  All of its work is integer, which no fp32 or tensor
+    peak counts, so bytes bound it; the integer operations are not
+    counted."""
+    nblk = (h // 16) * (w // 16)
+    nbytes = 2 * 4 * h * w + nblk + (nblk if split else 0)
+    return nbytes / PEAK_BYTES * 1e6, "bytes"
+
+
+@contextlib.contextmanager
+def plain_search_deblock():
+    """Within the block _search_mv's three stages and deblock_planes'
+    deblock_edges run their plain versions (on the tensors' device, the
+    card): the plain side of phase 7d's comparisons."""
+    from av1tpu_torch.kernels import deblock as kdeblock
+    from av1tpu_torch.kernels import motion
+    from av1tpu_torch.models import deblock as mdeblock
+    from av1tpu_torch.models import inter_v
+
+    names = ("coarse_search", "global_search", "refine_subpel")
+    saved = [getattr(inter_v, n) for n in names] + [mdeblock.deblock_edges]
+    for n in names:
+        setattr(inter_v, n, getattr(motion, n + "_plain"))
+    mdeblock.deblock_edges = kdeblock.deblock_edges_plain
+    try:
+        yield
+    finally:
+        for n, f in zip(names, saved):
+            setattr(inter_v, n, f)
+        mdeblock.deblock_edges = saved[-1]
+
+
+SEARCH_PARTS = ("mv8", "mv_px", "pred_y", "p40", "coarse", "coarse2",
+                "shifts4", "c0", "g_full", "sad_g")
+
+
+def _search_diff(name: str, got: dict, want: dict) -> int:
+    """Compare two _search_parts results; print every differing output
+    with its first differing blocks, both sides' values.  Returns the
+    number of differing elements."""
+    bad = 0
+    for k in SEARCH_PARTS:
+        a, b = got[k], want[k]
+        assert a.shape == b.shape and a.dtype == b.dtype, k
+        d = a != b
+        n = int(d.sum())
+        if n:
+            bad += n
+            idx = d.nonzero()[:4].tolist()
+            print(f"  {name} {k}: {n} elements differ; first at "
+                  f"{idx}: kernel {[a[tuple(i)].item() for i in idx]} plain "
+                  f"{[b[tuple(i)].item() for i in idx]}", flush=True)
+    return bad
+
+
+def search_deblock_vs_plain(torch, gop_args, tf_args) -> dict:
+    """Phase 7d: the motion search's three kernels and deblock_edges
+    against their plain versions on the card, on phase 7's first 1080p
+    inter frame and on its temporal filter's first neighbour.  (a) The
+    search (_search_parts) both ways from the same inputs: every output
+    equal (mv8, mv_px, pred_y, p40, coarse, coarse2, shifts4, c0, g_full,
+    sad_g), for the inter frame without and with a temporal base (the MV
+    field of the first search) and for the neighbour at the temporal
+    filter's lambda.  (b) deblock_planes through deblock_edges and
+    through its plain version, on the quality step's recon (its edge gates
+    and split16), on the fast step's recon, and on a 10-bit frame made from
+    the quality recon: every pixel of every plane equal.  (c) Times: each
+    wrapper's device time per call and per launch (queued behind a sleep),
+    per search and per frame, the plain versions' event time, and the
+    bounds (search_bounds, deblock_bounds).  Returns the four kernels'
+    records for the JSON line."""
+    from av1tpu_torch.kernels import deblock as kdeblock
+    from av1tpu_torch.kernels import motion
+    from av1tpu_torch.models import deblock as mdeblock
+    from av1tpu_torch.models import inter_v
+    from av1tpu_torch.models.intra_v import unfuse
+
+    (frames, ref, q, h, w), kw = gop_args[0][:5], gop_args[1]
+    bd = kw["bit_depth"]
+    pm = (1 << bd) - 1
+    lf3 = tuple(int(x) for x in kw["lf"]) if any(kw["lf"]) else (12, 6, 6)
+    prev_mv = (kw["prev_mv"] if kw["prev_mv"] is not None else
+               torch.zeros((h // 16, w // 16, 2), dtype=torch.int32,
+                           device=ref.device))
+    cdef_s = tuple(int(x) for x in kw["cdef_s"])
+    y, ref_y = unfuse(frames[0], h, w)[0], unfuse(ref, h, w)[0]
+    lam = inter_v.inter_lambdas(q, bd, y.device)[0]
+    (key, neigh, th, tw), tkw = tf_args[0][:4], tf_args[1]
+    tbd = tkw.get("bit_depth", 8)
+    ky, ny = unfuse(key, th, tw)[0], unfuse(neigh[0], th, tw)[0]
+    print(f"search and deblock vs plain: inter frame {w}x{h} q={q} "
+          f"lam={float(lam)} lf={lf3} bit_depth={bd}; temporal filter "
+          f"neighbour {tw}x{th} lam=4.0", flush=True)
+
+    # (a) the search, kernel vs plain, from the same inputs
+    first = inter_v._search_parts(y, ref_y, lam, pm)
+    cases = {"inter": (y, ref_y, lam, pm, None),
+             "inter+temporal": (y, ref_y, lam, pm, first["mv_px"]),
+             "tfilter": (ky, ny, np.float32(4.0), (1 << tbd) - 1, None)}
+    diff = {}
+    for name, args in cases.items():
+        got = inter_v._search_parts(*args)
+        with plain_search_deblock():
+            want = inter_v._search_parts(*args)
+        torch.cuda.synchronize()
+        diff[name] = _search_diff(name, got, want)
+        print(f"search {name}: g_full {got['g_full'].tolist()} (plain "
+              f"{want['g_full'].tolist()}), shifts4 {got['shifts4'].tolist()}"
+              f", differing elements {diff[name]}", flush=True)
+    assert not any(diff.values()), diff
+
+    # (b) deblock_planes both ways, on each step's recon
+    caught = []
+    fn = mdeblock.deblock_planes
+
+    def catch(*a, **k):
+        caught.append((a, k))
+        return fn(*a, **k)
+
+    mdeblock.deblock_planes = catch
+    try:
+        inter_v._gop_step_part_body(
+            frames[0], ref, q, h, w, 1 << 20, lf3, cdef_s, kw["gld_fused"],
+            prev_mv, kw["noise_gate"], bd)
+        inter_v._gop_step_body(frames[0], ref, q, h, w, 1 << 20, lf3, cdef_s,
+                               bd)
+    finally:
+        mdeblock.deblock_planes = fn
+    assert len(caught) == 2, len(caught)
+    (qa, qk), (fa, fk) = caught
+    ten = ([torch.clamp(p * 4 + 1, 0, 1023) for p in qa[:3]]
+           + list(qa[3:9]) + [10], dict(qk))
+    db_cases = {"quality": (list(qa), dict(qk)), "fast": (list(fa), dict(fk)),
+                "10-bit": ten}
+    db_px = {}
+    for name, (a, k) in db_cases.items():
+        got = mdeblock.deblock_planes(*a, **k)
+        with plain_search_deblock():
+            want = mdeblock.deblock_planes(*a, **k)
+        torch.cuda.synchronize()
+        db_px[name] = sum(int((g != wt).sum()) for g, wt in zip(got, want))
+        changed = sum(int((g != p).sum()) for g, p in zip(got, a[:3]))
+        print(f"deblock_planes {name} (levels {a[5:8]}, split16 "
+              f"{k.get('split16') is not None}): {db_px[name]} pixels differ "
+              f"from the plain version; {changed} pixels filtered", flush=True)
+    assert not any(db_px.values()), db_px
+
+    # (c) times, per call, per launch and per search or frame
+    recs = {}
+    c1, c2, s4 = motion.coarse_search(y, ref_y, lam)
+    c0, g_full, sad_g = motion.global_search(y, ref_y, s4)
+    calls = {
+        "coarse_search": (lambda: motion.coarse_search(y, ref_y, lam),
+                          lambda: motion.coarse_search_plain(y, ref_y, lam),
+                          motion.COARSE_LAUNCHES),
+        "global_search": (lambda: motion.global_search(y, ref_y, s4),
+                          lambda: motion.global_search_plain(y, ref_y, s4),
+                          motion.GLOBAL_LAUNCHES),
+        "refine_subpel": (
+            lambda: motion.refine_subpel(y, ref_y, (c1, c2), c0, g_full,
+                                         sad_g, lam, pm),
+            lambda: motion.refine_subpel_plain(y, ref_y, (c1, c2), c0,
+                                               g_full, sad_g, lam, pm),
+            motion.REFINE_LAUNCHES)}
+    bounds = search_bounds(h, w)
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for name, (kern, plain, n) in calls.items():
+        dev_us = device_us(torch, kern, 100)
+        plain_ms = _median_ms(torch, plain, n=5)
+        bound, by = bounds[name]
+        recs[name] = dict(ms=dev_us / 1e3, plain_ms=plain_ms,
+                          bound_ms=bound / 1e3, bound_by=by,
+                          launch_us=dev_us / n, launches_per_search=n,
+                          max_abs_err=0, outputs_differ=diff)
+        for key, v in (("ms", dev_us / 1e3), ("plain_ms", plain_ms),
+                       ("bound_ms", bound / 1e3)):
+            tot[key] += v
+        print(f"{name} {w}x{h}: device {dev_us:.3f} us per call ({n} "
+              f"launches, {dev_us / n:.3f} us each), plain {plain_ms:.3f} "
+              f"ms, bound {bound:.4f} us ({by}; integer work not counted; "
+              f"roofline {bound / dev_us:.5f})", flush=True)
+    print(f"one search {w}x{h} ({motion.COARSE_LAUNCHES} + "
+          f"{motion.GLOBAL_LAUNCHES} + {motion.REFINE_LAUNCHES} launches): "
+          f"device {tot['ms']:.4f} ms, plain {tot['plain_ms']:.3f} ms, bound "
+          f"{tot['bound_ms']:.5f} ms", flush=True)
+    a, k = db_cases["quality"]
+    per_frame = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    launch = []
+    s16 = k["split16"].to(torch.bool).contiguous()
+    for plane, lvl, luma in zip(a[:3], a[5:8], (True, False, False)):
+        for vertical, on in ((True, a[3]), (False, a[4])):
+            args = (plane.contiguous(), on.contiguous(), lvl, 0, bd, luma,
+                    vertical, s16)
+            dev_us = device_us(torch, lambda: kdeblock.deblock_edges(*args),
+                               200)
+            plain_ms = _median_ms(torch, lambda: kdeblock.deblock_edges_plain(
+                *args), n=5)
+            bound, by = deblock_bounds(*plane.shape, True)
+            launch.append((plane.shape, vertical, dev_us, plain_ms, bound))
+            per_frame["ms"] += dev_us / 1e3
+            per_frame["plain_ms"] += plain_ms
+            per_frame["bound_ms"] += bound / 1e3
+    for shape, vertical, dev_us, plain_ms, bound in launch:
+        print(f"deblock_edges {shape[1]}x{shape[0]} "
+              f"{'vertical' if vertical else 'horizontal'}: device "
+              f"{dev_us:.3f} us, plain {plain_ms:.3f} ms, bound {bound:.4f} "
+              f"us (bytes; integer work not counted; roofline "
+              f"{bound / dev_us:.4f})", flush=True)
+    print(f"deblock_planes per quality frame ({len(launch)} launches): "
+          f"device {per_frame['ms']:.4f} ms, plain "
+          f"{per_frame['plain_ms']:.3f} ms, bound "
+          f"{per_frame['bound_ms']:.5f} ms", flush=True)
+    recs["deblock_edges"] = dict(
+        ms=launch[0][2] / 1e3, plain_ms=launch[0][3],
+        bound_ms=launch[0][4] / 1e3, bound_by="bytes",
+        frame_ms=per_frame["ms"], plain_frame_ms=per_frame["plain_ms"],
+        bound_frame_ms=per_frame["bound_ms"], max_abs_err=0,
+        pixels_differ=db_px)
+    return recs
+
+
 def run_cli(argv: list) -> tuple[list, dict]:
     """av1tpu_torch.cli.main(argv) with its standard output captured and
     echoed: (progress records, stats record)."""
@@ -1110,7 +1427,7 @@ def daemon_1080p(torch, y4m: str, tmp: str):
     assert stats["frames"] == ivf_frames(ivf) == CLI_FRAMES
     assert launches["transform_quantize"] == COLS * stats["scenes"], launches
     assert_wave(launches, stats["scenes"])
-    assert_coder_cdef(launches, coder_cdef_want(plan.scenes(), "quality"))
+    assert_coder_cdef(launches, inter_want(plan.scenes(), "quality"))
     assert all(v == {"cuda"} for v in seen.values()), seen
     # this cell before the inter step's kernels (NVIDIA H100 80GB HBM3,
     # 700.00 W; PERF.md)
@@ -1160,8 +1477,8 @@ def layered_1080p(torch, y4m: str, tmp: str, daemon_stats):
     assert ivf_frames(ivf) == CLI_FRAMES
     assert launches["transform_quantize"] == COLS * stats["scenes"], launches
     assert_wave(launches, stats["scenes"])
-    assert_coder_cdef(launches, coder_cdef_want(plan.scenes(), "quality",
-                                                layered=True))
+    assert_coder_cdef(launches, inter_want(plan.scenes(), "quality",
+                                           layered=True))
     return launches
 
 
@@ -1190,7 +1507,7 @@ def all_intra_1080p(torch, y4m: str, tmp: str, preset: str):
     assert stats["frames"] == INTRA_FRAMES
     assert launches["transform_quantize"] == want, (launches, want)
     assert_wave(launches, 0)
-    assert_coder_cdef(launches, {"code_blocks": 0, "cdef_filter": 0})
+    assert_coder_cdef(launches, inter_want([], preset))
     return launches
 
 
@@ -1300,8 +1617,11 @@ def batch_parity(torch, quality_runs) -> dict:
     assert s_b == s_gpu == s_cpu
     assert_wave(parent, 0)
     assert_wave(launches, st_b["scenes"], 64, 128)
-    assert_coder_cdef(parent, {"code_blocks": 0, "cdef_filter": 0})
-    assert_coder_cdef(launches, coder_cdef_want(spy.scenes(), "quality"))
+    # the temporal filter runs in the parent, the inter frames in workers
+    assert_coder_cdef(parent, {"code_blocks": 0, "cdef_filter": 0,
+                               **search_deblock_want(spy.scenes(), "quality",
+                                                     q=120, inter=False)})
+    assert_coder_cdef(launches, inter_want(spy.scenes(), "quality", q=120))
     return launches
 
 
@@ -1356,9 +1676,11 @@ def batch_1080p(torch) -> int:
             assert_wave(launches, stats["scenes"])
             if workers > 1:
                 assert_wave(parent, 0)
-                assert_coder_cdef(parent, {"code_blocks": 0,
-                                           "cdef_filter": 0})
-            assert_coder_cdef(launches, coder_cdef_want(
+                assert_coder_cdef(parent, {
+                    "code_blocks": 0, "cdef_filter": 0,
+                    **search_deblock_want(spy.scenes(), "quality",
+                                          inter=False)})
+            assert_coder_cdef(launches, inter_want(
                 spy.scenes() if workers > 1 else plan.scenes(), "quality"))
             assert len(spy.results) == (2 if workers > 1 else 0)
             runs[workers] = (streams, stats, launches)
@@ -1607,7 +1929,7 @@ def container_daemon(torch, tmp: str, out_dir: str, tool, daemon,
     # the quality preset's keyframe, one per scene, at the coded size
     assert_wave(launches, stats["scenes"] if on_card else 0,
                 (h + 63) & ~63, (w + 63) & ~63)
-    assert_coder_cdef(launches, coder_cdef_want(
+    assert_coder_cdef(launches, inter_want(
         scenes if on_card else [], "fast" if "fast" in extra else "quality"))
     if tool is not None:
         # the replaced file's video, remuxed to IVF, against this run's TUs
@@ -1649,7 +1971,7 @@ def container_1080p(torch, tmp: str, out_dir: str, tool,
         3 * (COLS + ROWS - 1) * stats["scenes"] if device == "cuda" else 0), (
         launches)
     assert_wave(launches, 0)
-    assert_coder_cdef(launches, coder_cdef_want(
+    assert_coder_cdef(launches, inter_want(
         scenes if device == "cuda" else [], "fast"))
     if tool is not None:
         dec, diffs = decode_check(tool, out_dir, "fast_1080p", tmp)
@@ -1706,7 +2028,7 @@ def main() -> int:
     _phase("quality_parity", t)
 
     t = time.perf_counter()
-    launches_quality, key_args, gop_args = quality_slice_1080p(
+    launches_quality, key_args, gop_args, tf_args = quality_slice_1080p(
         torch, clip, fast_stats)
     _phase("quality_slice_1080p", t)
 
@@ -1716,8 +2038,12 @@ def main() -> int:
 
     t = time.perf_counter()
     inter_recs = inter_vs_plain(torch, gop_args)
-    del gop_args
     _phase("inter_vs_plain", t)
+
+    t = time.perf_counter()
+    inter_recs.update(search_deblock_vs_plain(torch, gop_args, tf_args))
+    del gop_args, tf_args
+    _phase("search_deblock_vs_plain", t)
 
     t = time.perf_counter()
     modes_parity(torch)
@@ -1794,13 +2120,21 @@ def main() -> int:
         "replaces": replaces,
         "launches": sum(path_counts(name).values()),
         "launches_by_path": path_counts(name),
-        # no one PyTorch call computes either function
+        # no one PyTorch call computes any of these functions
         "library_ms": None, **inter_recs[name]}
         for name, source, replaces in (
             ("code_blocks", "av1tpu_torch/csrc/inter_code.cu",
              "av1tpu/models/inter_v.py:1022"),
             ("cdef_filter", "av1tpu_torch/csrc/cdef.cu",
-             "av1tpu/models/cdef_tpu.py:173"))]
+             "av1tpu/models/cdef_tpu.py:173"),
+            ("coarse_search", "av1tpu_torch/csrc/motion.cu",
+             "av1tpu/models/inter_v.py:89"),
+            ("global_search", "av1tpu_torch/csrc/motion.cu",
+             "av1tpu/models/inter_v.py:287"),
+            ("refine_subpel", "av1tpu_torch/csrc/motion.cu",
+             "av1tpu/models/inter_v.py:252"),
+            ("deblock_edges", "av1tpu_torch/csrc/deblock.cu",
+             "av1tpu/models/deblock_tpu.py:394"))]
     print(json.dumps({"kernels": [{
         "name": "transform_quantize", "route": "cuda",
         "source": "av1tpu_torch/csrc/transform_quant.cu",

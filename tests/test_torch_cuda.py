@@ -1,9 +1,10 @@
 """Tests that need an NVIDIA GPU: the CUDA transform+quantize kernel agrees
 with its plain PyTorch version at the main path's shapes, the wavefront
 keyframe's two kernels agree with theirs from the same carried state, the
-wrappers reject what the kernels do not take, and the scene batch runs on
-the visible GPUs (its workers launching the wavefront kernels).  They skip
-where CUDA is absent.
+wrappers reject what the kernels do not take, the inter coder's, CDEF's,
+the motion search's and the loop filter's kernels agree with their plain
+versions bit for bit, and the scene batch runs on the visible GPUs (its
+workers launching the wavefront kernels).  They skip where CUDA is absent.
 This file imports no JAX, so it also runs on a GPU machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -355,3 +356,176 @@ def test_cdef_filter_rejects_bad_inputs(dev):
         cdef_filter(y, u.cpu(), v, sk, 4, 1, 3, 1)
     with pytest.raises(ValueError):                 # not contiguous
         cdef_filter(y.t().contiguous().t(), u, v, sk, 4, 1, 3, 1)
+
+
+def _search_pair(dev, bd, h, w, seed, shift):
+    """A source and a reference that is it shifted by `shift` px, with
+    noise: synthetic_clip's texture (10-bit: times 4 plus noise)."""
+    rng = np.random.RandomState(seed)
+    big = synthetic_clip(w + 96, h + 96, 1, seed=seed).y[0].astype(np.int32)
+    if bd == 10:
+        big = big * 4 + rng.randint(0, 4, big.shape)
+    pm = (1 << bd) - 1
+    dy, dx = shift
+    y = big[48 : 48 + h, 48 : 48 + w]
+    r = np.clip(big[48 + dy : 48 + dy + h, 48 + dx : 48 + dx + w]
+                + rng.randint(-2, 3, (h, w)), 0, pm)
+    return (torch.from_numpy(np.ascontiguousarray(y, np.int32)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(r, np.int32)).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bd,nbases", [(8, 2), (8, 3), (10, 2), (10, 3)])
+def test_motion_kernels_match_plain(dev, bd, nbases):
+    """coarse_search, global_search and refine_subpel against their plain
+    versions on the card, every output equal: at 1088x1920 and at a frame
+    of 4x8 blocks, a pan and a still pair, with the inter steps' lambda and
+    the temporal filter's (4.0), with 2 bases and with a temporal third."""
+    from av1tpu_torch.kernels import motion
+    from av1tpu_torch.models.inter_v import inter_lambdas
+
+    pm = (1 << bd) - 1
+    for (h, w), shift, seed in (((1088, 1920), (3, -7), 1),
+                                ((64, 128), (0, 0), 2)):
+        y, r = _search_pair(dev, bd, h, w, seed, shift)
+        for lam in (inter_lambdas(72 if bd == 8 else 40, bd, dev)[0],
+                    np.float32(4.0)):
+            n0 = (motion.coarse_search.launches, motion.global_search.launches,
+                  motion.refine_subpel.launches)
+            c = motion.coarse_search(y, r, lam)
+            cw = motion.coarse_search_plain(y, r, lam)
+            g = motion.global_search(y, r, c[2])
+            gw = motion.global_search_plain(y, r, cw[2])
+            bases = [c[0], c[1]]
+            if nbases == 3:
+                prev = torch.from_numpy(np.random.RandomState(seed).randint(
+                    -40, 41, (h // 16, w // 16, 2)).astype(np.int32)).to(dev)
+                bases.append(torch.clamp(((prev + 2) >> 2) << 2, -32, 32))
+            got = motion.refine_subpel(y, r, bases, *g, lam, pm)
+            want = motion.refine_subpel_plain(y, r, bases, *gw, lam, pm)
+            torch.cuda.synchronize()
+            assert (motion.coarse_search.launches - n0[0],
+                    motion.global_search.launches - n0[1],
+                    motion.refine_subpel.launches - n0[2]) == (3, 6, 2)
+            names = ("coarse", "coarse2", "shifts4", "c0", "g_full", "sad_g",
+                     "mv8", "pred_y", "mv_px", "coarse_f", "off_f")
+            for name, a, b in zip(names, (*c, *g, *got), (*cw, *gw, *want)):
+                assert a.dtype == b.dtype and torch.equal(a, b), (
+                    h, w, float(lam), name, int((a != b).sum()))
+
+
+@pytest.mark.cuda
+def test_motion_kernels_reject_bad_inputs(dev):
+    from av1tpu_torch.kernels import motion
+
+    y, r = _search_pair(dev, 8, 64, 128, 3, (1, 1))
+    lam = np.float32(9.0)
+    c1, c2, s4 = motion.coarse_search(y, r, lam)
+    c0, g, sg = motion.global_search(y, r, s4)
+    motion.refine_subpel(y, r, [c1, c2], c0, g, sg, lam, 255)
+    with pytest.raises(TypeError):                  # int16 source
+        motion.coarse_search(y.short(), r, lam)
+    with pytest.raises(ValueError):                 # mixed devices
+        motion.coarse_search(y, r.cpu(), lam)
+    with pytest.raises(ValueError):                 # not a multiple of 16
+        motion.coarse_search(y[:40].contiguous(), r[:40].contiguous(), lam)
+    with pytest.raises(ValueError):                 # not contiguous
+        motion.global_search(y.t().contiguous().t(), r, s4)
+    with pytest.raises(ValueError):                 # shifts4's shape
+        motion.global_search(y, r, s4[:3].contiguous())
+    with pytest.raises(ValueError):                 # one base
+        motion.refine_subpel(y, r, [c1], c0, g, sg, lam, 255)
+    with pytest.raises(ValueError):                 # four bases
+        motion.refine_subpel(y, r, [c1, c2, c1, c2], c0, g, sg, lam, 255)
+    with pytest.raises(ValueError):                 # a base on the CPU
+        motion.refine_subpel(y, r, [c1, c2.cpu()], c0, g, sg, lam, 255)
+    with pytest.raises(TypeError):                  # sad_g's type
+        motion.refine_subpel(y, r, [c1, c2], c0, g, sg.double(), lam, 255)
+    with pytest.raises(ValueError):                 # pix_max
+        motion.refine_subpel(y, r, [c1, c2], c0, g, sg, lam, 511)
+
+
+def _deblock_planes_case(dev, bd, h, w, seed):
+    """Blocky planes (4x4 cells on a coarse grid, small noise: every filter
+    branch fires), random edge gates and a random split map."""
+    rng = np.random.RandomState(seed)
+    pm = (1 << bd) - 1
+
+    def plane(hh, ww):
+        base = np.repeat(np.repeat(rng.randint(0, pm + 1, (hh // 4, ww // 4)),
+                                   4, 0), 4, 1)
+        return np.clip(base // 8 * 8 + rng.randint(-2, 3, (hh, ww)), 0, pm)
+
+    rows, cols = h // 16, w // 16
+    planes = [torch.from_numpy(p.astype(np.int32)).to(dev) for p in (
+        plane(h, w), plane(h // 2, w // 2), plane(h // 2, w // 2))]
+    maps = [torch.from_numpy(m).to(dev) for m in (
+        rng.rand(rows, cols - 1) < 0.8, rng.rand(rows - 1, cols) < 0.8,
+        rng.rand(rows, cols) < 0.3)]
+    return planes, maps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bd", [8, 10])
+def test_deblock_edges_matches_plain(dev, bd):
+    """deblock_edges against its plain version on the card, bit for bit
+    (all integer): luma and chroma, both directions, with and without the
+    split map, levels from 1 to 63, sharpness 0 and 5, at 1088x1920 and a
+    frame of 2x3 blocks; and deblock_planes through the kernel against
+    deblock_planes through the plain version."""
+    from av1tpu_torch.kernels import deblock as kdeblock
+    from av1tpu_torch.models import deblock as mdeblock
+
+    for (h, w), seed in (((1088, 1920), 1), ((32, 48), 2)):
+        (y, u, v), (von, hon, s16) = _deblock_planes_case(dev, bd, h, w,
+                                                          seed)
+        for plane, luma in ((y, True), (u, False)):
+            for vertical in (True, False):
+                on = von if vertical else hon
+                for split in (None, s16):
+                    for lvl, sharp in ((1, 0), (12, 0), (40, 5), (63, 0)):
+                        before = kdeblock.deblock_edges.launches
+                        got = kdeblock.deblock_edges(plane, on, lvl, sharp,
+                                                     bd, luma, vertical,
+                                                     split)
+                        torch.cuda.synchronize()
+                        assert kdeblock.deblock_edges.launches == before + 1
+                        want = kdeblock.deblock_edges_plain(
+                            plane, on, lvl, sharp, bd, luma, vertical, split)
+                        assert torch.equal(got, want), (
+                            h, w, luma, vertical, split is None, lvl, sharp,
+                            int((got != want).sum()))
+        for split in (None, s16):
+            got = mdeblock.deblock_planes(y, u, v, von, hon, 20, 20, 10, 0,
+                                          bd, split16=split)
+            saved = mdeblock.deblock_edges
+            mdeblock.deblock_edges = kdeblock.deblock_edges_plain
+            try:
+                want = mdeblock.deblock_planes(y, u, v, von, hon, 20, 20, 10,
+                                               0, bd, split16=split)
+            finally:
+                mdeblock.deblock_edges = saved
+            for g, wt in zip(got, want):
+                assert torch.equal(g, wt)
+
+
+@pytest.mark.cuda
+def test_deblock_edges_rejects_bad_inputs(dev):
+    from av1tpu_torch.kernels.deblock import deblock_edges
+
+    (y, _, _), (von, hon, s16) = _deblock_planes_case(dev, 8, 64, 96, 0)
+    deblock_edges(y, von, 12, 0, 8, True, True, s16)
+    with pytest.raises(ValueError):                 # level 0: no call
+        deblock_edges(y, von, 0, 0, 8, True, True, s16)
+    with pytest.raises(TypeError):                  # int16 plane
+        deblock_edges(y.short(), von, 12, 0, 8, True, True, s16)
+    with pytest.raises(ValueError):                 # the edge map's shape
+        deblock_edges(y, hon, 12, 0, 8, True, True, s16)
+    with pytest.raises(TypeError):                  # an int split map
+        deblock_edges(y, von, 12, 0, 8, True, True, s16.int())
+    with pytest.raises(ValueError):                 # mixed devices
+        deblock_edges(y, von.cpu(), 12, 0, 8, True, True, s16)
+    with pytest.raises(ValueError):                 # not contiguous
+        deblock_edges(y.t().contiguous().t(), von, 12, 0, 8, True, True, s16)
+    with pytest.raises(ValueError):                 # not a multiple of 16
+        deblock_edges(y[:, :88].contiguous(), von, 12, 0, 8, True, True, s16)

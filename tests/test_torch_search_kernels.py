@@ -1,0 +1,217 @@
+"""The motion search's and the loop filter's kernel wrappers on the CPU:
+coarse_search, global_search, refine_subpel (kernels/motion.py) and
+deblock_edges (kernels/deblock.py) take their plain versions for CPU
+tensors and give what those give; they reject what the kernels do not
+take; and the search's three frame totals (the coarse 289, the global 125
+and the sub-pel 49) are the exact integer sums rounded once to float32, at
+sizes where a float32 sum of the block SADs is not exact.
+
+No reference graph is compiled here: the plain versions are held against
+av1tpu by tests/test_torch_inter.py (test_search_mv_matches_jax),
+tests/test_torch_inter10.py, tests/test_torch_inter_part.py and the
+deblock tests of tests/test_torch_filters.py.  The kernels themselves are
+held against the plain versions on the card (tests/test_torch_cuda.py).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from av1tpu_torch.kernels import deblock as kdeblock
+from av1tpu_torch.kernels import motion
+from av1tpu_torch.models import inter_v
+from av1tpu_torch.models.deblock import deblock_planes
+from tests.test_torch_threads import single_torch_thread  # noqa: F401
+
+H, W = 64, 128
+LAM = np.float32(9.5)
+
+
+def _pair(bd=8, seed=3, shift=(2, -5)):
+    """A source and a reference that is it shifted by `shift` px, noisy."""
+    rng = np.random.RandomState(seed)
+    pm = (1 << bd) - 1
+    big = np.repeat(np.repeat(rng.randint(0, pm + 1, (H // 4 + 8, W // 4 + 8)),
+                              4, 0), 4, 1)
+    big = np.clip(big + rng.randint(-pm // 16, pm // 16 + 1, big.shape), 0,
+                  pm)
+    dy, dx = shift
+    y = big[16 : 16 + H, 16 : 16 + W]
+    r = big[16 + dy : 16 + dy + H, 16 + dx : 16 + dx + W]
+    return (torch.from_numpy(np.ascontiguousarray(y, np.int32)),
+            torch.from_numpy(np.ascontiguousarray(r, np.int32)))
+
+
+def _eq(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("bd,nbases", [(8, 2), (10, 3)])
+def test_motion_wrappers_on_cpu_are_plain(bd, nbases):
+    y, r = _pair(bd)
+    pm = (1 << bd) - 1
+    c = motion.coarse_search(y, r, LAM)
+    _eq(c, motion.coarse_search_plain(y, r, LAM))
+    g = motion.global_search(y, r, c[2])
+    _eq(g, motion.global_search_plain(y, r, c[2]))
+    bases = [c[0], c[1]]
+    if nbases == 3:
+        prev = torch.from_numpy(np.random.RandomState(1).randint(
+            -40, 41, (H // 16, W // 16, 2)).astype(np.int32))
+        bases.append(torch.clamp(((prev + 2) >> 2) << 2, -32, 32))
+    got = motion.refine_subpel(y, r, bases, *g, LAM, pm)
+    _eq(got, motion.refine_subpel_plain(y, r, bases, *g, LAM, pm))
+    # and _search_mv, which runs the three in turn, finds the shift
+    mv8 = inter_v._search_mv(y, r, LAM, pm)[0]
+    assert torch.equal(mv8, got[0])
+    assert (mv8 == torch.tensor([-16, 40], dtype=torch.int32)).all(
+        -1).float().mean() > 0.5
+
+
+def _bad_motion_calls():
+    y, r = _pair()
+    c1, c2, s4 = motion.coarse_search_plain(y, r, LAM)
+    c0, g, sg = motion.global_search_plain(y, r, s4)
+    meta = torch.empty_like(y, device="meta")
+    return {
+        "coarse_dtype": (motion.coarse_search, (y.short(), r, LAM), TypeError),
+        "coarse_shape": (motion.coarse_search, (y, r[:48].contiguous(), LAM),
+                         ValueError),
+        "coarse_not_16": (motion.coarse_search,
+                          (y[:40].contiguous(), r[:40].contiguous(), LAM),
+                          ValueError),
+        "coarse_device": (motion.coarse_search, (meta, meta, LAM),
+                          ValueError),
+        "coarse_strided": (motion.coarse_search,
+                           (y.t().contiguous().t(), r, LAM), ValueError),
+        "global_shifts": (motion.global_search, (y, r, s4[:3].contiguous()),
+                          ValueError),
+        "global_dtype": (motion.global_search, (y, r, s4.long()), TypeError),
+        "refine_one_base": (motion.refine_subpel,
+                            (y, r, [c2], c0, g, sg, LAM, 255), ValueError),
+        "refine_four_bases": (motion.refine_subpel,
+                              (y, r, [c2, c1, c1, c2], c0, g, sg, LAM, 255),
+                              ValueError),
+        "refine_base_shape": (motion.refine_subpel,
+                              (y, r, [c2, c1[:2].contiguous()], c0, g, sg,
+                               LAM, 255), ValueError),
+        "refine_sad_dtype": (motion.refine_subpel,
+                             (y, r, [c2, c1], c0, g, sg.double(), LAM, 255),
+                             TypeError),
+        "refine_pix_max": (motion.refine_subpel,
+                           (y, r, [c2, c1], c0, g, sg, LAM, 511), ValueError),
+        "refine_device": (motion.refine_subpel,
+                          (y, r, [c2, c1.to("meta")], c0, g, sg, LAM, 255),
+                          ValueError),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_bad_motion_calls()))
+def test_motion_wrappers_reject_bad_inputs(case):
+    fn, args, err = _bad_motion_calls()[case]
+    with pytest.raises(err):
+        fn(*args)
+
+
+def _deblock_case(bd, seed, nblk):
+    rng = np.random.RandomState(seed)
+    pm = (1 << bd) - 1
+    rows, cols = 4, 6
+    h, w = rows * nblk, cols * nblk
+    base = np.repeat(np.repeat(rng.randint(0, pm + 1, (h // 4, w // 4)), 4,
+                               0), 4, 1)
+    plane = np.clip(base // 8 * 8 + rng.randint(-2, 3, (h, w)), 0, pm)
+    return (torch.from_numpy(plane.astype(np.int32)),
+            torch.from_numpy(rng.rand(rows, cols - 1) < 0.7),
+            torch.from_numpy(rng.rand(rows - 1, cols) < 0.7),
+            torch.from_numpy(rng.rand(rows, cols) < 0.4))
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+def test_deblock_edges_on_cpu_is_plain(bd):
+    for luma, vertical, split in ((True, True, False), (True, False, True),
+                                  (False, True, True), (False, False, False)):
+        plane, von, hon, s16 = _deblock_case(bd, 4, 16 if luma else 8)
+        on = von if vertical else hon
+        s = s16 if split else None
+        got = kdeblock.deblock_edges(plane, on, 20, 0, bd, luma, vertical, s)
+        want = kdeblock.deblock_edges_plain(plane, on, 20, 0, bd, luma,
+                                            vertical, s)
+        assert torch.equal(got, want)
+        assert not torch.equal(got, plane)
+    # a level of 0 passes its plane through with no call
+    y, von, hon, s16 = _deblock_case(bd, 5, 16)
+    u = _deblock_case(bd, 6, 8)[0]
+    out = deblock_planes(y, u, u, von, hon, 0, 9, 0, 0, bd, split16=s16)
+    assert out[0] is y and out[2] is u and not torch.equal(out[1], u)
+
+
+def test_deblock_edges_rejects_bad_inputs():
+    plane, von, hon, s16 = _deblock_case(8, 1, 16)
+    ok = (plane, von, 12, 0, 8, True, True, s16)
+    kdeblock.deblock_edges(*ok)
+    bad = [
+        ((plane, von, 0, 0, 8, True, True, s16), ValueError),    # level 0
+        ((plane, von, 12, 8, 8, True, True, s16), ValueError),   # sharpness
+        ((plane, von, 12, 0, 9, True, True, s16), ValueError),   # bit depth
+        ((plane.short(), von, 12, 0, 8, True, True, s16), TypeError),
+        ((plane, hon, 12, 0, 8, True, True, s16), ValueError),   # edge shape
+        ((plane, von, 12, 0, 8, True, True, s16.int()), TypeError),
+        ((plane[:, :88].contiguous(), von, 12, 0, 8, True, True, s16),
+         ValueError),                                             # not 16
+        ((plane.t().contiguous().t(), von, 12, 0, 8, True, True, s16),
+         ValueError),                                             # strided
+        ((plane, von.to("meta"), 12, 0, 8, True, True, s16), ValueError),
+        ((plane.to("meta"), von.to("meta"), 12, 0, 8, True, True,
+          s16.to("meta")), ValueError),                           # device
+    ]
+    for args, err in bad:
+        with pytest.raises(err):
+            kdeblock.deblock_edges(*args)
+
+
+def _spy_totals(monkeypatch):
+    seen = []
+    exact = inter_v._exact_total
+
+    def spy(sads, dims):
+        out = exact(sads, dims)
+        seen.append((sads.numpy().astype(np.int64), dims, out.numpy()))
+        return out
+
+    monkeypatch.setattr(inter_v, "_exact_total", spy)
+    return seen
+
+
+@pytest.mark.parametrize("site", ["coarse", "global", "subpel"])
+def test_frame_totals_are_exact(site, monkeypatch):
+    """10-bit frames of full-contrast noise, where the totals pass 2^24: a
+    float32 sum of the block SADs would depend on its order, the exact
+    integer sum rounded once does not."""
+    rng = np.random.RandomState(7)
+    if site == "coarse":        # 256x256 quarter-res = 4096 16x16 blocks
+        src_q, ref_q = (torch.from_numpy(rng.randint(0, 1024, (256, 256))
+                                         .astype(np.int32)) for _ in range(2))
+        args = (src_q, ref_q, np.float32(1.0), np.float32(40.0))
+    y, r = (torch.from_numpy(rng.randint(0, 1024, (256, 256)).astype(
+        np.int32)) for _ in range(2))
+    seen = _spy_totals(monkeypatch)
+    if site == "coarse":
+        inter_v._coarse_search(*args)
+    elif site == "global":
+        inter_v._global_full(y, r, torch.tensor([[4, -4], [0, 8], [0, 0],
+                                                 [8, 8]], dtype=torch.int32))
+    else:
+        mv = torch.zeros((16, 16, 2), dtype=torch.int32)
+        inter_v._subpel_refine(inter_v.to_blocks(y, 16),
+                               inter_v._gather_patches(r, mv, 16, 4), mv,
+                               np.float32(30.0), 1023)
+    assert len(seen) == {"coarse": 1, "global": 125, "subpel": 1}[site]
+    big = 0
+    for sads, dims, out in seen:
+        want = sads.sum(axis=dims).astype(np.float32)
+        assert out.dtype == np.float32 and np.array_equal(out, want)
+        big = max(big, int(sads.sum(axis=dims).max()))
+    assert big > 1 << 24

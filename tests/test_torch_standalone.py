@@ -182,6 +182,7 @@ def test_every_port_module_imports_alone(alone):
     for m in ("av1tpu_torch.cli", "av1tpu_torch.coding.packer",
               "av1tpu_torch.kernels.transform_quant",
               "av1tpu_torch.kernels.inter_code", "av1tpu_torch.kernels.cdef",
+              "av1tpu_torch.kernels.motion", "av1tpu_torch.kernels.deblock",
               "av1tpu_torch.models.rates", "av1tpu_torch.ops.transforms",
               "av1tpu_torch.models.intra_part",
               "av1tpu_torch.models.intra_wave", "av1tpu_torch.spec.predict",

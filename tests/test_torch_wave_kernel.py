@@ -263,20 +263,28 @@ def test_scene_worker_reports_its_launches(monkeypatch):
     kernels would): one of each wavefront kernel per keyframe diagonal, and
     one CDEF filter per nonzero preset of the strength search plus the
     keyframe's, where its chosen preset is not all zero.  A one-frame
-    16x64 scene: its keyframe, CDEF search and filter, no inter step."""
+    16x64 scene: its keyframe, CDEF search and filter, no inter step, so
+    no motion search (the temporal filter runs in the parent) and no loop
+    filter (the wavefront keyframe signals it off)."""
     from av1tpu_torch.kernels import cdef as KC
+    from av1tpu_torch.kernels import deblock as KD
+    from av1tpu_torch.kernels import motion as KM
     from av1tpu_torch.models.cdef import CDEF_PRESETS
     from av1tpu_torch.models.intra_v import fuse_planes
     from av1tpu_torch.parallel import gop
 
-    for mod, name, wrapper in (
-            (K, "wave_luma16_plain", K.wave_luma16),
-            (K, "wave_sub_chroma_plain", K.wave_sub_chroma),
-            (KC, "cdef_filter_plain", KC.cdef_filter)):
+    for mod, name, wrapper, n in (
+            (K, "wave_luma16_plain", K.wave_luma16, 1),
+            (K, "wave_sub_chroma_plain", K.wave_sub_chroma, 1),
+            (KC, "cdef_filter_plain", KC.cdef_filter, 1),
+            (KM, "coarse_search_plain", KM.coarse_search, 3),
+            (KM, "global_search_plain", KM.global_search, 6),
+            (KM, "refine_subpel_plain", KM.refine_subpel, 2),
+            (KD, "deblock_edges_plain", KD.deblock_edges, 1)):
         fn = getattr(mod, name)
 
-        def counted(*a, _fn=fn, _w=wrapper, **k):
-            _w.launches += 1
+        def counted(*a, _fn=fn, _w=wrapper, _n=n, **k):
+            _w.launches += _n
             return _fn(*a, **k)
         monkeypatch.setattr(mod, name, counted)
     c = synthetic_clip(64, 16, 1, seed=9)
@@ -291,5 +299,7 @@ def test_scene_worker_reports_its_launches(monkeypatch):
     assert res["launches"] == {
         "transform_quantize": 0, "wave_luma16": nd, "wave_sub_chroma": nd,
         "code_blocks": 0,
-        "cdef_filter": searched + bool(np.any(res["cdef_s"]))}
+        "cdef_filter": searched + bool(np.any(res["cdef_s"])),
+        "coarse_search": 0, "global_search": 0, "refine_subpel": 0,
+        "deblock_edges": 0}
     assert res["inter_bufs"] == []

@@ -14,12 +14,14 @@ work) and the rest (each launches at least one kernel on a GPU).
 
 Each count is given twice: "plain", what the CPU runs (every hand kernel's
 plain version, operation by operation), and "card", what the card runs,
-where each call of a hand kernel's wrapper is one operation, its launch
+where each call of a hand kernel's wrapper is one operation per launch
 (the plain version then runs uncounted; the wrapper's output allocations
 are not counted).  The inter frames' "card" counts are also split by the
 port function that dispatched them (the innermost av1tpu_torch function on
-the stack; a function's count excludes its callees').  Prints one JSON
-line.  These are counts of what the program does, not device measurements.
+the stack; a function's count excludes its callees').  A wrapper whose
+call launches several kernels (the motion search's three) counts each
+launch.  Prints one JSON line.  These are counts of what the program
+does, not device measurements.
 """
 
 from __future__ import annotations
@@ -37,15 +39,26 @@ VIEW_OPS = ("view", "reshape", "expand", "permute", "transpose", "slice",
             "select", "unsqueeze", "squeeze", "alias", "as_strided", "t.",
             "unbind", "split", "detach", "_unsafe_view", "unfold")
 
-# (module, plain version the wrapper calls on the CPU, kernel name)
+# (module, plain version the wrapper calls on the CPU, kernel name, kernel
+# launches per call)
 KERNEL_PLAINS = (
     ("av1tpu_torch.kernels.transform_quant", "transform_quantize_ref",
-     "transform_quantize"),
-    ("av1tpu_torch.kernels.intra_wave", "wave_luma16_plain", "wave_luma16"),
+     "transform_quantize", 1),
+    ("av1tpu_torch.kernels.intra_wave", "wave_luma16_plain", "wave_luma16",
+     1),
     ("av1tpu_torch.kernels.intra_wave", "wave_sub_chroma_plain",
-     "wave_sub_chroma"),
-    ("av1tpu_torch.kernels.inter_code", "code_blocks_plain", "code_blocks"),
-    ("av1tpu_torch.kernels.cdef", "cdef_filter_plain", "cdef_filter"))
+     "wave_sub_chroma", 1),
+    ("av1tpu_torch.kernels.inter_code", "code_blocks_plain", "code_blocks",
+     1),
+    ("av1tpu_torch.kernels.cdef", "cdef_filter_plain", "cdef_filter", 1),
+    ("av1tpu_torch.kernels.deblock", "deblock_edges_plain", "deblock_edges",
+     1),
+    ("av1tpu_torch.kernels.motion", "coarse_search_plain", "coarse_search",
+     3),
+    ("av1tpu_torch.kernels.motion", "global_search_plain", "global_search",
+     6),
+    ("av1tpu_torch.kernels.motion", "refine_subpel_plain", "refine_subpel",
+     2))
 
 
 def _caller() -> str:
@@ -90,24 +103,24 @@ def main() -> int:
 
     active: list = []
 
-    def as_launch(fn, kernel):
-        """fn run uncounted, counted as one kernel launch."""
+    def as_launch(fn, kernel, n):
+        """fn run uncounted, counted as the kernel's n launches."""
         def launch(*a, **k):
             with _disable_current_modes():
                 out = fn(*a, **k)
             c = active[-1]
-            c.work += 1
-            c.by_fn[f"kernel {kernel}"] += 1
+            c.work += n
+            c.by_fn[f"kernel {kernel}"] += n
             return out
         return launch
 
     def counted(fn, card: bool, split: bool = False):
         saved = []
         if card:
-            for mod_name, plain, kernel in KERNEL_PLAINS:
+            for mod_name, plain, kernel, n in KERNEL_PLAINS:
                 mod = importlib.import_module(mod_name)
                 saved.append((mod, plain, getattr(mod, plain)))
-                setattr(mod, plain, as_launch(getattr(mod, plain), kernel))
+                setattr(mod, plain, as_launch(getattr(mod, plain), kernel, n))
         try:
             with Count() as c:
                 active.append(c)

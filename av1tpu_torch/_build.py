@@ -165,9 +165,9 @@ def cuda_lib() -> ctypes.CDLL:
         # y, ref, h, w, shifts4, zeroed ws, vol, sad_g, c0, g_full, stream
         "av1_global_search": [vp, vp, ci, ci, vp, vp, vp, vp, vp, vp, vp],
         # y, ref, h, w, base0, base1, base2, c0, g_full, sad_g, unit_r,
-        # unit_s, m14, pix_max, taps (host), tot, out, pred, stream
+        # unit_s, m14, pix_max, taps (host), tot, vol, out, pred, stream
         "av1_refine_subpel": [vp, vp, ci, ci, vp, vp, vp, vp, vp, vp, cf, cf,
-                              cf, ci, vp, vp, vp, vp, vp],
+                              cf, ci, vp, vp, vp, vp, vp, vp],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -1,5 +1,5 @@
 // The luma motion search of one inter frame, as three hand kernels for
-// Hopper: coarse_search (3 launches), global_search (6) and refine_subpel
+// Hopper: coarse_search (3 launches), global_search (3) and refine_subpel
 // (2).
 //
 // Replaces the jitted search of av1tpu/models/inter_v.py: `_coarse_search`
@@ -12,25 +12,6 @@
 // runs once per inter frame of both presets and once per neighbour of the
 // keyframe's temporal filter.
 //
-// What they compute, per 16x16 block unless said otherwise:
-//
-// A. coarse_search: the 4x4 mean pool of both planes; the +-8 quarter-res
-//    full search (289 SADs), its running winner (dx outer, the first dy of
-//    the least cost, a strict < across dx), the second-basin candidate
-//    (Chebyshev > 1 from the winner, dy-major, first index), and the
-//    frame totals of the 289 SADs; then the frame-dominant shift g (argmin
-//    of the totals) with its snap, and the top 4 totals (stable).
-// B. global_search: 125 whole-frame candidate shifts, 25 around each of
-//    shifts4[0], shifts4[1] and (0, 0), then two descent sweeps of 25
-//    around the running winner (clipped to +-34 px), each judged by the
-//    total of its per-block full-res SADs, the winner updated on a strict
-//    <.  The bases are read from device memory: no value goes to the host.
-// C. refine_subpel: the +-2 full-pel refine around each base (coarse,
-//    coarse2 and the optional temporal base), the snap to the global
-//    shift, then the 49-candidate quarter-pel sweep of normative 8-tap MC
-//    (InterRound0 then InterRound1), its frame totals, and the snap to the
-//    dominant sub-pel offset.
-//
 // Exactness.  SADs and the MC filters are int32, as in the plain version.
 // Every float operation that feeds a decision is written with
 // __fadd_rn/__fmul_rn (nvcc would contract a multiply-add to an FMA, which
@@ -38,21 +19,63 @@
 // come from the host as the plain version computes them.  Each frame
 // total is the exact integer sum (64-bit atomics, exact in any order)
 // rounded once to float32, as the plain version computes it, so the
-// argmins agree whatever the order of the sums.
+// argmins agree whatever the order of the sums.  Every walk of the plain
+// version (the first index of the least cost on a strict <) is a parallel
+// argmin on (cost, index): the same float costs, the lower index on a tie.
 //
-// What bounds them on an H100.  All integer work: a 1088x1920 search
-// reads the two luma planes (8.4 MB int32) a few times and writes a few MB
-// of SAD volumes, a few us at 3.35 TB/s; its integer operations (about 0.5
-// G abs-diffs and 1 G filter multiply-adds) count against no fp32 or
-// tensor peak.  So the stated bound is bytes; the kernels are far from it,
-// since each block runs its candidate walk in order on one thread.
+// What bounds them on an H100.  All of the work is int32: adds, filter
+// multiply-adds and abs-diffs with their accumulate (one __sad, one
+// VABSDIFF), one operation each, at 64 INT32 lanes per SM per clock
+// (about 16.7 T/s at 132 SMs and 1.98 GHz).  Per 1088x1920 search that is
+// about 42 M operations for A, 261 M for B (125 displacements x 2.09 M
+// pixels) and 429 M for C with two bases (2 x 25 + 49 candidates x 2.09 M
+// pixels, and 27 k filter multiply-adds per block), some 2.5, 15.6 and
+// 25.6 us; their bytes (the two int32 planes, 16.7 MB) take 5.0 us.  So
+// bytes bound A and operations B and C (chip_smoke.py:search_ops and
+// search_bounds count them).
 //
-// What the design does about it.  One block per 16x16 block keeps its
-// source and every candidate window in shared memory (the 20x20 quarter-
-// res window, the 20x20 full-res window per base, the 24x24 sub-pel patch
-// and its seven horizontal passes), so each pixel is read once per base;
-// the sums are warp shuffles, and only the short ordered walks (17, 25 or
-// 49 steps) are serial.
+// A. coarse_search: the 4x4 mean pool of both planes; the +-8 quarter-res
+//    full search (289 SADs), its running winner (dx outer, the first dy of
+//    the least cost, a strict < across dx), the second-basin candidate
+//    (Chebyshev > 1 from the winner, dy-major, first index), and the
+//    frame totals of the 289 SADs; then the frame-dominant shift g (argmin
+//    of the totals) with its snap, and the top 4 totals (stable).  One
+//    block per 16x16 block, one thread per candidate; the short walks
+//    over 17 columns and the top-4 scan are serial.
+// B. global_search: 125 whole-frame candidate shifts, 25 around each of
+//    shifts4[0], shifts4[1] and (0, 0), then two descent sweeps of 25
+//    around the running winner (clipped to +-34 px), each judged by the
+//    total of its per-block full-res SADs, the winner updated on a strict
+//    <.  Every block is judged at the same displacement, so a CTA owns a
+//    2x4 tile of blocks (one warp each) and loads the tile's reference
+//    window (the tile and a 2-px halo, per base) into shared memory once.
+//    A lane holds 8 source pixels of a column and slides down the window's
+//    columns for the 5 dx offsets, summing the 25 SADs in registers; one
+//    transposed warp reduction leaves candidate k's block SAD in lane k (a
+//    clipped descent candidate takes the lane of the unclipped one at its
+//    displacement).  The last CTA of each sweep (a fence and an atomic
+//    ticket) runs the select, so the search is 3 launches and no value
+//    goes to the host.  The per-block SADs go to a volume; the last select
+//    copies the winner's column out as sad_g.
+// C. refine_subpel: the +-2 full-pel refine around each base (coarse,
+//    coarse2 and the optional temporal base), the snap to the global
+//    shift, then the 49-candidate quarter-pel sweep of normative 8-tap MC
+//    (InterRound0 then InterRound1), its frame totals, and the snap to the
+//    dominant sub-pel offset.  One warp per 16x16 block: the full-pel
+//    refine as B's block SADs, a parallel argmin per base.  The seven
+//    quarter-pel offsets fall on four filter phases (kernels/motion.py
+//    checks the table's shape: -6/2, -4/4 and -2/6 share a row one pixel
+//    apart, 0 is the identity, taps 0 and 7 are zero), so each phase is
+//    computed once, 6 taps wide, and a candidate is a shifted view.  A lane
+//    owns a column of 8 output rows: it slides a register window down the
+//    14 horizontal-pass rows it needs, computes each vertical phase once
+//    per row and adds the abs-diffs of every candidate that reads it, 49
+//    sums in registers, then two transposed warp reductions.  The second
+//    launch takes the argmin of the 49 totals and rebuilds a prediction
+//    only where the snap changes the block's offset.
+//
+// Windows and patches reach shared memory by cp.async, 4 bytes per copy,
+// so a row clamped at the frame edge needs no path of its own.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,8 +90,8 @@ constexpr int NR = 25;              // (2 RR + 1)^2
 constexpr int MAXMV = 4 * CR + RR;  // inter_v.MAX_MV_PX = 34
 constexpr int NSUB = 49;            // 7 x 7 quarter-pel candidates
 constexpr int NG = 125;             // global candidates: 3 x 25 + 2 x 25
-constexpr int NT = 256;             // one thread per pixel of a 16x16 block
-constexpr int NW = NT / 32;
+constexpr int NT = 256;             // A: one thread per pixel of a block
+constexpr unsigned FULL = 0xffffffffu;
 
 __constant__ int kSubD[7] = {-6, -4, -2, 0, 2, 4, 6};
 
@@ -76,8 +99,8 @@ struct Bias {          // coarse MV-cost biases per offset index 0..16
   float vec[ND];       // _mv_bias over the offsets (the dy table)
   float sca[ND];       // _mv_bias of each offset alone (the dx term)
 };
-struct Taps {          // the 8-tap bank rows (d & 7) << 1 of kSubD
-  int f[7][8];
+struct Phases {        // taps 1..6 of the bank rows 4, 8 and 12: the
+  int f[3][6];         // phases of the offsets -6/2, -4/4 and -2/6
 };
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
@@ -85,25 +108,6 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
 }
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
-
-__device__ __forceinline__ int warp_sum(int v) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// the per-thread value v of candidate k into part[k][warp]
-__device__ __forceinline__ void warp_part(int v, int k, int* part) {
-  v = warp_sum(v);
-  if ((threadIdx.x & 31) == 0) part[k * NW + (threadIdx.x >> 5)] = v;
-}
-
-__device__ __forceinline__ int part_sum(const int* part, int k) {
-  int s = 0;
-#pragma unroll
-  for (int i = 0; i < NW; ++i) s += part[k * NW + i];
-  return s;
-}
 
 __device__ __forceinline__ float total_f32(unsigned long long t) {
   return __ll2float_rn((long long)t);
@@ -120,11 +124,97 @@ __device__ int argmin_totals(const unsigned long long* tot, int n) {
   }
 #pragma unroll
   for (int o = 16; o; o >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-    const int ok = __shfl_xor_sync(0xffffffffu, bk, o);
+    const float ov = __shfl_xor_sync(FULL, bv, o);
+    const int ok = __shfl_xor_sync(FULL, bk, o);
     if (ov < bv || (ov == bv && ok < bk)) { bv = ov; bk = ok; }
   }
   return bk;
+}
+
+// Every lane of the warp gets the least (cost, index): the lower index on
+// a tie, which is the plain version's first index on a strict <.
+__device__ __forceinline__ void warp_argmin(float& c, int& k) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) {
+    const float oc = __shfl_xor_sync(FULL, c, o);
+    const int ok = __shfl_xor_sync(FULL, k, o);
+    if (oc < c || (oc == c && ok < k)) { c = oc; k = ok; }
+  }
+}
+
+// One step of the transposed reduction: lanes with bit O set keep the
+// upper O values and trade the lower ones with the lane O away.
+template <int O>
+__device__ __forceinline__ void reduce_step(int (&v)[32], bool up) {
+#pragma unroll
+  for (int k = 0; k < O; ++k) {
+    const int send = up ? v[k] : v[k + O];
+    const int keep = up ? v[k + O] : v[k];
+    v[k] = keep + __shfl_xor_sync(FULL, send, O);
+  }
+}
+
+// v[k]: a lane's part of candidate k's sum.  Returns, in lane k, the whole
+// warp's sum of candidate k: 31 shuffles for 32 candidates.
+__device__ __forceinline__ int reduce32(int (&v)[32]) {
+  const int lane = threadIdx.x & 31;
+  reduce_step<16>(v, lane & 16);
+  reduce_step<8>(v, lane & 8);
+  reduce_step<4>(v, lane & 4);
+  reduce_step<2>(v, lane & 2);
+  reduce_step<1>(v, lane & 1);
+  return v[0];
+}
+
+// acc + |a - b|: one VABSDIFF with its accumulator, where abs and an add
+// are two instructions
+__device__ __forceinline__ int sad_acc(int a, int b, int acc) {
+  return (int)__sad(a, b, (unsigned)acc);
+}
+
+// A 4-byte asynchronous copy from device memory to shared memory; every
+// copy of the thread is complete after copy_wait.
+__device__ __forceinline__ void copy4(int* dst, const int* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The warp's lanes and a 16x16 block: lane (j, half) holds column j of rows
+// 8 half .. 8 half + 7.
+__device__ __forceinline__ int lane_col() { return threadIdx.x & 15; }
+__device__ __forceinline__ int lane_row0() { return (threadIdx.x & 16) >> 1; }
+
+__device__ __forceinline__ void load_src(const int* __restrict__ y, int w,
+                                         int R, int C, int (&src)[8]) {
+  const int* p = y + (size_t)(16 * R + lane_row0()) * w + 16 * C + lane_col();
+#pragma unroll
+  for (int i = 0; i < 8; ++i) src[i] = p[(size_t)i * w];
+}
+
+// The 25 full-pel candidates (dy, dx) = (bb - 2, a - 2) of a window whose
+// (0, 0) is the block's origin moved by (-2, -2): acc[5 bb + a] += this
+// lane's abs-diffs.  Each window column is read once into registers.
+__device__ __forceinline__ void sad25(const int* win, int stride,
+                                      const int (&src)[8], int (&acc)[32]) {
+  const int* p = win + lane_row0() * stride + lane_col();
+#pragma unroll
+  for (int a = 0; a < 5; ++a) {
+    int col[12];
+#pragma unroll
+    for (int r = 0; r < 12; ++r) col[r] = p[r * stride + a];
+#pragma unroll
+    for (int bb = 0; bb < 5; ++bb) {
+      int& s = acc[5 * bb + a];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) s = sad_acc(src[i], col[bb + i], s);
+    }
+  }
 }
 
 // ---- A. coarse_search ------------------------------------------------------
@@ -271,253 +361,429 @@ __global__ void __launch_bounds__(NT) coarse_select_kernel(
 
 // ---- B. global_search ------------------------------------------------------
 
-// state: [best total (float bits), g_full dy, g_full dx, winning candidate]
+constexpr int GTR = 2, GTC = 4;           // a CTA's tile of blocks
+constexpr int GW = GTR * GTC;             // one warp per block of the tile
+constexpr int GRH = 16 * GTR + 2 * RR;    // the tile's reference window, rows
+constexpr int GRW = 16 * GTC + 2 * RR;    // and columns
+constexpr int GRS = GRW + 2;              // its row stride: rows 8 apart fall
+                                          // on other banks
+// the zeroed workspace: 125 totals (64-bit), state [best total (float
+// bits), g_full dy, g_full dx, winning candidate], one ticket per sweep
+constexpr int G_TOT = 0, G_STATE = 2 * NG, G_TICKET = G_STATE + 4,
+              G_ZERO_WORDS = G_TICKET + 4;
 
-// Sweep s (0: 3 bases x 25 unclipped; 1, 2: 25 around the running winner,
-// clipped): one block per (16x16 block, base); the block's source and its
-// 20x20 reference window once, the 25 SADs into the volume and the totals.
-__global__ void __launch_bounds__(NT) global_sweep_kernel(
+// the displacement of sweep 0's candidate c (3 bases x 25, unclipped)
+__device__ __forceinline__ void sweep0_d(const int* shifts4, int c, int& d0,
+                                         int& d1) {
+  const int b = c / NR, k = c % NR;
+  d0 = (b < 2 ? shifts4[2 * b] : 0) + k / 5 - RR;
+  d1 = (b < 2 ? shifts4[2 * b + 1] : 0) + k % 5 - RR;
+}
+
+// Sweep s (0: 3 bases x 25 unclipped, grid.y the base; 1, 2: 25 around
+// the running winner, clipped): one CTA per 2x4 tile of blocks, each
+// block's 25 SADs into the volume and the CTA's sums into the totals.  The
+// sweep's last CTA picks the winner; after sweep 2 it writes g_full, c0
+// and sad_g (the winner's block SADs).
+__global__ void __launch_bounds__(GW * 32) global_sweep_kernel(
     const int* __restrict__ y, const int* __restrict__ ref, int h, int w,
-    const int* __restrict__ shifts4, const int* __restrict__ state, int sweep,
-    int* __restrict__ cand_d, int* __restrict__ vol,
-    unsigned long long* __restrict__ tot) {
-  __shared__ int s_ref[20][20];
-  __shared__ int s_part[NR * NW];
-  const int cols = w >> 4, nblk = (h >> 4) * cols;
-  const int blk = blockIdx.x, bi = blockIdx.y;
-  const int R = blk / cols, C = blk % cols;
-  const int t = threadIdx.x, i = t >> 4, j = t & 15;
+    const int* __restrict__ shifts4, int sweep, int* __restrict__ zws,
+    int* __restrict__ vol, float* __restrict__ sad_g, int* __restrict__ c0,
+    int* __restrict__ g_full) {
+  __shared__ int s_ref[GRH * GRS];
+  __shared__ int s_part[GW][NR];
+  __shared__ int s_last, s_win;
+  auto* tot = reinterpret_cast<unsigned long long*>(zws + G_TOT);
+  int* state = zws + G_STATE;
+  const int rows = h >> 4, cols = w >> 4, nblk = rows * cols;
+  const int tiles_c = (cols + GTC - 1) / GTC;
+  const int tr = blockIdx.x / tiles_c, tc = blockIdx.x % tiles_c;
+  const int t = threadIdx.x, lane = t & 31, wp = t >> 5;
   int b0, b1;
   if (sweep == 0) {
-    b0 = bi < 2 ? shifts4[2 * bi] : 0;
-    b1 = bi < 2 ? shifts4[2 * bi + 1] : 0;
+    b0 = blockIdx.y < 2 ? shifts4[2 * blockIdx.y] : 0;
+    b1 = blockIdx.y < 2 ? shifts4[2 * blockIdx.y + 1] : 0;
   } else {
     b0 = state[1];
     b1 = state[2];
   }
-  const int first = sweep == 0 ? bi * NR : 3 * NR + (sweep - 1) * NR;
-  const int src = y[(size_t)(16 * R + i) * w + 16 * C + j];
-  for (int k = t; k < 400; k += NT) {
-    const int ry = clampi(16 * R + b0 - RR + k / 20, 0, h - 1);
-    const int rx = clampi(16 * C + b1 - RR + k % 20, 0, w - 1);
-    s_ref[k / 20][k % 20] = ref[(size_t)ry * w + rx];
-  }
+  const int first = sweep == 0 ? blockIdx.y * NR : (sweep + 2) * NR;
+  const int y0 = 16 * GTR * tr + b0 - RR, x0 = 16 * GTC * tc + b1 - RR;
+  for (int k = t; k < GRH * GRW; k += GW * 32)
+    copy4(&s_ref[(k / GRW) * GRS + k % GRW],
+          &ref[(size_t)clampi(y0 + k / GRW, 0, h - 1) * w +
+               clampi(x0 + k % GRW, 0, w - 1)]);
+  copy_wait();
+  const int R = GTR * tr + wp / GTC, C = GTC * tc + wp % GTC;
+  const bool in = R < rows && C < cols;
+  int src[8];
+  if (in) load_src(y, w, R, C, src);
   __syncthreads();
-  // |base| <= 34 in every sweep, so a clipped candidate stays inside the
-  // window around its base
-  for (int k = 0; k < NR; ++k) {
-    int d0 = b0 + k / 5 - RR, d1 = b1 + k % 5 - RR;
-    if (sweep > 0) { d0 = clampi(d0, -MAXMV, MAXMV); d1 = clampi(d1, -MAXMV, MAXMV); }
-    warp_part(abs(src - s_ref[i + d0 - b0 + RR][j + d1 - b1 + RR]), k, s_part);
+  int sad = 0;
+  if (in) {
+    int acc[32] = {};
+    sad25(s_ref + 16 * (wp / GTC) * GRS + 16 * (wp % GTC), GRS, src, acc);
+    sad = reduce32(acc);
+  }
+  if (sweep > 0) {
+    // a candidate clipped to +-34 takes the SAD of the unclipped one at
+    // the same displacement: |base| <= 34, so it is one of the 25
+    const int cy = clampi(b0 + lane / 5 - RR, -MAXMV, MAXMV) - b0 + RR;
+    const int cx = clampi(b1 + lane % 5 - RR, -MAXMV, MAXMV) - b1 + RR;
+    sad = __shfl_sync(FULL, sad, lane < NR ? 5 * cy + cx : lane);
+  }
+  if (lane < NR) {
+    s_part[wp][lane] = sad;
+    if (in) vol[(size_t)(first + lane) * nblk + R * cols + C] = sad;
   }
   __syncthreads();
   if (t < NR) {
-    const int s = part_sum(s_part, t), c = first + t;
-    vol[(size_t)c * nblk + blk] = s;
-    atomicAdd(&tot[c], (unsigned long long)s);
-    if (blk == 0) {
-      int d0 = b0 + t / 5 - RR, d1 = b1 + t % 5 - RR;
-      if (sweep > 0) { d0 = clampi(d0, -MAXMV, MAXMV); d1 = clampi(d1, -MAXMV, MAXMV); }
-      cand_d[2 * c] = d0;
-      cand_d[2 * c + 1] = d1;
+    int s = 0;
+#pragma unroll
+    for (int i = 0; i < GW; ++i) s += s_part[i][t];
+    atomicAdd(&tot[first + t], (unsigned long long)s);
+  }
+  // the last CTA to finish sees every total and every block SAD
+  __threadfence();
+  __syncthreads();
+  if (t == 0)
+    s_last = atomicAdd(reinterpret_cast<unsigned*>(zws + G_TICKET + sweep),
+                       1u) == gridDim.x * gridDim.y - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  if (wp == 0) {
+    const int lo = sweep == 0 ? 0 : first, count = sweep == 0 ? 3 * NR : NR;
+    float v = inf_f();
+    int k = count;
+    for (int c = lane; c < count; c += 32) {
+      const float tv = total_f32(__ldcg(&tot[lo + c]));
+      if (tv < v) { v = tv; k = c; }
+    }
+    warp_argmin(v, k);
+    const float best = sweep == 0 ? inf_f() : __int_as_float(state[0]);
+    if (lane == 0) {
+      int win = state[3];
+      if (v < best) {
+        int d0, d1;
+        if (sweep == 0) {
+          sweep0_d(shifts4, k, d0, d1);
+        } else {
+          d0 = clampi(b0 + k / 5 - RR, -MAXMV, MAXMV);
+          d1 = clampi(b1 + k % 5 - RR, -MAXMV, MAXMV);
+        }
+        win = lo + k;
+        state[0] = __float_as_int(v);
+        state[1] = d0;
+        state[2] = d1;
+        state[3] = win;
+        if (sweep == 2) {
+          g_full[0] = d0; g_full[1] = d1;
+        }
+      } else if (sweep == 2) {
+        g_full[0] = state[1]; g_full[1] = state[2];
+      }
+      if (sweep == 2) {
+        c0[0] = clampi(((g_full[0] + 2) >> 2) * 4, -4 * CR, 4 * CR);
+        c0[1] = clampi(((g_full[1] + 2) >> 2) * 4, -4 * CR, 4 * CR);
+      }
+      s_win = win;
     }
   }
-}
-
-// One block: the sweep's candidates in order, the winner on a strict <;
-// after the last sweep, sad_g (the winner's block SADs), g_full and c0.
-__global__ void __launch_bounds__(NT) global_select_kernel(
-    const unsigned long long* __restrict__ tot, const int* __restrict__ cand_d,
-    int first, int count, int* __restrict__ state, int last,
-    const int* __restrict__ vol, int nblk, float* __restrict__ sad_g,
-    int* __restrict__ c0, int* __restrict__ g_full) {
-  __shared__ int s_win;
-  if (threadIdx.x == 0) {
-    float best = first == 0 ? inf_f() : __int_as_float(state[0]);
-    int g0 = state[1], g1 = state[2], win = state[3];
-    for (int c = first; c < first + count; ++c) {
-      const float v = total_f32(tot[c]);
-      if (v < best) { best = v; g0 = cand_d[2 * c]; g1 = cand_d[2 * c + 1]; win = c; }
-    }
-    state[0] = __float_as_int(best);
-    state[1] = g0; state[2] = g1; state[3] = win;
-    s_win = win;
-    if (last) {
-      g_full[0] = g0; g_full[1] = g1;
-      c0[0] = clampi(((g0 + 2) >> 2) * 4, -4 * CR, 4 * CR);
-      c0[1] = clampi(((g1 + 2) >> 2) * 4, -4 * CR, 4 * CR);
-    }
-  }
-  if (!last) return;
+  if (sweep != 2) return;
   __syncthreads();
   const int* v = vol + (size_t)s_win * nblk;
-  for (int b = threadIdx.x; b < nblk; b += NT) sad_g[b] = (float)v[b];
+#pragma unroll 8
+  for (int b = t; b < nblk; b += GW * 32) sad_g[b] = (float)__ldcg(&v[b]);
 }
 
 // ---- C. refine_subpel ------------------------------------------------------
 
-// The 24x24 clamped patch at the block's MV (row r <-> 16R + mv + r - 4)
-// into s_p, then the 24x16 horizontal pass of sub-pel column xi into dst.
-__device__ __forceinline__ void load_p24(const int* __restrict__ ref, int h,
-                                         int w, int R, int C, int m0, int m1,
-                                         int (*s_p)[24]) {
-  for (int k = threadIdx.x; k < 576; k += NT) {
-    const int ry = clampi(16 * R + m0 - 4 + k / 24, 0, h - 1);
-    const int rx = clampi(16 * C + m1 - 4 + k % 24, 0, w - 1);
-    s_p[k / 24][k % 24] = ref[(size_t)ry * w + rx];
+constexpr int RW = 4;             // blocks (warps) per CTA
+constexpr int WS = 22;            // a 20x20 window's row stride, and
+constexpr int PS = 26;            // the 24x24 patch's: rows 8 apart fall
+                                  // on other banks
+constexpr int WWORDS = 3 * 20 * WS;   // a warp's shared words: three
+                                      // windows, later the patch
+
+// The 24x24 patch at the block's MV (row r <-> 16R + mv + r - 4), clamped
+// at the frame, into p (row stride PS) by the warp.
+__device__ __forceinline__ void load_patch(const int* __restrict__ ref, int h,
+                                           int w, int R, int C, int m0,
+                                           int m1, int* p) {
+  for (int k = threadIdx.x & 31; k < 576; k += 32)
+    copy4(&p[(k / 24) * PS + k % 24],
+          &ref[(size_t)clampi(16 * R + m0 - 4 + k / 24, 0, h - 1) * w +
+               clampi(16 * C + m1 - 4 + k % 24, 0, w - 1)]);
+  copy_wait();
+  __syncwarp();
+}
+
+// acc[k] of candidate k: acc[k] in a for k < 32, b[k - 32] after
+__device__ __forceinline__ int& acc49(int (&a)[32], int (&b)[32], int k) {
+  return k < 32 ? a[k < 32 ? k : 0] : b[k < 32 ? 0 : k - 32];
+}
+
+// tap m (of taps 1..6) of the offset d's filter row, d != 0 picking its
+// phase, d == 0 the identity
+__device__ __forceinline__ int tap(const Phases& ph, int d, int m) {
+  const int f = ((d & 7) >> 1) - 1;
+  return d == 0 ? (m == 2 ? 128 : 0)
+                : f == 0 ? ph.f[0][m] : f == 1 ? ph.f[1][m] : ph.f[2][m];
+}
+
+// This lane's abs-diffs of the 49 quarter-pel candidates (dy, dx) =
+// (kSubD[k / 7], kSubD[k % 7]), from the 24x24 patch p.
+//
+// The horizontal pass of offset d reads patch columns c + 2 + (d >> 3) + m
+// with taps 1..6 (m = 0..5) of its phase row (d & 7) << 1.  Offsets -6 and
+// 2 share phase 4, one column apart (likewise -4/4 on phase 8, -2/6 on
+// phase 12), and 0 is the identity: so this lane computes column j of the
+// identity and columns j (negative offset) and j + 1 (positive) of each
+// phase, as hw[x], x = 0 the identity, 2p + 1 and 2p + 2 phase p.  The
+// vertical pass likewise: row u of phase p serves output row u of the
+// negative offset and u - 1 of the positive one, and the lane walks the 14
+// horizontal-pass rows 8 half + 1 .. 8 half + 14 with a window of the last
+// 6 in registers, adding each vertical output's abs-diff to every
+// candidate that reads it.
+__device__ __forceinline__ void subpel49(const int* p, const Phases& ph,
+                                         int pix_max, const int (&src)[8],
+                                         int (&a)[32], int (&b)[32]) {
+  const int* q0 = p + (lane_row0() + 1) * PS + lane_col() + 1;
+  int hw[7][14];
+#pragma unroll
+  for (int t = 0; t < 14; ++t) {
+    int q[7];
+#pragma unroll
+    for (int m = 0; m < 7; ++m) q[m] = q0[t * PS + m];
+    hw[0][t] = (128 * q[3] + 4) >> 3;                   // InterRound0
+#pragma unroll
+    for (int f = 0; f < 3; ++f) {
+      int s0 = 0, s1 = 0;
+#pragma unroll
+      for (int m = 0; m < 6; ++m) {
+        s0 += ph.f[f][m] * q[m];
+        s1 += ph.f[f][m] * q[m + 1];
+      }
+      hw[2 * f + 1][t] = (s0 + 4) >> 3;
+      hw[2 * f + 2][t] = (s1 + 4) >> 3;
+    }
+#pragma unroll
+    for (int x = 0; x < 7; ++x) {
+      const int xi = x == 0 ? 3 : x & 1 ? (x - 1) / 2 : (x - 2) / 2 + 4;
+      if (t >= 3 && t <= 10) {        // the vertical identity, row t - 3
+        const int v = clampi((128 * hw[x][t] + 1024) >> 11, 0, pix_max);
+        int& r = acc49(a, b, 3 * 7 + xi);
+        r = sad_acc(src[t - 3], v, r);
+      }
+      if (t >= 5) {                   // vertical phase rows u = t - 5
+        const int u = t - 5;
+#pragma unroll
+        for (int f = 0; f < 3; ++f) {
+          int s = 0;
+#pragma unroll
+          for (int m = 0; m < 6; ++m) s += ph.f[f][m] * hw[x][u + m];
+          const int v = clampi((s + 1024) >> 11, 0, pix_max);  // InterRound1
+          if (u <= 7) {
+            int& r = acc49(a, b, f * 7 + xi);
+            r = sad_acc(src[u], v, r);
+          }
+          if (u >= 1) {
+            int& r = acc49(a, b, (f + 4) * 7 + xi);
+            r = sad_acc(src[u - 1], v, r);
+          }
+        }
+      }
+    }
   }
 }
 
-__device__ __forceinline__ int hor_tap(const int (*s_p)[24], const Taps& tp,
-                                       int xi, int r, int c) {
-  const int ix = kSubD[xi] >> 3;
-  int a = 0;
+// This lane's 8 predicted pixels of quarter-pel candidate k (uniform in
+// the warp), from the 24x24 patch p, with the same arithmetic.
+__device__ __forceinline__ void pred_at(const int* p, const Phases& ph,
+                                        int pix_max, int k, int (&out)[8]) {
+  const int dy = kSubD[k / 7], dx = kSubD[k % 7];
+  int fx[6], fy[6];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) a += tp.f[xi][k] * s_p[r][c + 1 + ix + k];
-  return (a + 4) >> 3;                                  // InterRound0
+  for (int m = 0; m < 6; ++m) {
+    fx[m] = tap(ph, dx, m);
+    fy[m] = tap(ph, dy, m);
+  }
+  // horizontal-pass rows 8 half + 2 + (dy >> 3) + t, t = 0..12
+  const int* q0 = p + (lane_row0() + 2 + (dy >> 3)) * PS + lane_col() + 2 +
+                  (dx >> 3);
+  int hc[13];
+#pragma unroll
+  for (int t = 0; t < 13; ++t) {
+    int s = 0;
+#pragma unroll
+    for (int m = 0; m < 6; ++m) s += fx[m] * q0[t * PS + m];
+    hc[t] = (s + 4) >> 3;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    int s = 0;
+#pragma unroll
+    for (int m = 0; m < 6; ++m) s += fy[m] * hc[i + m];
+    out[i] = clampi((s + 1024) >> 11, 0, pix_max);
+  }
 }
 
-// pixel (i, j) of sub-pel row yi from a 24x16 horizontal pass
-__device__ __forceinline__ int ver_tap(const int* hor, const Taps& tp, int yi,
-                                       int i, int j, int pix_max) {
-  const int iy = kSubD[yi] >> 3;
-  int a = 0;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) a += tp.f[yi][k] * hor[(1 + iy + k + i) * 16 + j];
-  return clampi((a + 1024) >> 11, 0, pix_max);          // InterRound1
+__device__ __forceinline__ float subpel_cost(int k, int sad, float unit_s) {
+  const int n = 2 * (kSubD[k / 7] != 0) + 2 * (kSubD[k % 7] != 0);
+  return __fadd_rn((float)sad, __fmul_rn(unit_s, (float)n));
 }
 
 // out (int32 words, per block b): mv8 [2b], mv_px [2 nblk + 2b], coarse_f
 // [4 nblk + 2b], off_f [6 nblk + 2b], the sweep's best index [8 nblk + b]
-// and best SAD (float bits) [9 nblk + b].
-__global__ void __launch_bounds__(NT) refine_kernel(
+// and best SAD (float bits) [9 nblk + b]; vol: the 49 SADs, [k nblk + b].
+// One warp per 16x16 block, RW blocks per CTA; at most 128 registers a
+// thread, so that 16 warps share an SM.
+__global__ void __launch_bounds__(RW * 32, 4) refine_kernel(
     const int* __restrict__ y, const int* __restrict__ ref, int h, int w,
     const int* __restrict__ base0, const int* __restrict__ base1,
     const int* __restrict__ base2, const int* __restrict__ c0,
     const int* __restrict__ g_full, const float* __restrict__ sad_g,
-    float unit_r, float unit_s, float m14, int pix_max, Taps tp,
-    unsigned long long* __restrict__ tot, int* __restrict__ out,
-    int* __restrict__ pred) {
-  __shared__ int s_ref[20][20];
-  __shared__ int s_p[24][24];
-  __shared__ int s_hor[7][24 * 16];
-  __shared__ int s_part[NSUB * NW];
-  __shared__ int s_mv[2], s_bk;
+    float unit_r, float unit_s, float m14, int pix_max, Phases ph,
+    unsigned long long* __restrict__ tot, int* __restrict__ vol,
+    int* __restrict__ out, int* __restrict__ pred) {
+  __shared__ int s_win[RW][WWORDS];
+  __shared__ int s_sad[RW][NSUB];
   const int cols = w >> 4, nblk = (h >> 4) * cols;
-  const int blk = blockIdx.x, R = blk / cols, C = blk % cols;
-  const int t = threadIdx.x, i = t >> 4, j = t & 15;
-  const int src = y[(size_t)(16 * R + i) * w + 16 * C + j];
+  const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5;
+  const int blk = blockIdx.x * RW + wp;
+  if (blk < nblk) {
+    const int R = blk / cols, C = blk % cols;
+    int* win = s_win[wp];
+    const int nb = base2 ? 3 : 2;
+    int b0[3], b1[3];
+#pragma unroll
+    for (int bi = 0; bi < 3; ++bi) {
+      if (bi >= nb) break;
+      const int* bp = bi == 0 ? base0 : bi == 1 ? base1 : base2;
+      b0[bi] = bp[2 * blk];
+      b1[bi] = bp[2 * blk + 1];
+      for (int k = lane; k < 400; k += 32)
+        copy4(&win[bi * 20 * WS + (k / 20) * WS + k % 20],
+              &ref[(size_t)clampi(16 * R + b0[bi] - RR + k / 20, 0, h - 1) * w
+                   + clampi(16 * C + b1[bi] - RR + k % 20, 0, w - 1)]);
+    }
+    copy_wait();
+    int src[8];
+    load_src(y, w, R, C, src);
+    __syncwarp();
 
-  // the +-2 refine around each base; thread 0 keeps the walk's state
-  float bc = inf_f(), bsad = inf_f();
-  int bm0 = 0, bm1 = 0, bf0 = 0, bf1 = 0;
-  const int nb = base2 ? 3 : 2;
-  for (int bi = 0; bi < nb; ++bi) {
-    const int* bp = bi == 0 ? base0 : bi == 1 ? base1 : base2;
-    const int b0 = bp[2 * blk], b1 = bp[2 * blk + 1];
-    __syncthreads();
-    for (int k = t; k < 400; k += NT) {
-      const int ry = clampi(16 * R + b0 - RR + k / 20, 0, h - 1);
-      const int rx = clampi(16 * C + b1 - RR + k % 20, 0, w - 1);
-      s_ref[k / 20][k % 20] = ref[(size_t)ry * w + rx];
-    }
-    __syncthreads();
-    for (int k = 0; k < NR; ++k)
-      warp_part(abs(src - s_ref[i + k / 5][j + k % 5]), k, s_part);
-    __syncthreads();
-    if (t == 0) {
-      float c = inf_f(), sd = inf_f();
-      int m0 = 0, m1 = 0;
-      for (int k = 0; k < NR; ++k) {
-        const int dy = k / 5 - RR, dx = k % 5 - RR;
-        const float sad = (float)part_sum(s_part, k);
-        const float cost = __fadd_rn(sad, __fmul_rn(unit_r, (float)(abs(dy) + abs(dx))));
-        if (cost < c) { c = cost; sd = sad; m0 = b0 + dy; m1 = b1 + dx; }
+    // the +-2 refine around each base: a parallel argmin per base, the
+    // bases in order on a strict <
+    float bc = inf_f();
+    int bsad = 0, bm0 = 0, bm1 = 0, bf0 = 0, bf1 = 0;
+#pragma unroll
+    for (int bi = 0; bi < 3; ++bi) {
+      if (bi >= nb) break;
+      int acc[32] = {};
+      sad25(win + bi * 20 * WS, WS, src, acc);
+      const int sad = reduce32(acc);
+      const int n = abs(lane / 5 - RR) + abs(lane % 5 - RR);   // |dy|+|dx|
+      float c = lane < NR
+                    ? __fadd_rn((float)sad, __fmul_rn(unit_r, (float)n))
+                    : inf_f();
+      int k = lane;
+      warp_argmin(c, k);
+      const int sd = __shfl_sync(FULL, sad, k);
+      if (bi == 0 || c < bc) {
+        bc = c; bsad = sd;
+        bm0 = b0[bi] + k / 5 - RR; bm1 = b1[bi] + k % 5 - RR;
+        bf0 = b0[bi]; bf1 = b1[bi];
       }
-      if (bi == 0 || c < bc) { bc = c; bsad = sd; bm0 = m0; bm1 = m1; bf0 = b0; bf1 = b1; }
     }
-  }
-  if (t == 0) {            // the snap to the global shift
-    const bool snap = sad_g[blk] <= __fadd_rn(bsad, m14);
+    // the snap to the global shift
+    const bool snap = sad_g[blk] <= __fadd_rn((float)bsad, m14);
     const int m0 = snap ? g_full[0] : bm0, m1 = snap ? g_full[1] : bm1;
     const int f0 = snap ? c0[0] : bf0, f1 = snap ? c0[1] : bf1;
-    out[2 * nblk + 2 * blk] = m0; out[2 * nblk + 2 * blk + 1] = m1;
-    out[4 * nblk + 2 * blk] = f0; out[4 * nblk + 2 * blk + 1] = f1;
-    out[6 * nblk + 2 * blk] = m0 - f0; out[6 * nblk + 2 * blk + 1] = m1 - f1;
-    s_mv[0] = m0; s_mv[1] = m1;
-  }
-  __syncthreads();
-
-  // the quarter-pel sweep: seven horizontal passes, then 49 vertical ones
-  load_p24(ref, h, w, R, C, s_mv[0], s_mv[1], s_p);
-  __syncthreads();
-  for (int k = t; k < 7 * 384; k += NT) {
-    const int xi = k / 384, r = (k / 16) % 24, c = k % 16;
-    s_hor[xi][r * 16 + c] = hor_tap(s_p, tp, xi, r, c);
-  }
-  __syncthreads();
-  for (int yi = 0; yi < 7; ++yi)
-    for (int xi = 0; xi < 7; ++xi)
-      warp_part(abs(src - ver_tap(s_hor[xi], tp, yi, i, j, pix_max)),
-                yi * 7 + xi, s_part);
-  __syncthreads();
-  if (t < NSUB) atomicAdd(&tot[t], (unsigned long long)part_sum(s_part, t));
-  if (t == 0) {            // dy outer, dx inner, a strict <
-    float c = inf_f(), sd = inf_f();
-    int bk = 0;
-    for (int k = 0; k < NSUB; ++k) {
-      const int dy = kSubD[k / 7], dx = kSubD[k % 7];
-      const float sad = (float)part_sum(s_part, k);
-      const float n = (float)(2 * (dy != 0) + 2 * (dx != 0));
-      const float cost = __fadd_rn(sad, __fmul_rn(unit_s, n));
-      if (cost < c) { c = cost; sd = sad; bk = k; }
+    if (lane == 0) {
+      out[2 * nblk + 2 * blk] = m0; out[2 * nblk + 2 * blk + 1] = m1;
+      out[4 * nblk + 2 * blk] = f0; out[4 * nblk + 2 * blk + 1] = f1;
+      out[6 * nblk + 2 * blk] = m0 - f0; out[6 * nblk + 2 * blk + 1] = m1 - f1;
     }
-    out[8 * nblk + blk] = bk;
-    out[9 * nblk + blk] = __float_as_int(sd);
-    s_bk = bk;
+
+    // the quarter-pel sweep at the full-pel winner
+    __syncwarp();
+    load_patch(ref, h, w, R, C, m0, m1, win);
+    int sa[32] = {}, sb[32] = {};
+    subpel49(win, ph, pix_max, src, sa, sb);
+    const int sad_a = reduce32(sa), sad_b = reduce32(sb);
+    float c = subpel_cost(lane, sad_a, unit_s);
+    int k = lane;
+    if (lane + 32 < NSUB) {
+      const float cb = subpel_cost(lane + 32, sad_b, unit_s);
+      if (cb < c) { c = cb; k = lane + 32; }
+    }
+    warp_argmin(c, k);
+    const int sd_a = __shfl_sync(FULL, sad_a, k & 31);
+    const int sd_b = __shfl_sync(FULL, sad_b, k & 31);
+    vol[(size_t)lane * nblk + blk] = sad_a;
+    s_sad[wp][lane] = sad_a;
+    if (lane + 32 < NSUB) {
+      vol[(size_t)(lane + 32) * nblk + blk] = sad_b;
+      s_sad[wp][lane + 32] = sad_b;
+    }
+    if (lane == 0) {
+      out[8 * nblk + blk] = k;
+      out[9 * nblk + blk] = __float_as_int((float)(k < 32 ? sd_a : sd_b));
+    }
+    int pv[8];
+    pred_at(win, ph, pix_max, k, pv);
+    int* o = pred + (size_t)blk * 256 + lane_row0() * 16 + lane_col();
+#pragma unroll
+    for (int i = 0; i < 8; ++i) o[i * 16] = pv[i];
+  } else {
+    for (int k = lane; k < NSUB; k += 32) s_sad[wp][k] = 0;
   }
   __syncthreads();
-  pred[(size_t)blk * 256 + t] =
-      ver_tap(s_hor[s_bk % 7], tp, s_bk / 7, i, j, pix_max);
+  if (threadIdx.x < NSUB) {
+    int s = 0;
+#pragma unroll
+    for (int i = 0; i < RW; ++i) s += s_sad[i][threadIdx.x];
+    atomicAdd(&tot[threadIdx.x], (unsigned long long)s);
+  }
 }
 
-// The snap to the dominant sub-pel offset (argmin of the 49 totals), and
-// mv8 = mv_px * 8 + the chosen offset.
-__global__ void __launch_bounds__(NT) subpel_snap_kernel(
-    const int* __restrict__ y, const int* __restrict__ ref, int h, int w,
-    const unsigned long long* __restrict__ tot, float m14, int pix_max,
-    Taps tp, int* __restrict__ out, int* __restrict__ pred) {
-  __shared__ int s_p[24][24];
-  __shared__ int s_hor[24 * 16];
-  __shared__ int s_part[NW];
-  __shared__ int s_gi, s_snap;
+// The snap to the dominant sub-pel offset (the argmin of the 49 totals,
+// read by every warp), and mv8 = mv_px * 8 + the chosen offset; a block
+// whose offset the snap changes gets the prediction at it.
+__global__ void __launch_bounds__(RW * 32) subpel_snap_kernel(
+    const int* __restrict__ ref, int h, int w,
+    const unsigned long long* __restrict__ tot, const int* __restrict__ vol,
+    float m14, int pix_max, Phases ph, int* __restrict__ out,
+    int* __restrict__ pred) {
+  __shared__ int s_p[RW][24 * PS];
   const int cols = w >> 4, nblk = (h >> 4) * cols;
-  const int blk = blockIdx.x, R = blk / cols, C = blk % cols;
-  const int t = threadIdx.x, i = t >> 4, j = t & 15;
-  const int src = y[(size_t)(16 * R + i) * w + 16 * C + j];
-  if (t < 32) {
-    const int g = argmin_totals(tot, NSUB);
-    if (t == 0) s_gi = g;
+  const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5;
+  const int blk = blockIdx.x * RW + wp;
+  if (blk >= nblk) return;
+  float v = total_f32(tot[lane]);
+  int gi = lane;
+  if (lane + 32 < NSUB) {
+    const float vb = total_f32(tot[lane + 32]);
+    if (vb < v) { v = vb; gi = lane + 32; }
   }
+  warp_argmin(v, gi);
+  const int bk = out[8 * nblk + blk];
+  const bool snap = (float)vol[(size_t)gi * nblk + blk] <=
+                    __fadd_rn(__int_as_float(out[9 * nblk + blk]), m14);
+  const int k = snap ? gi : bk;
   const int m0 = out[2 * nblk + 2 * blk], m1 = out[2 * nblk + 2 * blk + 1];
-  load_p24(ref, h, w, R, C, m0, m1, s_p);
-  __syncthreads();
-  const int gi = s_gi;
-  for (int k = t; k < 384; k += NT)
-    s_hor[k] = hor_tap(s_p, tp, gi % 7, k / 16, k % 16);
-  __syncthreads();
-  const int v = ver_tap(s_hor, tp, gi / 7, i, j, pix_max);
-  warp_part(abs(src - v), 0, s_part);
-  __syncthreads();
-  if (t == 0) {
-    const float sad = (float)part_sum(s_part, 0);
-    s_snap = sad <= __fadd_rn(__int_as_float(out[9 * nblk + blk]), m14);
-    const int bk = s_snap ? gi : out[8 * nblk + blk];
-    out[2 * blk] = m0 * 8 + kSubD[bk / 7];
-    out[2 * blk + 1] = m1 * 8 + kSubD[bk % 7];
+  if (lane == 0) {
+    out[2 * blk] = m0 * 8 + kSubD[k / 7];
+    out[2 * blk + 1] = m1 * 8 + kSubD[k % 7];
   }
-  __syncthreads();
-  if (s_snap) pred[(size_t)blk * 256 + t] = v;
+  if (k == bk) return;
+  load_patch(ref, h, w, blk / cols, blk % cols, m0, m1, s_p[wp]);
+  int pv[8];
+  pred_at(s_p[wp], ph, pix_max, k, pv);
+  int* o = pred + (size_t)blk * 256 + lane_row0() * 16 + lane_col();
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o[i * 16] = pv[i];
 }
 
 // workspace layouts, in int32 words (64-bit totals first)
@@ -535,10 +801,6 @@ struct CoarseWs {
     words = best_sad + nblk;
   }
 };
-
-// the zeroed part of global_search's workspace: totals, state, candidates
-constexpr int G_TOT = 0, G_STATE = 2 * NG, G_CAND = G_STATE + 4,
-              G_ZERO_WORDS = G_CAND + 2 * NG;
 
 }  // namespace
 
@@ -576,39 +838,34 @@ extern "C" int av1_global_search(const int* y, const int* ref, int h, int w,
                                  const int* shifts4, int* zws, int* vol,
                                  float* sad_g, int* c0, int* g_full,
                                  cudaStream_t stream) {
-  const int nblk = (h >> 4) * (w >> 4);
-  auto* tot = reinterpret_cast<unsigned long long*>(zws + G_TOT);
-  int* state = zws + G_STATE;
-  int* cand = zws + G_CAND;
-  for (int s = 0; s < 3; ++s) {
-    const int nb = s == 0 ? 3 : 1;
-    global_sweep_kernel<<<dim3(nblk, nb), NT, 0, stream>>>(
-        y, ref, h, w, shifts4, state, s, cand, vol, tot);
-    global_select_kernel<<<1, NT, 0, stream>>>(
-        tot, cand, s == 0 ? 0 : 3 * NR + (s - 1) * NR, nb * NR, state,
-        s == 2, vol, nblk, sad_g, c0, g_full);
-  }
+  const int tiles = ((h >> 4) + GTR - 1) / GTR * (((w >> 4) + GTC - 1) / GTC);
+  for (int s = 0; s < 3; ++s)
+    global_sweep_kernel<<<dim3(tiles, s == 0 ? 3 : 1), GW * 32, 0, stream>>>(
+        y, ref, h, w, shifts4, s, zws, vol, sad_g, c0, g_full);
   return (int)cudaGetLastError();
 }
 
 // bases: base0, base1 and optional base2, (rows, cols, 2); tot: 49 zeroed
-// 64-bit totals; out: 10 x nblk int32 words (refine_kernel's layout);
-// pred: (rows, cols, 16, 16).  taps: 7 x 8 ints (host).
+// 64-bit totals; vol: 49 x nblk int32; out: 10 x nblk int32 words
+// (refine_kernel's layout); pred: (rows, cols, 16, 16).  taps: the 7 x 8
+// bank rows of the offsets -6..6 (host), whose shape kernels/motion.py has
+// checked: rows 0..2 give the phases.
 extern "C" int av1_refine_subpel(const int* y, const int* ref, int h, int w,
                                  const int* base0, const int* base1,
                                  const int* base2, const int* c0,
                                  const int* g_full, const float* sad_g,
                                  float unit_r, float unit_s, float m14,
                                  int pix_max, const int* taps,
-                                 unsigned long long* tot, int* out,
+                                 unsigned long long* tot, int* vol, int* out,
                                  int* pred, cudaStream_t stream) {
-  Taps tp;
-  for (int k = 0; k < 56; ++k) tp.f[k / 8][k % 8] = taps[k];
-  const int nblk = (h >> 4) * (w >> 4);
-  refine_kernel<<<nblk, NT, 0, stream>>>(
+  Phases ph;
+  for (int f = 0; f < 3; ++f)
+    for (int m = 0; m < 6; ++m) ph.f[f][m] = taps[8 * f + 1 + m];
+  const int nblk = (h >> 4) * (w >> 4), grid = (nblk + RW - 1) / RW;
+  refine_kernel<<<grid, RW * 32, 0, stream>>>(
       y, ref, h, w, base0, base1, base2, c0, g_full, sad_g, unit_r, unit_s,
-      m14, pix_max, tp, tot, out, pred);
-  subpel_snap_kernel<<<nblk, NT, 0, stream>>>(y, ref, h, w, tot, m14,
-                                              pix_max, tp, out, pred);
+      m14, pix_max, ph, tot, vol, out, pred);
+  subpel_snap_kernel<<<grid, RW * 32, 0, stream>>>(ref, h, w, tot, vol, m14,
+                                                   pix_max, ph, out, pred);
   return (int)cudaGetLastError();
 }

@@ -11,7 +11,7 @@ models/inter_v.py's `_search_mv` runs the three in turn:
   top-4 global shifts (3 launches);
 - `global_search`: the full-resolution global candidate, judged by
   whole-frame SADs around the top-2 shifts and zero, then two descent
-  sweeps (6 launches);
+  sweeps (3 launches, the last CTA of each sweep taking its select);
 - `refine_subpel`: the +-2 full-pel refine around each base, the snap to
   the global candidate, and the 49-candidate quarter-pel sweep with its
   snap to the dominant offset (2 launches).
@@ -40,7 +40,7 @@ from av1tpu_torch.kernels.transform_quant import _check
 f32 = np.float32
 
 # kernel launches of one call of each wrapper
-COARSE_LAUNCHES, GLOBAL_LAUNCHES, REFINE_LAUNCHES = 3, 6, 2
+COARSE_LAUNCHES, GLOBAL_LAUNCHES, REFINE_LAUNCHES = 3, 3, 2
 _NGLOBAL = 125     # global candidates: 3 bases x 25, then 2 sweeps x 25
 
 
@@ -210,15 +210,51 @@ def refine_subpel_plain(y, ref_y, bases, c0, g_full, sad_g, lam,
     return mv8, pred_y, mv_px, coarse_f, off_f
 
 
-@functools.cache
-def _subpel_taps():
-    """(7 x 8) int host table: the 8-tap bank rows (d & 7) << 1 of the
-    quarter-pel offsets d."""
+# the quarter-pel offsets (1/8 pel) the kernel is built for
+_KERNEL_SUBPEL_D = (-6, -4, -2, 0, 2, 4, 6)
+
+
+def subpel_taps() -> np.ndarray:
+    """(7 x 8) int32: the 8-tap bank rows (d & 7) << 1 of the quarter-pel
+    offsets d of models/inter_v.py:_SUBPEL_D."""
     from av1tpu_torch.models.inter_v import _SUBPEL_D
     from av1tpu_torch.spec import tables as spec_tables
 
     bank = np.asarray(spec_tables.subpel_filters()["regular"], np.int32)
-    taps = np.stack([bank[(d & 7) << 1] for d in _SUBPEL_D])
+    return np.stack([bank[(d & 7) << 1] for d in _SUBPEL_D])
+
+
+def check_subpel_phases(d, taps) -> None:
+    """The premise of refine_subpel's kernel, which computes each filter
+    phase once and reads the seven offsets as shifted views: the offsets
+    are -6..6 in steps of 2; -6 and 2, -4 and 4, -2 and 6 have equal rows
+    (one phase, one pixel apart); 0 is the identity (tap 3 = 128); taps 0
+    and 7 are zero.  Raises ValueError otherwise."""
+    taps = np.asarray(taps)
+    ident = np.zeros(8, taps.dtype)
+    ident[3] = 128
+    if tuple(d) != _KERNEL_SUBPEL_D or taps.shape != (7, 8):
+        raise ValueError(f"refine_subpel's kernel takes the offsets "
+                         f"{_KERNEL_SUBPEL_D}, got {tuple(d)}")
+    for lo, hi in ((0, 4), (1, 5), (2, 6)):
+        if not np.array_equal(taps[lo], taps[hi]):
+            raise ValueError(f"offsets {d[lo]} and {d[hi]} have different "
+                             f"filter rows {taps[lo]} and {taps[hi]}")
+    if not np.array_equal(taps[3], ident):
+        raise ValueError(f"offset 0's filter row {taps[3]} is not the "
+                         "identity")
+    if taps[:, 0].any() or taps[:, 7].any():
+        raise ValueError("the filter rows' taps 0 and 7 are not all zero")
+
+
+@functools.cache
+def _subpel_taps():
+    """The 7 x 8 tap table as a host array for the kernel, its premise
+    checked once per process (check_subpel_phases)."""
+    from av1tpu_torch.models.inter_v import _SUBPEL_D
+
+    taps = subpel_taps()
+    check_subpel_phases(_SUBPEL_D, taps)
     return (ctypes.c_int * taps.size)(*taps.ravel().tolist())
 
 
@@ -255,15 +291,18 @@ def refine_subpel(y, ref_y, bases, c0, g_full, sad_g, lam, pix_max: int):
     m14 = f32(lam * f32(14.0))
     h, w = y.shape
     nblk = rows * cols
+    taps = _subpel_taps()
     tot = torch.zeros(2 * 49, dtype=torch.int32, device=dev)
+    vol = torch.empty(49 * nblk, dtype=torch.int32, device=dev)
     out = torch.empty(10 * nblk, dtype=torch.int32, device=dev)
     pred = torch.empty((rows, cols, 16, 16), dtype=torch.int32, device=dev)
     _raise_on(cuda_lib().av1_refine_subpel(
         y.data_ptr(), ref_y.data_ptr(), h, w, bases[0].data_ptr(),
         bases[1].data_ptr(), bases[2].data_ptr() if len(bases) == 3 else None,
         c0.data_ptr(), g_full.data_ptr(), sad_g.data_ptr(), float(unit_r),
-        float(unit_s), float(m14), pix_max, _subpel_taps(), tot.data_ptr(),
-        out.data_ptr(), pred.data_ptr(), _stream(dev)), "refine_subpel")
+        float(unit_s), float(m14), pix_max, taps, tot.data_ptr(),
+        vol.data_ptr(), out.data_ptr(), pred.data_ptr(), _stream(dev)),
+        "refine_subpel")
     refine_subpel.launches += REFINE_LAUNCHES
     mv8, mv_px, coarse_f, off_f = (
         out[2 * k * nblk : 2 * (k + 1) * nblk].view(rows, cols, 2)

@@ -67,8 +67,11 @@ exits non-zero:
    the quality step's recon (edge gates and split16), the fast step's
    recon and a 10-bit frame: every pixel equal; (c) each wrapper's device
    time per call and per launch, per search and per frame, the plain
-   versions' time, and the bounds (search_bounds, deblock_bounds: bytes,
-   integer work not counted);
+   versions' time, and the bounds (search_bounds: the larger of bytes and
+   int32 operations at the card's int32 rate, both printed;
+   deblock_bounds: bytes, integer work not counted).  Where
+   $AV1TPU_SMOKE_OUT is set, the inter frame's pair, lambda and peak go to
+   search_inputs.pt there, for tools/search_compare.py --inputs;
 8. modes parity: phase 4 again (quality preset) in the command's other
    modes: the default metric, tpu_vmaf (its score within 1e-3, and once
    more under torch.backends.cudnn.flags(allow_tf32=True): the metric
@@ -138,7 +141,7 @@ fast one; per scene, one cdef_filter per nonzero preset of the keyframe's
 strength search (7 of the 8) and, where the chosen preset is not all
 zero, one for the keyframe and one per reference inter frame; none on the
 all-intra paths.  Those of the motion search's three kernels and of
-deblock_edges likewise (search_deblock_want): 3 + 6 + 2 launches per
+deblock_edges likewise (search_deblock_want): 3 + 3 + 2 launches per
 search, one search per inter frame and one per temporal filter neighbour
 (7 per scene of more than one frame, in the process that plans the
 scenes: the scene batch's parent); 2 deblock_edges launches per plane
@@ -160,6 +163,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import functools
 import io
 import json
 import os
@@ -1114,13 +1118,54 @@ def inter_vs_plain(torch, gop_args) -> dict:
     return recs
 
 
+INT32_LANES_PER_SM = 64     # Hopper: INT32 lanes per SM per clock
+
+
+@functools.cache
+def int32_rate() -> tuple[float, str]:
+    """The card's int32 rate in operations per second: 64 lanes per SM x
+    the SMs x the SM's maximum clock (nvidia-smi clocks.max.sm), with the
+    derivation as text."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    rate = INT32_LANES_PER_SM * sms * mhz * 1e6
+    return rate, (f"{INT32_LANES_PER_SM} INT32 lanes x {sms} SMs x {mhz:g} "
+                  f"MHz (clocks.max.sm) = {rate / 1e12:.3f} T int32 ops/s")
+
+
+def search_ops(h: int, w: int, nbases: int = 2) -> dict:
+    """The int32 operations each motion-search wrapper's call needs on an
+    h x w frame, whatever implements it: an add, a multiply-add and an
+    abs-diff with its accumulate (one __sad, one VABSDIFF, at the INT32
+    rate) are one operation each.  coarse_search: the 4x4 pools (an add
+    per pixel of both planes) and 289 quarter-res candidates (an abs-diff
+    per quarter-res pixel); global_search: 125 displacements, an abs-diff
+    per pixel; refine_subpel: 25 full-pel candidates per base and 49
+    quarter-pel ones (an abs-diff per pixel each) and, per 16x16 block,
+    the sub-pel filters with their shared phases and 6 nonzero taps: three
+    horizontal phases over the 22 rows x 17 columns the vertical taps
+    read, and three vertical phases over 17 rows of the 16 columns of the
+    identity phase and of the 17 of each other one."""
+    px, nblk = h * w, (h // 16) * (w // 16)
+    hor, ver = 3 * 22 * 17 * 6, 3 * (16 + 3 * 17) * 17 * 6
+    return {"coarse_search": 2 * px + 289 * (px // 16),
+            "global_search": 125 * px,
+            "refine_subpel": (nbases * 25 + 49) * px + nblk * (hor + ver)}
+
+
 def search_bounds(h: int, w: int, nbases: int = 2) -> dict:
     """Least time of each motion-search wrapper's call on an h x w frame,
-    in us: its bytes at the memory rate (each input read once, each output
-    written once: the int32 luma planes, the bases, the global outputs,
-    the MV fields and the 16x16 predictions).  All of its work is integer
-    (SADs and 8-tap filters), which no fp32 or tensor peak counts, so
-    bytes bound it; the integer operations are not counted."""
+    in us, and what bounds it: the larger of its bytes at the memory rate
+    (each input read once, each output written once: the int32 luma
+    planes, the bases, the global outputs, the MV fields and the 16x16
+    predictions) and its int32 operations (search_ops) at the card's
+    int32 rate (int32_rate).  Returns {name: (bound_us, by, bytes_us,
+    ops_us)}."""
     nblk = (h // 16) * (w // 16)
     planes = 2 * 4 * h * w
     nbytes = {
@@ -1128,7 +1173,14 @@ def search_bounds(h: int, w: int, nbases: int = 2) -> dict:
         "global_search": planes + 32 + 2 * 8 + 4 * nblk,
         "refine_subpel": (planes + nbases * 8 * nblk + 2 * 8 + 4 * nblk
                           + 4 * 8 * nblk + 4 * 256 * nblk)}
-    return {k: (v / PEAK_BYTES * 1e6, "bytes") for k, v in nbytes.items()}
+    rate = int32_rate()[0]
+    out = {}
+    for k, ops in search_ops(h, w, nbases).items():
+        t_bytes, t_ops = nbytes[k] / PEAK_BYTES * 1e6, ops / rate * 1e6
+        out[k] = (max(t_bytes, t_ops),
+                  "operations" if t_ops >= t_bytes else "bytes", t_bytes,
+                  t_ops)
+    return out
 
 
 def deblock_bounds(h: int, w: int, split: bool) -> tuple[float, str]:
@@ -1164,6 +1216,34 @@ def plain_search_deblock():
         for n, f in zip(names, saved):
             setattr(inter_v, n, f)
         mdeblock.deblock_edges = saved[-1]
+
+
+def search_times(torch, motion, y, ref_y, lam, pm,
+                 plain: bool = True) -> dict:
+    """One timing of the three search wrappers of the module motion (a
+    checkout's kernels/motion.py) on one pair at lambda lam: each call's
+    device time in us (device_us, 100 calls queued behind a sleep), its
+    plain version's median event time in ms where plain (else None), and
+    the wrapper's launches per call.  The bases and global outputs are the
+    kernels' own.  Phase 7d and tools/search_compare.py time with it."""
+    c1, c2, s4 = motion.coarse_search(y, ref_y, lam)
+    c0, g_full, sad_g = motion.global_search(y, ref_y, s4)
+    calls = {
+        "coarse_search": (lambda: motion.coarse_search(y, ref_y, lam),
+                          lambda: motion.coarse_search_plain(y, ref_y, lam),
+                          motion.COARSE_LAUNCHES),
+        "global_search": (lambda: motion.global_search(y, ref_y, s4),
+                          lambda: motion.global_search_plain(y, ref_y, s4),
+                          motion.GLOBAL_LAUNCHES),
+        "refine_subpel": (
+            lambda: motion.refine_subpel(y, ref_y, (c1, c2), c0, g_full,
+                                         sad_g, lam, pm),
+            lambda: motion.refine_subpel_plain(y, ref_y, (c1, c2), c0,
+                                               g_full, sad_g, lam, pm),
+            motion.REFINE_LAUNCHES)}
+    return {name: (device_us(torch, kern, 100),
+                   _median_ms(torch, slow, n=5) if plain else None, n)
+            for name, (kern, slow, n) in calls.items()}
 
 
 SEARCH_PARTS = ("mv8", "mv_px", "pred_y", "p40", "coarse", "coarse2",
@@ -1227,6 +1307,11 @@ def search_deblock_vs_plain(torch, gop_args, tf_args) -> dict:
     print(f"search and deblock vs plain: inter frame {w}x{h} q={q} "
           f"lam={float(lam)} lf={lf3} bit_depth={bd}; temporal filter "
           f"neighbour {tw}x{th} lam=4.0", flush=True)
+    out = os.environ.get("AV1TPU_SMOKE_OUT")
+    if out:          # the pair tools/search_compare.py --inputs times
+        os.makedirs(out, exist_ok=True)
+        torch.save({"y": y.cpu(), "ref_y": ref_y.cpu(), "lam": float(lam),
+                    "pm": pm}, os.path.join(out, "search_inputs.pt"))
 
     # (a) the search, kernel vs plain, from the same inputs
     first = inter_v._search_parts(y, ref_y, lam, pm)
@@ -1283,27 +1368,12 @@ def search_deblock_vs_plain(torch, gop_args, tf_args) -> dict:
 
     # (c) times, per call, per launch and per search or frame
     recs = {}
-    c1, c2, s4 = motion.coarse_search(y, ref_y, lam)
-    c0, g_full, sad_g = motion.global_search(y, ref_y, s4)
-    calls = {
-        "coarse_search": (lambda: motion.coarse_search(y, ref_y, lam),
-                          lambda: motion.coarse_search_plain(y, ref_y, lam),
-                          motion.COARSE_LAUNCHES),
-        "global_search": (lambda: motion.global_search(y, ref_y, s4),
-                          lambda: motion.global_search_plain(y, ref_y, s4),
-                          motion.GLOBAL_LAUNCHES),
-        "refine_subpel": (
-            lambda: motion.refine_subpel(y, ref_y, (c1, c2), c0, g_full,
-                                         sad_g, lam, pm),
-            lambda: motion.refine_subpel_plain(y, ref_y, (c1, c2), c0,
-                                               g_full, sad_g, lam, pm),
-            motion.REFINE_LAUNCHES)}
     bounds = search_bounds(h, w)
+    print(f"int32 rate: {int32_rate()[1]}", flush=True)
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
-    for name, (kern, plain, n) in calls.items():
-        dev_us = device_us(torch, kern, 100)
-        plain_ms = _median_ms(torch, plain, n=5)
-        bound, by = bounds[name]
+    times = search_times(torch, motion, y, ref_y, lam, pm)
+    for name, (dev_us, plain_ms, n) in times.items():
+        bound, by, bytes_us, ops_us = bounds[name]
         recs[name] = dict(ms=dev_us / 1e3, plain_ms=plain_ms,
                           bound_ms=bound / 1e3, bound_by=by,
                           launch_us=dev_us / n, launches_per_search=n,
@@ -1313,8 +1383,9 @@ def search_deblock_vs_plain(torch, gop_args, tf_args) -> dict:
             tot[key] += v
         print(f"{name} {w}x{h}: device {dev_us:.3f} us per call ({n} "
               f"launches, {dev_us / n:.3f} us each), plain {plain_ms:.3f} "
-              f"ms, bound {bound:.4f} us ({by}; integer work not counted; "
-              f"roofline {bound / dev_us:.5f})", flush=True)
+              f"ms, bound {bound:.4f} us ({by}; bytes {bytes_us:.4f} us, "
+              f"int32 operations {ops_us:.4f} us; roofline "
+              f"{bound / dev_us:.5f})", flush=True)
     print(f"one search {w}x{h} ({motion.COARSE_LAUNCHES} + "
           f"{motion.GLOBAL_LAUNCHES} + {motion.REFINE_LAUNCHES} launches): "
           f"device {tot['ms']:.4f} ms, plain {tot['plain_ms']:.3f} ms, bound "

@@ -358,36 +358,71 @@ def test_cdef_filter_rejects_bad_inputs(dev):
         cdef_filter(y.t().contiguous().t(), u, v, sk, 4, 1, 3, 1)
 
 
-def _search_pair(dev, bd, h, w, seed, shift):
-    """A source and a reference that is it shifted by `shift` px, with
-    noise: synthetic_clip's texture (10-bit: times 4 plus noise)."""
+def _search_pair(dev, bd, h, w, seed, shift, kind="texture"):
+    """A source and a reference that is it shifted by `shift` px: with
+    noise, synthetic_clip's texture (10-bit: times 4 plus noise); without,
+    blurred noise (one clear minimum), a flat frame or a periodic texture
+    of period 4, where SADs tie."""
     rng = np.random.RandomState(seed)
-    big = synthetic_clip(w + 96, h + 96, 1, seed=seed).y[0].astype(np.int32)
-    if bd == 10:
-        big = big * 4 + rng.randint(0, 4, big.shape)
     pm = (1 << bd) - 1
+    if kind == "smooth":
+        big = rng.rand(h + 96, w + 96)
+        for _ in range(3):          # three 7-tap box blurs in each direction
+            for ax in (0, 1):
+                c = np.cumsum(np.pad(big, [(4, 3) if i == ax else (0, 0)
+                                           for i in (0, 1)], mode="edge"),
+                              axis=ax)
+                n = c.shape[ax]
+                big = (np.take(c, range(7, n), ax)
+                       - np.take(c, range(n - 7), ax)) / 7
+        big = ((big - big.min()) / (big.max() - big.min()) * pm).astype(
+            np.int32)
+    elif kind == "flat":
+        big = np.full((h + 96, w + 96), pm // 3)
+    elif kind == "periodic":
+        yy, xx = np.mgrid[: h + 96, : w + 96]
+        big = ((yy % 4) * 40 + (xx % 4) * 20) * (pm // 255)
+    else:
+        big = synthetic_clip(w + 96, h + 96, 1, seed=seed).y[0].astype(
+            np.int32)
+        if bd == 10:
+            big = big * 4 + rng.randint(0, 4, big.shape)
     dy, dx = shift
     y = big[48 : 48 + h, 48 : 48 + w]
-    r = np.clip(big[48 + dy : 48 + dy + h, 48 + dx : 48 + dx + w]
-                + rng.randint(-2, 3, (h, w)), 0, pm)
+    r = big[48 + dy : 48 + dy + h, 48 + dx : 48 + dx + w]
+    if kind == "texture":
+        r = np.clip(r + rng.randint(-2, 3, (h, w)), 0, pm)
     return (torch.from_numpy(np.ascontiguousarray(y, np.int32)).to(dev),
             torch.from_numpy(np.ascontiguousarray(r, np.int32)).to(dev))
+
+
+# (h, w), shift, seed, kind: the main path's 1088x1920, a frame of 4x8
+# blocks, 384x640 and 720x1280 (block grids 24x40 and 45x80, which the
+# global sweep's 2x4 tiles do not all divide), a pan near the +-34 clamp
+# and one past it (the descents' candidates clipped), and a flat frame
+# and a periodic texture, where every SAD ties
+SEARCH_FRAMES = (((1088, 1920), (3, -7), 1, "texture"),
+                 ((64, 128), (0, 0), 2, "texture"),
+                 ((384, 640), (30, -33), 3, "texture"),
+                 ((720, 1280), (-5, 9), 4, "texture"),
+                 ((384, 640), (36, -37), 7, "smooth"),
+                 ((384, 640), (0, 0), 5, "flat"),
+                 ((720, 1280), (2, 1), 6, "periodic"))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bd,nbases", [(8, 2), (8, 3), (10, 2), (10, 3)])
 def test_motion_kernels_match_plain(dev, bd, nbases):
     """coarse_search, global_search and refine_subpel against their plain
-    versions on the card, every output equal: at 1088x1920 and at a frame
-    of 4x8 blocks, a pan and a still pair, with the inter steps' lambda and
-    the temporal filter's (4.0), with 2 bases and with a temporal third."""
+    versions on the card, every output equal, on SEARCH_FRAMES, with the
+    inter steps' lambda and the temporal filter's (4.0), with 2 bases and
+    with a temporal third."""
     from av1tpu_torch.kernels import motion
     from av1tpu_torch.models.inter_v import inter_lambdas
 
     pm = (1 << bd) - 1
-    for (h, w), shift, seed in (((1088, 1920), (3, -7), 1),
-                                ((64, 128), (0, 0), 2)):
-        y, r = _search_pair(dev, bd, h, w, seed, shift)
+    for (h, w), shift, seed, kind in SEARCH_FRAMES:
+        y, r = _search_pair(dev, bd, h, w, seed, shift, kind)
         for lam in (inter_lambdas(72 if bd == 8 else 40, bd, dev)[0],
                     np.float32(4.0)):
             n0 = (motion.coarse_search.launches, motion.global_search.launches,
@@ -406,12 +441,12 @@ def test_motion_kernels_match_plain(dev, bd, nbases):
             torch.cuda.synchronize()
             assert (motion.coarse_search.launches - n0[0],
                     motion.global_search.launches - n0[1],
-                    motion.refine_subpel.launches - n0[2]) == (3, 6, 2)
+                    motion.refine_subpel.launches - n0[2]) == (3, 3, 2)
             names = ("coarse", "coarse2", "shifts4", "c0", "g_full", "sad_g",
                      "mv8", "pred_y", "mv_px", "coarse_f", "off_f")
             for name, a, b in zip(names, (*c, *g, *got), (*cw, *gw, *want)):
                 assert a.dtype == b.dtype and torch.equal(a, b), (
-                    h, w, float(lam), name, int((a != b).sum()))
+                    h, w, shift, kind, float(lam), name, int((a != b).sum()))
 
 
 @pytest.mark.cuda

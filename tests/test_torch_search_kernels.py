@@ -215,3 +215,94 @@ def test_frame_totals_are_exact(site, monkeypatch):
         assert out.dtype == np.float32 and np.array_equal(out, want)
         big = max(big, int(sads.sum(axis=dims).max()))
     assert big > 1 << 24
+
+
+def _clamp(v, pm):
+    return np.clip(v, 0, pm)
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+def test_subpel_offsets_are_four_shared_phases(bd, monkeypatch):
+    """refine_subpel's kernel computes each filter phase once, 6 taps wide,
+    and reads the seven quarter-pel offsets as shifted views: -6/2, -4/4
+    and -2/6 are one phase one pixel apart, 0 the identity.  On seeded
+    24x24 patches (_subpel_refine's P24) at 8 and 10 bits: the seven
+    horizontal passes of _subpel_refine equal the phase passes shifted as
+    the kernel reads them, the 49 vertical passes likewise (so the 49 SADs
+    _subpel_refine totals, and its prediction, come out of the phase
+    passes), and phase 0 is the identity.  The wrapper's premise check
+    passes on the port's table and raises on a table without this shape."""
+    from av1tpu_torch.spec import tables as spec_tables
+
+    pm = (1 << bd) - 1
+    d_all = inter_v._SUBPEL_D
+    bank = np.asarray(spec_tables.subpel_filters()["regular"], np.int64)
+    rng = np.random.RandomState(bd)
+    rows, cols = 2, 3
+    p24 = rng.randint(0, pm + 1, (rows, cols, 24, 24)).astype(np.int64)
+    src = rng.randint(0, pm + 1, (rows, cols, 16, 16)).astype(np.int64)
+
+    def hor(d):          # _subpel_refine's horizontal pass of offset d
+        f, ix = bank[(d & 7) << 1], d >> 3
+        return (sum(int(f[k]) * p24[..., :, 1 + ix + k : 17 + ix + k]
+                    for k in range(8)) + 4) >> 3
+
+    def ver(hh, d):      # and its vertical pass of offset d
+        g, iy = bank[(d & 7) << 1], d >> 3
+        return _clamp((sum(int(g[k]) * hh[..., 1 + iy + k : 17 + iy + k, :]
+                           for k in range(8)) + 1024) >> 11, pm)
+
+    # the kernel's passes: phase q over 17 columns (rows), taps 1..6; the
+    # negative offset reads 0..15, the positive one 1..16
+    hphase = {q: (sum(int(bank[q][k]) * p24[..., :, k : k + 17]
+                      for k in range(1, 7)) + 4) >> 3 for q in (4, 8, 12)}
+
+    def hview(d):
+        if d == 0:
+            return (128 * p24[..., :, 4:20] + 4) >> 3
+        ph = hphase[(d & 7) << 1]
+        return ph[..., :, 0:16] if d < 0 else ph[..., :, 1:17]
+
+    def vview(hh, d):
+        if d == 0:
+            return _clamp((128 * hh[..., 4:20, :] + 1024) >> 11, pm)
+        g = bank[(d & 7) << 1]
+        ph = _clamp((sum(int(g[k]) * hh[..., k : k + 17, :]
+                         for k in range(1, 7)) + 1024) >> 11, pm)
+        return ph[..., 0:16, :] if d < 0 else ph[..., 1:17, :]
+
+    assert bank[0].tolist() == [0, 0, 0, 128, 0, 0, 0, 0]
+    assert np.array_equal(hor(0), 16 * p24[..., :, 4:20])
+    preds = {}
+    for dx in d_all:
+        assert np.array_equal(hor(dx), hview(dx)), dx
+        for dy in d_all:
+            preds[dy, dx] = vview(hview(dx), dy)
+            assert np.array_equal(ver(hor(dx), dy), preds[dy, dx]), (dy, dx)
+    assert np.array_equal(preds[0, 0], p24[..., 4:20, 4:20])
+
+    # _subpel_refine itself: its 49 SADs and its prediction
+    seen = _spy_totals(monkeypatch)
+    mv = torch.zeros((rows, cols, 2), dtype=torch.int32)
+    mv8, pred = inter_v._subpel_refine(
+        torch.from_numpy(src.astype(np.int32)),
+        torch.from_numpy(p24.astype(np.int32)), mv, np.float32(2.0), pm)
+    sads = np.stack([np.abs(src - preds[dy, dx]).sum((2, 3))
+                     for dy in d_all for dx in d_all])
+    assert np.array_equal(seen[0][0], sads)
+    for r in range(rows):
+        for c in range(cols):
+            dy, dx = mv8[r, c].tolist()
+            assert np.array_equal(pred[r, c].numpy(), preds[dy, dx][r, c])
+
+    # the wrapper's check of the same premise
+    taps = motion.subpel_taps()
+    motion.check_subpel_phases(d_all, taps)
+    # a pair's rows apart, the identity off, taps 0 of a pair not zero
+    for rows_, tap in (([4], 7), ([3], 3), ([1, 5], 0)):
+        t = taps.copy()
+        t[rows_, tap] += 1
+        with pytest.raises(ValueError):
+            motion.check_subpel_phases(d_all, t)
+    with pytest.raises(ValueError):
+        motion.check_subpel_phases((-6, -4, -2, 0, 2, 4, 5), taps)

@@ -56,7 +56,7 @@ KERNEL_PLAINS = (
     ("av1tpu_torch.kernels.motion", "coarse_search_plain", "coarse_search",
      3),
     ("av1tpu_torch.kernels.motion", "global_search_plain", "global_search",
-     6),
+     3),
     ("av1tpu_torch.kernels.motion", "refine_subpel_plain", "refine_subpel",
      2))
 

@@ -12,9 +12,12 @@ inter frames) and also prints the kernels per inter frame.  The quality
 preset takes scope `inter` only: its wavefront keyframe launches millions
 of small kernels, more than the profiler can hold.  Prints the wall seconds
 of the profiled part, the device busy seconds (union of kernel intervals),
-the busy and idle shares, the kernel count, and the top kernels by device
-time.  The profiler adds host overhead to every launch, so the wall time
-here is not the encode's speed: chip_smoke.py times the encode without it.
+the busy and idle shares, the kernel count (scope `inter`: also the
+motion search's device seconds per inter frame, csrc/motion.cu's kernels
+summed), the top kernels by device time, and then every hand kernel of
+the port by device time.  The profiler adds host overhead to every
+launch, so the wall time here is not the encode's speed: chip_smoke.py
+times the encode without it.
 """
 
 from __future__ import annotations
@@ -30,6 +33,18 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 FRAMES = {"encode": 9, "inter": 5}
+# the hand kernels of av1tpu_torch/csrc/ live in anonymous namespaces
+HAND_PREFIX = "(anonymous namespace)::"
+# csrc/motion.cu's kernels: one motion search
+SEARCH_KERNELS = ("coarse_pool_kernel", "coarse_sad_kernel",
+                  "coarse_select_kernel", "global_sweep_kernel",
+                  "refine_kernel", "subpel_snap_kernel")
+
+
+def _kernel_name(name: str) -> str:
+    """A hand kernel's bare name: `(anonymous namespace)::f(args)` -> f."""
+    return name[len(HAND_PREFIX):].split("(")[0] if name.startswith(
+        HAND_PREFIX) else ""
 
 
 def _busy_us(intervals) -> float:
@@ -117,18 +132,25 @@ def main() -> int:
         acc = by_name.setdefault(e.name, [0, 0.0])
         acc[0] += 1
         acc[1] += (e.time_range.end - e.time_range.start) / 1e6
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     rec = {}
     if scope == "inter":
         rec["kernels_per_inter_frame"] = len(kernels) / (frames - 1)
+        rec["search_s_per_inter_frame"] = sum(
+            secs for name, (_, secs) in by_name.items()
+            if _kernel_name(name) in SEARCH_KERNELS) / (frames - 1)
     print(json.dumps({
         "preset": args.preset, "scope": scope, **rec,
         "frames": frames, "profiled_wall_s": wall,
         "device_busy_s": busy, "busy_share": busy / wall,
         "idle_share": 1 - busy / wall, "kernels": len(kernels),
         "stage_seconds_profiled": stats["stage_seconds"]}))
-    for name, (count, secs) in top:
+    for name, (count, secs) in ranked[:15]:
         print(f"{secs:10.6f} s {count:8d}x  {name[:110]}")
+    print("the port's hand kernels:")
+    for name, (count, secs) in ranked:
+        if name.startswith(HAND_PREFIX):
+            print(f"{secs:10.6f} s {count:8d}x  {name[:110]}")
     return 0
 
 

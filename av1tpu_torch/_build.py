@@ -42,7 +42,7 @@ BUILD_DIR = os.path.join(PKG, "_build")
 CUDA_SOURCES = tuple(os.path.join(PKG, "csrc", f)
                      for f in ("transform_quant.cu", "intra_wave.cu",
                                "inter_code.cu", "cdef.cu", "deblock.cu",
-                               "motion.cu"))
+                               "motion.cu", "intra_part.cu"))
 # headers the sources include: a change rebuilds, nothing compiles them alone
 CUDA_HEADERS = (os.path.join(PKG, "csrc", "itx.cuh"),)
 PACK_SOURCES = (os.path.join(REPO, "native", "coding", "pack.cpp"),
@@ -168,6 +168,11 @@ def cuda_lib() -> ctypes.CDLL:
         # unit_s, m14, pix_max, taps (host), tot, vol, out, pred, stream
         "av1_refine_subpel": [vp, vp, ci, ci, vp, vp, vp, vp, vp, vp, cf, cf,
                               cf, ci, vp, vp, vp, vp, vp, vp],
+        # jobs (an array of the kernel's job structs), count, stream
+        **{f"av1_part_{k}": [vp, ci, vp]
+           for k in ("chain", "pred", "code", "merge")},
+        # out (text), cap (bytes; returns the text's length)
+        "av1_part_layout": [vp, ci],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

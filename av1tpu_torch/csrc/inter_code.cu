@@ -131,15 +131,6 @@ __device__ V seg_reduce(V v, V* red, Op op) {
 }
 
 template <int N>
-__device__ __forceinline__ void idct(const u32* x, u32* o) {
-  if constexpr (N == 4) idct4(x, o);
-  else if constexpr (N == 8) idct8(x, o);
-  else if constexpr (N == 16) idct16(x, o);
-  else if constexpr (N == 32) idct32(x, o);
-  else idct64(x, o);
-}
-
-template <int N>
 __global__ void __launch_bounds__(NT) code_blocks_kernel(
     CodeTabs T, const float* __restrict__ coefs, const int* __restrict__ src,
     const int* __restrict__ pred, int nblocks, int* lv_out, int* rec_out,
@@ -151,7 +142,6 @@ __global__ void __launch_bounds__(NT) code_blocks_kernel(
   constexpr int EPT = NB * NC / NT;                // coefficients / thread
   constexpr int PPT = NB * NP / NT;                // pixels / thread
   constexpr int SEG = N <= 16 ? NP : NT;           // threads per block
-  constexpr int ROW_SHIFT = N == 4 ? 0 : (N == 8 ? 1 : 2);
   __shared__ u32 s_dq[NB * N * LD], s_tmp[NB * N * LD];
   __shared__ float s_fred[NT / 32];
   __shared__ long long s_lred[NT / 32];
@@ -182,28 +172,8 @@ __global__ void __launch_bounds__(NT) code_blocks_kernel(
   }
   __syncthreads();
 
-  // the inverse: rows (shifted by ROW_SHIFT), then columns (by 4)
-  u32 in[N], out[N];
-  for (int r = t; r < NB * N; r += NT) {
-    u32* row = s_dq + (r / N) * N * LD + (r % N) * LD;
-    u32* dst = s_tmp + (r / N) * N * LD + (r % N) * LD;
-    if (r % N >= CW) {                 // TX_64X64: rows 32..63 are zero
-      for (int k = 0; k < N; ++k) dst[k] = 0u;
-      continue;
-    }
-    for (int k = 0; k < N; ++k) in[k] = row[k];
-    idct<N>(in, out);
-    for (int k = 0; k < N; ++k) dst[k] = rs(out[k], ROW_SHIFT);
-  }
-  __syncthreads();
-  for (int c = t; c < NB * N; c += NT) {
-    const u32* col = s_tmp + (c / N) * N * LD + c % N;
-    u32* dst = s_dq + (c / N) * N * LD + c % N;
-    for (int k = 0; k < N; ++k) in[k] = col[k * LD];
-    idct<N>(in, out);
-    for (int k = 0; k < N; ++k) dst[k * LD] = rs(out[k], 4);
-  }
-  __syncthreads();
+  // the inverse DCT (TX_64X64: rows 32..63 are zero)
+  inverse_2d<N>(0, NB, s_dq, s_tmp, N * LD, LD, CW);
 
   // recon, SSE and skip SSE
   long long dist = 0;

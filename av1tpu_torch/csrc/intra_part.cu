@@ -1,0 +1,597 @@
+// The quality preset's partition probe as four kernels for Hopper:
+// part_chain, part_pred, part_code and part_merge.
+//
+// Replaces the jitted probe of av1tpu/models/intra_part.py
+// (`encode_intra_part`, :639: `_encode_luma_part` :131 with its lax.scans
+// at :175 and :335, `_encode_chroma_dual` :351 with its scans at :402 and
+// :488).  This is not a pallas_call: XLA fused each scan step into a few
+// device programs, where the port's eager version issued about 319,000
+// PyTorch operations per 1088x1920 frame (83% of them the eager inverse
+// transforms).  kernels/intra_part.py holds the wrappers and the plain
+// PyTorch versions, whose arithmetic these kernels repeat:
+//
+// - part_chain: the first block row's serial chains, one block per plane
+//   (luma 16x16 DCT_DCT without rd_zero, :167-176; U and V 8x8 ADST_DCT
+//   with rd_zero, :397-403): per column the flat prediction from the
+//   carried pixel, the forward product, the quantize, the dequantize, the
+//   2-D inverse, the recon and the carry of rec[0, n - 1];
+// - part_pred: a stage's candidates from the row above (the last row of
+//   the recon coded so far): V, D45 and D67 from the above edge with
+//   above-right (`_edges` :73, intra_v._directional_pred) at the luma 16
+//   and 32 sites, V_PRED alone at the luma 64 and every chroma site; the
+//   residuals (float32, the forward product's operand) and the
+//   predictions (int32);
+// - part_code: after the forward product (a cuBLAS matmul outside, as the
+//   JAX package leaves it to XLA), per column the deadzone quantize and
+//   rd_zero of every candidate, the coefficient-domain distortion times
+//   1/_RATIO and log2_rate plus the mode bits, the argmin (first index on
+//   a tie), the dequantize (lv*q, or >>1 at 32 and >>2 at 64 with the
+//   coded 32x32 top-left), the 2-D inverse, the recon clip and, at the
+//   64 site, the pixel SSE (int32, wrapping) and its cost;
+// - part_merge: the split decisions of one half of a superblock row, per
+//   superblock column: the 16s against the 32 (luma: cost_16s < cost32;
+//   chroma: luma's split grid), the losing levels zeroed, the winner's
+//   recon in the frame, the selection's pixel SSE and rate (the region's
+//   cost); after the second half, the 64 against its four 32-regions
+//   (luma: cost_sub < cost64; chroma: luma's split64) the same way.
+//
+// What bounds it on an H100.  A 1088x1920 probed frame is about 0.5 GB of
+// fp32 forward-product operations (done by cuBLAS), about 40 MB of
+// candidate residuals and coefficients through device memory, and some
+// 30 M integer butterfly operations: tens of microseconds at the card's
+// rates.  The floor is the dependency chain: the first row's 120 serial
+// columns (each a 256-deep product per thread, then four barriers), and
+// per superblock row eight dependent stages per plane (pred, product,
+// code at the top 16-row with the 32 and 64, then at the bottom 16-row,
+// the merge, and again for the second 32-row), about 20 launches of a few
+// microseconds.
+//
+// What the design does about it.  Every launch takes every site that the
+// stage codes (U and V together), as a list of jobs in the kernel's
+// parameters; the outputs go straight into the frame's level, mode, split
+// and recon grids, so the row above a stage is a row of the recon plane
+// and nothing is copied between stages.  One block of 256 threads per
+// column of a site (per superblock column in part_merge); the levels of
+// every candidate of a column stay in registers (at most 12 a thread), the
+// chosen one's dequantized levels go to shared memory on a padded stride
+// (n + 1) for the inverse (itx.cuh:inverse_2d).  part_chain keeps its
+// column's residual in shared memory and reads the forward matrix through
+// the read-only cache.
+//
+// Bits.  Every float expression of a decision is written with __fmul_rn,
+// __fadd_rn, __fsub_rn and IEEE division (nvcc would contract a*b + c into
+// an FMA); log2f is the library's (no fast math), as torch.log2 on the
+// card.  The SSEs are integer sums.  What cannot match: the per-candidate
+// distortion and rate and the region's rate are float32 sums in another
+// order than PyTorch's, and part_chain's forward product in another order
+// than cuBLAS's, so a level may flip by 1 at a rounding boundary and a
+// decision may flip at a near-tie (chip_smoke.py phase 7e counts both).
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+#include <stdint.h>
+#include <stdio.h>
+
+#include "itx.cuh"
+
+// kernels/intra_part.py:PartSiteC, field for field, as each job struct
+// below (av1_part_layout lets the wrapper check that; outside the anonymous
+// namespace: the C entry points take them, and must keep external linkage)
+struct PartSite {
+  const float *step, *off, *gain, *tab;   // gain, tab null: no rd_zero
+  const int *q, *cap;
+  float lam, inv_ratio;
+  int n, tx, dq_shift, nm, cost, pix_max;  // cost: 0 none, 1 coefficient
+                                           // domain, 2 pixel domain
+};
+
+// kernels/intra_part.py:ChainJobC
+struct ChainJob {
+  PartSite s;
+  const float* fwdt;     // (n*n, n*n): coefs = resid @ fwdt
+  const int* src;        // the plane's first n rows
+  int16_t* lv;           // (cols, n*n): row 0 of the level grid
+  int* rec;              // the recon plane's first n rows
+  int cols, width, edge0;
+};
+
+// kernels/intra_part.py:PredJobC
+struct PredJob {
+  const int* bottom;     // the row above the site, `width` pixels
+  const int* src;        // the site's band of the source: n rows
+  const uint8_t* av;     // (cols,) above-right available; null: V_PRED only
+  float* resid;          // (nm * cols, n*n): candidate m of column c at
+  int* pred;             // row m * cols + c
+  int n, nm, cols, width;
+};
+
+// kernels/intra_part.py:CodeJobC
+struct CodeJob {
+  PartSite s;
+  const float* coefs;    // (nm * cols, nc), nc = min(n, 32)^2
+  const int* pred;       // (nm * cols, n*n)
+  const int* src;        // the site's band of the source (pixel cost)
+  int16_t* lv;           // (cols, nc): the chosen candidate's levels
+  int* rec;              // the chosen candidate's recon: a band of n rows
+  int8_t* modes;         // (cols,) or null
+  float* cost;           // (cols,) or null
+  float* rate;           // (nm, cols) each candidate's log2 rate, or null
+  int cols, width;
+};
+
+// kernels/intra_part.py:MergeJobC
+struct MergeJob {
+  int16_t *lv_s, *lv_m, *lv_b;  // the plane's level grids: small (ns),
+                                // mid (2 ns), big (32x32 coded)
+  int* recon;                   // the plane's recon
+  const int* src;               // the plane's source (luma: the SSE)
+  const int *rec_m, *rec_b;     // the mid site's recon band of this half,
+                                // the big site's (do_big)
+  uint8_t *split, *split64;     // luma writes them, chroma reads luma's
+  const float *cost_s, *cost_m, *cost_b;  // luma; null for chroma
+  float* cost_region;           // luma: (2, cols_m), this row's halves
+  float lam, lam_split;
+  int ns, width, sb_row, half, do_big;
+};
+
+namespace {
+
+constexpr int NT = 256;          // threads per block
+constexpr int NW = NT / 32;
+constexpr int MAXJ = 6;          // jobs per launch: U and V, 3 sites each
+constexpr int MAXE = 12;         // levels per thread: 3 candidates x 1024
+constexpr int KEEP_ALWAYS = 8;   // rdoq._KEEP_ALWAYS
+
+struct ChainJobs { ChainJob j[3]; };
+struct PredJobs { PredJob j[MAXJ]; };
+struct CodeJobs { CodeJob j[MAXJ]; };
+struct MergeJobs { MergeJob j[2]; };
+
+// the candidates' mode values and mode bits (intra_part._mode_rdo: V, then
+// intra_v._RDO_MODES' D45 and D67)
+__constant__ int8_t kModeVals[3] = {1, 3, 8};
+__constant__ float kModeBits[3] = {0.f, 4.f, 4.f};
+__constant__ int kModeDx[3] = {0, 64, 27};
+
+// The deadzone quantize of one coefficient (intra_v.quantize_with_offsets),
+// then rdoq.rd_zero's keep test where the site has a rate table.
+__device__ int quant_rdz(float coef, const PartSite& S, int j) {
+  const float ca = fabsf(coef);
+  const int mag = (int)floorf(__fadd_rn(__fdiv_rn(ca, S.step[j]), S.off[j]));
+  const int sgn = coef > 0.f ? 1 : (coef < 0.f ? -1 : 0);
+  const int cap = S.cap[j];
+  const int lv = min(max(sgn * mag, -cap), cap);
+  const int a = abs(lv);
+  if (S.tab == nullptr || a == 0 || a >= KEEP_ALWAYS) return lv;
+  const float t = __fsub_rn(ca, __fmul_rn((float)a, S.step[j]));
+  const float save = __fmul_rn(S.gain[j], __fsub_rn(__fmul_rn(ca, ca),
+                                                    __fmul_rn(t, t)));
+  const float bits = __fsub_rn(S.tab[a], S.tab[0]);
+  return save > __fmul_rn(S.lam, bits) ? lv : 0;
+}
+
+// intra_v.log2_rate of one level: 2 + log2(1 + |l|) where l != 0
+__device__ __forceinline__ float level_rate(int lv) {
+  if (lv == 0) return 0.f;
+  return __fadd_rn(2.f, log2f(__fadd_rn(1.f, (float)abs(lv))));
+}
+
+// The dequantize sign(lv) * ((|lv| * q) >> shift) as int32 bits.
+__device__ __forceinline__ u32 dequant(int lv, int q, int shift) {
+  const u32 d = ((u32)abs(lv) * (u32)q) >> shift;
+  return lv < 0 ? 0u - d : d;
+}
+
+// Sums of K values over the block, in a fixed order (warp butterflies,
+// then the warps in order); every thread gets every sum.  red: K * NW.
+template <int K>
+__device__ void block_sum(float* v, float* red) {
+  for (int k = 0; k < K; ++k)
+    for (int o = 16; o; o >>= 1)
+      v[k] = __fadd_rn(v[k], __shfl_xor_sync(~0u, v[k], o));
+  __syncthreads();                 // red may still be read by a last call
+  if ((threadIdx.x & 31) == 0)
+    for (int k = 0; k < K; ++k) red[k * NW + (threadIdx.x >> 5)] = v[k];
+  __syncthreads();
+  for (int k = 0; k < K; ++k) {
+    float s = red[k * NW];
+    for (int w = 1; w < NW; ++w) s = __fadd_rn(s, red[k * NW + w]);
+    v[k] = s;
+  }
+}
+
+template <int K>
+__device__ void block_sum(long long* v, long long* red) {
+  for (int k = 0; k < K; ++k)
+    for (int o = 16; o; o >>= 1) v[k] += __shfl_xor_sync(~0u, v[k], o);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0)
+    for (int k = 0; k < K; ++k) red[k * NW + (threadIdx.x >> 5)] = v[k];
+  __syncthreads();
+  for (int k = 0; k < K; ++k) {
+    long long s = 0;
+    for (int w = 0; w < NW; ++w) s += red[k * NW + w];
+    v[k] = s;
+  }
+}
+
+// The 2-D inverse of one n x n block in shared memory (stride n + 1).
+__device__ void inverse_n(int n, int tx, int rows, u32* dq, u32* tmp) {
+  switch (n) {
+    case 8: inverse_2d<8>(tx, 1, dq, tmp, 0, 9); break;
+    case 16: inverse_2d<16>(tx, 1, dq, tmp, 0, 17); break;
+    case 32: inverse_2d<32>(tx, 1, dq, tmp, 0, 33); break;
+    default: inverse_2d<64>(tx, 1, dq, tmp, 0, 65, rows); break;
+  }
+}
+
+// ---- part_chain: one block per plane walks the first block row ----
+
+__global__ void __launch_bounds__(NT) part_chain_kernel(ChainJobs J) {
+  const ChainJob& C = J.j[blockIdx.x];
+  const PartSite& S = C.s;
+  const int n = S.n, nn = n * n, ld = n + 1, t = threadIdx.x;
+  __shared__ float s_res[256];
+  __shared__ u32 s_dq[16 * 17], s_tmp[16 * 17];
+  __shared__ int s_edge;
+  if (t == 0) s_edge = C.edge0;
+  __syncthreads();
+  const int i = t / n, j = t % n;
+  for (int c = 0; c < C.cols; ++c) {
+    const int edge = s_edge;
+    if (t < nn)
+      s_res[t] = (float)(C.src[(size_t)i * C.width + c * n + j] - edge);
+    __syncthreads();
+    if (t < nn) {
+      // coefficient t: column t of the forward matrix, in order
+      float acc = 0.f;
+      for (int k = 0; k < nn; ++k)
+        acc = fmaf(s_res[k], __ldg(C.fwdt + (size_t)k * nn + t), acc);
+      const int lv = quant_rdz(acc, S, t);
+      C.lv[(size_t)c * nn + t] = (int16_t)lv;
+      s_dq[i * ld + j] = (u32)lv * (u32)S.q[t];
+    }
+    __syncthreads();
+    if (n == 16) inverse_2d<16>(S.tx, 1, s_dq, s_tmp, 0, 17);
+    else inverse_2d<8>(S.tx, 1, s_dq, s_tmp, 0, 9);
+    if (t < nn) {
+      const int rec = min(max(edge + (int)s_dq[i * ld + j], 0), S.pix_max);
+      C.rec[(size_t)i * C.width + c * n + j] = rec;
+      if (i == 0 && j == n - 1) s_edge = rec;   // the next column's edge
+    }
+    __syncthreads();
+  }
+}
+
+// ---- part_pred: one block per (candidate, column) of a site ----
+
+__global__ void __launch_bounds__(NT) part_pred_kernel(PredJobs J) {
+  const PredJob& P = J.j[blockIdx.y];
+  const int n = P.n, cols = P.cols, b = blockIdx.x, t = threadIdx.x;
+  if (b >= P.nm * cols) return;
+  const int m = b / cols, c = b % cols;
+  // intra_part._edges: the above edge, above-right replicated where it is
+  // not available (the row is padded with its last pixel)
+  __shared__ int ae[128];
+  if (t < 2 * n) {
+    const bool avail = t < n || (P.av != nullptr && P.av[c]);
+    ae[t] = avail ? P.bottom[min(c * n + t, P.width - 1)]
+                  : P.bottom[c * n + n - 1];
+  }
+  __syncthreads();
+  const int dx = kModeDx[m], last = 2 * n - 1;
+  const size_t row = (size_t)b * n * n;
+  for (int p = t; p < n * n; p += NT) {
+    const int i = p / n, j = p % n;
+    int pr;
+    if (m == 0) {
+      pr = ae[j];
+    } else {     // intra_v._directional_pred: zone 1 on the above edge
+      const int idx = (i + 1) * dx, pos = (idx >> 6) + j;
+      if (pos >= last) {
+        pr = ae[last];
+      } else {
+        const int sh = (idx >> 1) & 0x1F;
+        pr = (ae[pos] * (32 - sh) + ae[pos + 1] * sh + 16) >> 5;
+      }
+    }
+    P.pred[row + p] = pr;
+    P.resid[row + p] = (float)(P.src[(size_t)i * P.width + c * n + j] - pr);
+  }
+}
+
+// ---- part_code: one block per column of a site ----
+
+__global__ void __launch_bounds__(NT) part_code_kernel(CodeJobs J) {
+  const CodeJob& C = J.j[blockIdx.y];
+  const PartSite& S = C.s;
+  const int c = blockIdx.x, t = threadIdx.x;
+  if (c >= C.cols) return;
+  const int n = S.n, nm = S.nm, cw = n < 32 ? n : 32, nc = cw * cw;
+  const int np = n * n, ld = n + 1;
+  __shared__ u32 s_dq[64 * 65], s_tmp[64 * 65];
+  __shared__ float s_red[6 * NW];
+  __shared__ long long s_lred[NW];
+
+  // every candidate's levels; element e = m * nc + j of the column
+  int lvr[MAXE];
+  float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};   // dist, then rate
+  for (int k = 0; k < MAXE; ++k) {
+    const int e = t + k * NT;
+    lvr[k] = 0;
+    if (e >= nm * nc) continue;
+    const int m = e / nc, j = e % nc;
+    const float coef = C.coefs[((size_t)m * C.cols + c) * nc + j];
+    const int lv = quant_rdz(coef, S, j);
+    lvr[k] = lv;
+    const float d = __fsub_rn(coef, __fmul_rn((float)lv, S.step[j]));
+    const float rt = level_rate(lv);
+    for (int mm = 0; mm < 3; ++mm) {    // m in registers: no local memory
+      if (mm != m) continue;
+      acc[mm] = __fadd_rn(acc[mm], __fmul_rn(d, d));
+      acc[3 + mm] = __fadd_rn(acc[3 + mm], rt);
+    }
+  }
+  block_sum<6>(acc, s_red);
+
+  // the argmin over the candidates, strict < (the first on a tie)
+  int best = 0;
+  float best_cost = 0.f;
+  if (S.cost == 1) {
+    for (int m = 0; m < 3; ++m) {
+      if (m >= nm) break;
+      const float dist = __fmul_rn(acc[m], S.inv_ratio);
+      const float rate = __fadd_rn(acc[3 + m], kModeBits[m]);
+      const float cost = __fadd_rn(dist, __fmul_rn(S.lam, rate));
+      if (m == 0 || cost < best_cost) {
+        best = m;
+        best_cost = cost;
+      }
+    }
+  }
+
+  // the chosen candidate's levels out, dequantized into shared memory
+  if (cw < n)
+    for (int p = t; p < n * ld; p += NT) s_dq[p] = 0u;
+  __syncthreads();
+  for (int k = 0; k < MAXE; ++k) {
+    const int e = t + k * NT;
+    if (e >= nm * nc || e / nc != best) continue;
+    const int j = e % nc;
+    C.lv[(size_t)c * nc + j] = (int16_t)lvr[k];
+    s_dq[(j / cw) * ld + j % cw] = dequant(lvr[k], S.q[j], S.dq_shift);
+  }
+  __syncthreads();
+  inverse_n(n, S.tx, cw, s_dq, s_tmp);
+
+  // recon; the pixel SSE where the site's cost is pixel-domain
+  const int* pred = C.pred + ((size_t)best * C.cols + c) * np;
+  long long sse[1] = {0};
+  for (int p = t; p < np; p += NT) {
+    const int i = p / n, j = p % n;
+    const size_t g = (size_t)i * C.width + c * n + j;
+    const int rec = min(max(pred[p] + (int)s_dq[i * ld + j], 0), S.pix_max);
+    C.rec[g] = rec;
+    if (S.cost == 2) {
+      const int e = rec - C.src[g];
+      sse[0] += e * e;
+    }
+  }
+  if (S.cost == 2) {
+    block_sum<1>(sse, s_lred);
+    // summed in int32, wrapping, as the reference's jnp.sum
+    best_cost = __fadd_rn(__int2float_rn((int)(u32)sse[0]),
+                          __fmul_rn(S.lam, acc[3]));
+  }
+  if (t == 0) {
+    if (C.modes != nullptr) C.modes[c] = kModeVals[best];
+    if (C.cost != nullptr) C.cost[c] = best_cost;
+  }
+  if (C.rate != nullptr)
+    for (int m = 0; m < 3; ++m)
+      if (m < nm && t == m) C.rate[(size_t)m * C.cols + c] = acc[3 + m];
+}
+
+// ---- part_merge: one block per superblock column of a plane ----
+
+__device__ void zero_blocks(int16_t* grid, int cols, int nc, int r0, int nr,
+                            int c0, int nb) {
+  for (int p = threadIdx.x; p < nr * nb * nc; p += NT) {
+    const int r = r0 + p / (nb * nc), q = p % (nb * nc);
+    grid[((size_t)r * cols + c0 + q / nc) * nc + q % nc] = 0;
+  }
+}
+
+// copy an nr x nx window of a band (stride width) into the recon at row r0
+__device__ void copy_window(int* recon, const int* band, int width, int r0,
+                            int nr, int x0, int nx) {
+  for (int p = threadIdx.x; p < nr * nx; p += NT) {
+    const int i = p / nx, x = x0 + p % nx;
+    recon[(size_t)(r0 + i) * width + x] = band[(size_t)i * width + x];
+  }
+}
+
+__global__ void __launch_bounds__(NT) part_merge_kernel(MergeJobs J) {
+  const MergeJob& M = J.j[blockIdx.y];
+  const int ns = M.ns, nm = 2 * ns, nb = 4 * ns, W = M.width;
+  const int cols_s = W / ns, cols_m = W / nm, cols_b = W / nb;
+  const int C = blockIdx.x, t = threadIdx.x, s = M.sb_row;
+  if (C >= cols_b) return;
+  const bool luma = M.cost_m != nullptr;
+  const int ncs = ns * ns, ncm = nm * nm;
+  __shared__ float s_red[3 * NW];
+  __shared__ long long s_lred[2 * NW];
+
+  // the 16s (8s) against the 32 (16) in the half's two mid regions
+  const int R = 2 * s + M.half;
+  for (int h = 0; h < 2; ++h) {
+    const int cm = 2 * C + h;
+    bool split;
+    if (luma) {
+      const float* c0 = M.cost_s;
+      const float* c1 = M.cost_s + cols_s;
+      const float sum16 = __fadd_rn(
+          __fadd_rn(__fadd_rn(c0[2 * cm], c0[2 * cm + 1]),
+                    __fadd_rn(c1[2 * cm], c1[2 * cm + 1])), M.lam_split);
+      split = sum16 < M.cost_m[cm];
+      if (t == 0) M.split[(size_t)R * cols_m + cm] = split;
+    } else {
+      split = M.split[(size_t)R * cols_m + cm] != 0;
+    }
+    if (split) {
+      zero_blocks(M.lv_m, cols_m, ncm, R, 1, cm, 1);
+    } else {
+      zero_blocks(M.lv_s, cols_s, ncs, 2 * R, 2, 2 * cm, 2);
+      copy_window(M.recon, M.rec_m, W, R * nm, nm, cm * nm, nm);
+    }
+    if (!luma) continue;
+    __syncthreads();      // the recon and the levels as selected
+    // the selection's pixel SSE and rate: per small column (left, right)
+    // the SSE over both small rows, log2_rate over both rows' levels
+    long long sse[2] = {0, 0};
+    for (int p = t; p < nm * nm; p += NT) {
+      const int i = p / nm, x = cm * nm + p % nm;
+      const size_t g = (size_t)(R * nm + i) * W + x;
+      const int e = M.recon[g] - M.src[g];
+      if (p % nm < ns) sse[0] += e * e;
+      else sse[1] += e * e;
+    }
+    float rt[3] = {0.f, 0.f, 0.f};      // left 16s, right 16s, the 32
+    for (int p = t; p < 2 * 2 * ncs; p += NT) {
+      const int side = p / (2 * ncs), q = p % (2 * ncs);
+      const int r = 2 * R + q / ncs;
+      const float v = level_rate(
+          M.lv_s[((size_t)r * cols_s + 2 * cm + side) * ncs + q % ncs]);
+      if (side == 0) rt[0] = __fadd_rn(rt[0], v);
+      else rt[1] = __fadd_rn(rt[1], v);
+    }
+    for (int p = t; p < ncm; p += NT)
+      rt[2] = __fadd_rn(rt[2], level_rate(
+          M.lv_m[((size_t)R * cols_m + cm) * ncm + p]));
+    block_sum<2>(sse, s_lred);
+    block_sum<3>(rt, s_red);
+    if (t == 0) {
+      const float d = __fadd_rn(__ll2float_rn(sse[0]), __ll2float_rn(sse[1]));
+      M.cost_region[(size_t)M.half * cols_m + cm] = __fadd_rn(
+          d, __fmul_rn(M.lam, __fadd_rn(__fadd_rn(rt[0], rt[1]), rt[2])));
+    }
+  }
+  if (!M.do_big) return;
+  __syncthreads();        // the region costs, the split row as decided
+
+  // the sub-levels against the 64 (chroma 32) of this superblock
+  bool split64;
+  if (luma) {
+    const float* r0 = M.cost_region;
+    const float* r1 = M.cost_region + cols_m;
+    const float sub = __fadd_rn(
+        __fadd_rn(__fadd_rn(r0[2 * C], r0[2 * C + 1]),
+                  __fadd_rn(r1[2 * C], r1[2 * C + 1])), M.lam_split);
+    split64 = sub < M.cost_b[C];
+    if (t == 0) M.split64[(size_t)s * cols_b + C] = split64;
+  } else {
+    split64 = M.split64[(size_t)s * cols_b + C] != 0;
+  }
+  if (split64) {
+    zero_blocks(M.lv_b, cols_b, 1024, s, 1, C, 1);
+    return;
+  }
+  zero_blocks(M.lv_s, cols_s, ncs, 4 * s, 4, 4 * C, 4);
+  zero_blocks(M.lv_m, cols_m, ncm, 2 * s, 2, 2 * C, 2);
+  if (luma && t < 4)
+    M.split[(size_t)(2 * s + t / 2) * cols_m + 2 * C + t % 2] = 0;
+  copy_window(M.recon, M.rec_b, W, s * nb, nb, C * nb, nb);
+}
+
+int err() { return (int)cudaGetLastError(); }
+
+}  // namespace
+
+extern "C" int av1_part_chain(const ChainJob* jobs, int count,
+                              cudaStream_t stream) {
+  if (count < 1 || count > 3) return (int)cudaErrorInvalidValue;
+  ChainJobs J;
+  for (int k = 0; k < count; ++k) J.j[k] = jobs[k];
+  part_chain_kernel<<<count, NT, 0, stream>>>(J);
+  return err();
+}
+
+extern "C" int av1_part_pred(const PredJob* jobs, int count,
+                             cudaStream_t stream) {
+  if (count < 1 || count > MAXJ) return (int)cudaErrorInvalidValue;
+  PredJobs J;
+  int gx = 1;
+  for (int k = 0; k < count; ++k) {
+    J.j[k] = jobs[k];
+    gx = max(gx, jobs[k].nm * jobs[k].cols);
+  }
+  part_pred_kernel<<<dim3(gx, count), NT, 0, stream>>>(J);
+  return err();
+}
+
+extern "C" int av1_part_code(const CodeJob* jobs, int count,
+                             cudaStream_t stream) {
+  if (count < 1 || count > MAXJ) return (int)cudaErrorInvalidValue;
+  CodeJobs J;
+  int gx = 1;
+  for (int k = 0; k < count; ++k) {
+    J.j[k] = jobs[k];
+    gx = max(gx, jobs[k].cols);
+  }
+  part_code_kernel<<<dim3(gx, count), NT, 0, stream>>>(J);
+  return err();
+}
+
+extern "C" int av1_part_merge(const MergeJob* jobs, int count,
+                              cudaStream_t stream) {
+  if (count < 1 || count > 2) return (int)cudaErrorInvalidValue;
+  MergeJobs J;
+  int gx = 1;
+  for (int k = 0; k < count; ++k) {
+    J.j[k] = jobs[k];
+    gx = max(gx, jobs[k].width / (4 * jobs[k].ns));
+  }
+  part_merge_kernel<<<dim3(gx, count), NT, 0, stream>>>(J);
+  return err();
+}
+
+// The job structs' layout, which kernels/intra_part.py checks against its
+// ctypes mirrors once when it loads the library: a line "Struct size" per
+// struct and "Struct.field offset" per field.  Writes at most `cap` bytes
+// with their terminating zero; returns the length of the whole text.
+extern "C" int av1_part_layout(char* out, int cap) {
+  struct At { const char* name; size_t at; };
+#define S(T) {#T, sizeof(T)}
+#define F(T, f) {#T "." #f, offsetof(T, f)}
+  static const At v[] = {
+      S(PartSite), F(PartSite, step), F(PartSite, off), F(PartSite, gain),
+      F(PartSite, tab), F(PartSite, q), F(PartSite, cap), F(PartSite, lam),
+      F(PartSite, inv_ratio), F(PartSite, n), F(PartSite, tx),
+      F(PartSite, dq_shift), F(PartSite, nm), F(PartSite, cost),
+      F(PartSite, pix_max),
+      S(ChainJob), F(ChainJob, s), F(ChainJob, fwdt), F(ChainJob, src),
+      F(ChainJob, lv), F(ChainJob, rec), F(ChainJob, cols),
+      F(ChainJob, width), F(ChainJob, edge0),
+      S(PredJob), F(PredJob, bottom), F(PredJob, src), F(PredJob, av),
+      F(PredJob, resid), F(PredJob, pred), F(PredJob, n), F(PredJob, nm),
+      F(PredJob, cols), F(PredJob, width),
+      S(CodeJob), F(CodeJob, s), F(CodeJob, coefs), F(CodeJob, pred),
+      F(CodeJob, src), F(CodeJob, lv), F(CodeJob, rec), F(CodeJob, modes),
+      F(CodeJob, cost), F(CodeJob, rate), F(CodeJob, cols),
+      F(CodeJob, width),
+      S(MergeJob), F(MergeJob, lv_s), F(MergeJob, lv_m), F(MergeJob, lv_b),
+      F(MergeJob, recon), F(MergeJob, src), F(MergeJob, rec_m),
+      F(MergeJob, rec_b), F(MergeJob, split), F(MergeJob, split64),
+      F(MergeJob, cost_s), F(MergeJob, cost_m), F(MergeJob, cost_b),
+      F(MergeJob, cost_region), F(MergeJob, lam), F(MergeJob, lam_split),
+      F(MergeJob, ns), F(MergeJob, width), F(MergeJob, sb_row),
+      F(MergeJob, half), F(MergeJob, do_big)};
+#undef S
+#undef F
+  int len = 0;
+  for (const At& x : v)
+    len += snprintf(out + len, cap > len ? cap - len : 0, "%s %d\n", x.name,
+                    (int)x.at);
+  return len;
+}

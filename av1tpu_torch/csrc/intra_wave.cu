@@ -99,46 +99,6 @@ __constant__ int kWaveModes[NPOS] = {DC, V, H, D45, D67, SMOOTH, SMOOTH_V,
 // float32(0.87) and float32(3.66): models/intra_wave.py:_TXD_BITS[1:]
 constexpr u32 TXD8_BITS = 0x3f5eb852u, TXD4_BITS = 0x406a3d71u;
 
-// ---- the 2-D inverse (the 1-D transforms are itx.cuh's) ----
-
-// one 1-D inverse of length n (4, 8 or 16), DCT or ADST
-__device__ void inv1d(int n, bool adst, const u32* x, u32* o) {
-  if (n == 4) {
-    if (adst) iadst4(x, o); else idct4(x, o);
-  } else if (n == 8) {
-    if (adst) iadst8(x, o); else idct8(x, o);
-  } else {
-    if (adst) iadst16(x, o); else idct16(x, o);
-  }
-}
-
-// The 2-D inverse of ops/transforms.py:_inverse_2d on nb n x n blocks in
-// shared memory (row-major (h, w) each, stride 256): dq is replaced by the
-// residual; tmp is scratch.  tx: DCT_DCT, ADST_DCT (vertical ADST),
-// DCT_ADST, ADST_ADST.  Every thread of the block must call it.
-__device__ void inverse_2d(int n, int tx, int nb, u32* dq, u32* tmp) {
-  const int t = threadIdx.x;
-  const int row_shift = n == 4 ? 0 : (n == 8 ? 1 : 2);
-  const bool h_adst = tx == 2 || tx == 3, v_adst = tx == 1 || tx == 3;
-  u32 in[16], out[16];
-  if (t < nb * n) {
-    const u32* src = dq + (t / n) * 256 + (t % n) * n;
-    u32* dst = tmp + (t / n) * 256 + (t % n) * n;
-    for (int k = 0; k < n; ++k) in[k] = src[k];
-    inv1d(n, h_adst, in, out);
-    for (int k = 0; k < n; ++k) dst[k] = rs(out[k], row_shift);
-  }
-  __syncthreads();
-  if (t < nb * n) {
-    const u32* src = tmp + (t / n) * 256 + (t % n);
-    u32* dst = dq + (t / n) * 256 + (t % n);
-    for (int k = 0; k < n; ++k) in[k] = src[k * n];
-    inv1d(n, v_adst, in, out);
-    for (int k = 0; k < n; ++k) dst[k * n] = rs(out[k], 4);
-  }
-  __syncthreads();
-}
-
 // ---- prediction (models/intra_wave.py:_predict_modes, one pixel) ----
 
 __device__ __forceinline__ int r2(int x, int n) {
@@ -412,7 +372,7 @@ __global__ void __launch_bounds__(NT) wave_luma16_kernel(
       s_dq[m * 256 + t] = (u32)(lv[m] * q);
     }
     __syncthreads();
-    inverse_2d(16, tx, ng, s_dq, s_tmp);
+    inverse_2d<16>(tx, ng, s_dq, s_tmp, 256, 16);
     int rec[MAXG], dist[MAXG];
     for (int m = 0; m < MAXG; ++m) {
       rec[m] = min(max(pr[m] + (int)s_dq[m * 256 + t], 0), pix_max);
@@ -558,7 +518,8 @@ __global__ void __launch_bounds__(NT) wave_sub_chroma_kernel(
           s_dq[t] = (u32)(lv[0] * S.q[t]);
         }
         __syncthreads();
-        inverse_2d(ns, g, 1, s_dq, s_tmp);
+        if (ns == 8) inverse_2d<8>(g, 1, s_dq, s_tmp, 256, 8);
+        else inverse_2d<4>(g, 1, s_dq, s_tmp, 256, 4);
         int rec = 0;
         int d2[1] = {0};
         if (active) {
@@ -636,7 +597,7 @@ __global__ void __launch_bounds__(NT) wave_sub_chroma_kernel(
       s_dq[t] = (u32)(lv * T.qc[t]);
     }
     __syncthreads();
-    inverse_2d(8, 0, 1, s_dq, s_tmp);
+    inverse_2d<8>(0, 1, s_dq, s_tmp, 256, 8);
     if (active) {
       rec_c[blk * 64 + t] = min(max(dc + (int)s_dq[t], 0), pix_max);
       lv_c[blk * 64 + t] = (int16_t)lv;

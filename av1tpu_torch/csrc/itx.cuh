@@ -1,11 +1,13 @@
 // The integer inverse transforms of av1tpu_torch/ops/transforms.py for the
 // CUDA kernels: 1-D DCTs of 4 to 64 points and ADSTs of 4 to 16, with the
-// same butterflies and per-stage roundings.  Everything is unsigned 32-bit
-// arithmetic, so products and sums wrap as the plain version's int32
-// tensors do; rs() shifts arithmetically.  csrc/intra_wave.cu (the
-// wavefront keyframe) and csrc/inter_code.cu (the inter residual coder)
-// include it.  Each source is compiled on its own (no relocatable device
-// code), so the constant table below is per translation unit.
+// same butterflies and per-stage roundings, and the 2-D inverse with its tx
+// types (inverse_2d).  Everything is unsigned 32-bit arithmetic, so
+// products and sums wrap as the plain version's int32 tensors do; rs()
+// shifts arithmetically.  csrc/intra_wave.cu (the wavefront keyframe),
+// csrc/inter_code.cu (the inter residual coder) and csrc/intra_part.cu
+// (the partition probe) include it.  Each source is compiled on its own
+// (no relocatable device code), so the constant table below is per
+// translation unit.
 
 #pragma once
 
@@ -293,5 +295,58 @@ __device__ void iadst16(const u32* x, u32* o) {
 }
 
 #undef C
+
+// One 1-D inverse of N points: DCT, or ADST where `adst` (N = 4, 8, 16).
+template <int N>
+__device__ __forceinline__ void inv1d(bool adst, const u32* x, u32* o) {
+  if constexpr (N == 4) {
+    if (adst) iadst4(x, o); else idct4(x, o);
+  } else if constexpr (N == 8) {
+    if (adst) iadst8(x, o); else idct8(x, o);
+  } else if constexpr (N == 16) {
+    if (adst) iadst16(x, o); else idct16(x, o);
+  } else if constexpr (N == 32) {
+    idct32(x, o);
+  } else {
+    idct64(x, o);
+  }
+}
+
+// The 2-D inverse of ops/transforms.py:_inverse_2d on nb N x N blocks in
+// shared memory: row r of block b starts at buf + b * bstride + r * ld
+// (ld >= N).  buf holds the dequantized coefficients and is replaced by the
+// residual; tmp, laid out alike, is scratch.  Rows at or past `rows` are
+// zero (TX_64X64 codes its top-left 32x32), so their row pass is skipped.
+// tx: 0 DCT_DCT, 1 ADST_DCT (vertical ADST), 2 DCT_ADST, 3 ADST_ADST
+// (_TX_KIND).  The rows are shifted by _ROW_SHIFT (0 at 4, 1 at 8, 2
+// above), the columns by 4.  The block's threads share the rows, then the
+// columns; every thread of the block calls it (two barriers).
+template <int N>
+__device__ void inverse_2d(int tx, int nb, u32* buf, u32* tmp, int bstride,
+                           int ld, int rows = N) {
+  constexpr int ROW_SHIFT = N == 4 ? 0 : (N == 8 ? 1 : 2);
+  const bool h_adst = tx == 2 || tx == 3, v_adst = tx == 1 || tx == 3;
+  u32 in[N], out[N];
+  for (int r = threadIdx.x; r < nb * N; r += blockDim.x) {
+    const u32* src = buf + (r / N) * bstride + (r % N) * ld;
+    u32* dst = tmp + (r / N) * bstride + (r % N) * ld;
+    if (r % N >= rows) {
+      for (int k = 0; k < N; ++k) dst[k] = 0u;
+      continue;
+    }
+    for (int k = 0; k < N; ++k) in[k] = src[k];
+    inv1d<N>(h_adst, in, out);
+    for (int k = 0; k < N; ++k) dst[k] = rs(out[k], ROW_SHIFT);
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < nb * N; c += blockDim.x) {
+    const u32* src = tmp + (c / N) * bstride + c % N;
+    u32* dst = buf + (c / N) * bstride + c % N;
+    for (int k = 0; k < N; ++k) in[k] = src[k * ld];
+    inv1d<N>(v_adst, in, out);
+    for (int k = 0; k < N; ++k) dst[k * ld] = rs(out[k], 4);
+  }
+  __syncthreads();
+}
 
 }  // namespace

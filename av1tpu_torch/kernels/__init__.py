@@ -9,6 +9,9 @@ def hand_kernels() -> tuple:
     from av1tpu_torch.kernels.cdef import cdef_filter
     from av1tpu_torch.kernels.deblock import deblock_edges
     from av1tpu_torch.kernels.inter_code import code_blocks
+    from av1tpu_torch.kernels.intra_part import (
+        part_chain, part_code, part_merge, part_pred,
+    )
     from av1tpu_torch.kernels.intra_wave import wave_luma16, wave_sub_chroma
     from av1tpu_torch.kernels.motion import (
         coarse_search, global_search, refine_subpel,
@@ -17,4 +20,4 @@ def hand_kernels() -> tuple:
 
     return (transform_quantize, wave_luma16, wave_sub_chroma, code_blocks,
             cdef_filter, coarse_search, global_search, refine_subpel,
-            deblock_edges)
+            deblock_edges, part_chain, part_pred, part_code, part_merge)

@@ -32,11 +32,12 @@ def quantize_coefs(coefs: torch.Tensor, step: torch.Tensor,
     coefs: (..., n*n) float32 with the DC coefficient at index 0.
 
     The offsets row is made on every call, and on a GPU writing its DC
-    entry from the host waits for the stream (the fast keyframe's RDO and
-    the partition probe call it; the inter step's coder, code_blocks, holds
-    the row as a constant of its CodePlane).  When the inter chain still
-    called it, a row kept on the device made the 48-frame 1080p encode
-    about 1 s slower on an H100 (PERF.md)."""
+    entry from the host waits for the stream (the fast keyframe's RDO
+    calls it; the inter step's coder, code_blocks, and the partition
+    probe's kernels hold the row as a constant of their CodePlane and
+    PartSite).  When the inter chain still called it, a row kept on the
+    device made the 48-frame 1080p encode about 1 s slower on an H100
+    (PERF.md)."""
     off = torch.full((coefs.shape[-1],), Q_OFFSET, dtype=torch.float32,
                      device=coefs.device)
     off[0] = Q_OFFSET_DC

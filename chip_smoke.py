@@ -25,13 +25,13 @@ exits non-zero:
    (partitions=True: partition probe, wavefront keyframe, partitioned
    inter step);
 7. quality slice: the quality-preset GOP encode of the same 1920x1080 clip
-   (one warm-up run, one timed run).  The kernel's launch counter is set
-   to 0 before the timed run and read after it: 120 launches, one per
-   16x16 column of the first block row of the one probed frame's luma
-   plane (the probe's first-row chain is the kernel's function; every
-   other residual coder of this path prunes with rd_zero, which reads the
-   coefficients, and so has no kernel yet).  The wavefront keyframe's
-   two kernels launch once per diagonal each (254 at 1088x1920).  Spies
+   (one warm-up run, one timed run).  The kernels' launch counters are
+   set to 0 before the timed run and read after it: no transform_quantize
+   launch (the probe's first-row chains are part_chain's), the probe's
+   four kernels part_launches(1088, 1920) times for the one probed frame
+   (1 part_chain, 134 part_pred, 134 part_code, 66 part_merge), and the
+   wavefront keyframe's two kernels once per diagonal each (254 at
+   1088x1920).  The probe's arguments are caught for phase 7e.  Spies
    assert that the keyframe recon, the inter carry (recon and MV field)
    and GOLDEN live on the card, and the bytes must come out below the fast
    preset's.
@@ -72,6 +72,20 @@ exits non-zero:
    deblock_bounds: bytes, integer work not counted).  Where
    $AV1TPU_SMOKE_OUT is set, the inter frame's pair, lambda and peak go to
    search_inputs.pt there, for tools/search_compare.py --inputs;
+7e. probe kernels vs plain, on phase 7's probed frame at its q and on a
+   10-bit frame made from it (probe_vs_plain): (a) every call of the four
+   probe kernels (part_chain, part_pred, part_code, part_merge) beside its
+   plain version on copies of the same inputs: differing decisions (modes,
+   split, split64) printed with their costs, levels and pixels equal
+   wherever a stage's decisions agree; (b) the whole probe both ways:
+   every output grid, the count of differing decisions, levels and
+   pixels (at most 0.1% of the decisions); (c) per kernel, the 8-bit
+   frame's calls replayed: device time per probed frame (queued behind a
+   sleep kernel), launches per frame, the plain version's time and the
+   bound (part_bounds), part_chain's serial depth; (d) the probe's host
+   time with the kernels and with the plain versions, and its device busy
+   time with the kernels (torch.profiler: its launches overfill the launch
+   queue, so it cannot wait behind a sleep kernel);
 8. modes parity: phase 4 again (quality preset) in the command's other
    modes: the default metric, tpu_vmaf (its score within 1e-3, and once
    more under torch.backends.cudnn.flags(allow_tf32=True): the metric
@@ -82,16 +96,18 @@ exits non-zero:
    option at its default (quality preset, chunk 4, tpu_vmaf), through
    av1tpu_torch.cli.main on a 16-frame y4m: progress lines, the stats line
    (tpu_vmaf in [0, 100], PSNR-Y >= 30 dB), 16 IVF frames, the keyframe
-   recon and the inter carry on the card, 120 launches per scene (the
-   probe's first-row luma chain).  Then the metric pass alone at 1088x1920
+   recon and the inter carry on the card, the probe kernels' launches of
+   one probed frame per scene and no transform_quantize launch.  Then the
+   metric pass alone at 1088x1920
    (tpu_vmaf, SSIM, PSNR), timed and held against the CPU;
 10. the same command with --layers 2: bytes at most 1.02 times phase 9's
    (the bound tests/test_layers.py holds the reference to), PSNR-Y >= 30,
-   120 launches;
+   the launches of phase 9;
 11. the same command with --all-intra --max-frames 4, each preset: the
-   kernel launches equal the count derived from the code (fast: 187 per
-   frame, the keyframe's U+V stack, plus the probe's 374; quality: 120 per
-   frame plus the probe's 120);
+   kernel launches equal the count derived from the code (fast: 187
+   transform_quantize launches per frame, the keyframe's U+V stack, plus
+   the probe's 374; quality: no transform_quantize launch, the probe
+   kernels' launches of one frame per coded frame and per probe);
 12. scene batch: encode_clip(workers=2) on the batch path (parallel/gop.py,
    one worker process per device).  (a) On the two-scene clip (quality
    preset), its TUs must equal workers=1 on the card and the CPU run of
@@ -101,8 +117,9 @@ exits non-zero:
    frames per scene, q 72, quality preset), workers=1 against the batch
    on two workers, after a warm-up at the small size in the parent and in
    each worker: encode seconds, scenes per second, key_device, bytes
-   (equal), peak memory per device and process; 120 transform_quantize
-   launches per scene, all in the parent's probe, and 254 of each wave
+   (equal), peak memory per device and process; the probe kernels'
+   launches of one frame per scene, all in the parent's probe (no
+   transform_quantize launch), and 254 of each wave
    kernel per scene's keyframe, in the workers (in the parent at
    workers=1);
 13. container and daemon.  (a) Where pkg-config finds libavcodec,
@@ -114,8 +131,9 @@ exits non-zero:
    video, the tone) and decoded (8 frames).  Then, on every host, the same
    command in this process at --chunk 1 with ReconSpy on the keyframe
    recon after CDEF and each inter frame's, on that mkv (on the y4m of the
-   same clip without libav): 40 launches per probed scene (the 640-wide
-   first block row); with libav its 8 TUs must equal the replaced file's
+   same clip without libav): the probe kernels' launches of one 384x640
+   frame per probed scene, no transform_quantize launch; with libav its 8
+   TUs must equal the replaced file's
    video (remuxed to IVF), and its libdav1d decode, frame count and
    decoded-vs-recon differing pixels are printed, not failed on: the
    quality preset keeps the reference's faults (ROADMAP queue 3: sub_chain's
@@ -146,8 +164,12 @@ search, one search per inter frame and one per temporal filter neighbour
 (7 per scene of more than one frame, in the process that plans the
 scenes: the scene batch's parent); 2 deblock_edges launches per plane
 whose level is not 0, on the fast keyframe and every reference inter
-frame; none on the all-intra paths.  The scene batch's workers report
-their counts with each scene.  Phases 7 and 9 also hold bytes within 1%
+frame; none on the all-intra paths.  Those of the probe's four kernels
+equal models/intra_part.part_launches at the coded size times the path's
+probed frames (one probe per scene, and on the all-intra quality path
+every frame too; in the scene batch's parent), and transform_quantize
+launches on no quality path.  The scene batch's workers report their
+counts with each scene.  Phases 7 and 9 also hold bytes within 1%
 and PSNR-Y within 0.05 dB of what these cells gave before the inter
 step's kernels (362,224 B and 41.471 dB; 104,684 B; NVIDIA H100 80GB HBM3,
 700.00 W; PERF.md).
@@ -155,7 +177,8 @@ step's kernels (362,224 B and 41.471 dB; 104,684 B; NVIDIA H100 80GB HBM3,
 The line before the last is the kernels' JSON record (launches summed over
 the timed runs, with the count of each path beside it: transform_quantize,
 wave_luma16, wave_sub_chroma, code_blocks, cdef_filter, coarse_search,
-global_search, refine_subpel and deblock_edges); the last line
+global_search, refine_subpel, deblock_edges, part_chain, part_pred,
+part_code and part_merge); the last line
 is {"ok": true, "device": {...}}.  Imports nothing of JAX or av1tpu.
 """
 
@@ -224,6 +247,23 @@ def assert_wave(launches: dict, keyframes: int, h: int | None = None,
     want = keyframes * wave_diagonals(h or ROWS * 16, w or COLS * 16)
     got = (launches["wave_luma16"], launches["wave_sub_chroma"])
     assert got == (want, want), (got, want)
+
+
+PART_KERNELS = ("part_chain", "part_pred", "part_code", "part_merge")
+
+
+def assert_part(launches: dict, frames: int, h: int | None = None,
+                w: int | None = None) -> None:
+    """Each probe kernel launched models/intra_part.part_launches(h, w)
+    times for each of the path's `frames` probed frames (quality probes
+    and all-intra quality frames) coded at h x w (default: the padded
+    1080p frame)."""
+    from av1tpu_torch.models.intra_part import part_launches
+
+    per = part_launches(h or ROWS * 16, w or COLS * 16)
+    got = {k: launches[k] for k in PART_KERNELS}
+    want = {k: frames * per[k] for k in PART_KERNELS}
+    assert got == want, (got, want)
 
 
 # code_blocks launches per inter frame: the partitioned step codes luma and
@@ -627,12 +667,13 @@ def slice_1080p(torch, clip):
 
 def quality_slice_1080p(torch, clip, fast_stats):
     """Phase 7.  Returns (the kernels' launches in the timed run, the
-    arguments of its wavefront keyframe, of its first inter chunk and of
-    its first temporal filter): transform_quantize once per
-    16x16 column of the first block row of the probed frame's luma plane
-    (one frame is probed per scene at a fixed q), each wavefront kernel
-    once per diagonal of the scene's keyframe."""
+    arguments of its wavefront keyframe, of its first inter chunk, of its
+    first temporal filter and of its probe): no transform_quantize launch,
+    the probe kernels' launches of one probed frame (one frame is probed
+    per scene at a fixed q), each wavefront kernel once per diagonal of
+    the scene's keyframe."""
     import av1tpu_torch.models.inter_v as inter_v
+    import av1tpu_torch.models.intra_part as intra_part
     import av1tpu_torch.models.intra_wave as intra_wave
     import av1tpu_torch.models.tfilter as tfilter
 
@@ -644,6 +685,12 @@ def quality_slice_1080p(torch, clip, fast_stats):
     key_args: list = []
     gop_args: list = []
     tf_args: list = []
+    probe_args: list = []
+
+    def probe_spy(*a, **k):
+        if not probe_args:
+            probe_args.append((a, k))
+        return probe_fn(*a, **k)
 
     def tf_spy(*a, **k):
         if not tf_args:
@@ -665,16 +712,20 @@ def quality_slice_1080p(torch, clip, fast_stats):
         seen["mv"].add(mv.device.type)
         return bufs, ref, mv
 
+    probe_fn = intra_part.encode_intra_part
     intra_wave.encode_intra_wave_key_recon = key_spy
     inter_v.encode_gop_chunk_part = gop_spy
     tfilter.temporal_filter_key = tf_spy
+    intra_part.encode_intra_part = probe_spy
     try:
         _, stats, launches = _timed_slice(torch, clip, "quality slice", True)
     finally:
         intra_wave.encode_intra_wave_key_recon = key_fn
         inter_v.encode_gop_chunk_part = gop_fn
         tfilter.temporal_filter_key = tf_fn
-    assert launches["transform_quantize"] == COLS, launches
+        intra_part.encode_intra_part = probe_fn
+    assert launches["transform_quantize"] == 0, launches
+    assert_part(launches, stats["scenes"])
     assert_wave(launches, stats["scenes"])
     assert all(v == {"cuda"} for v in seen.values()), seen
     print(f"quality vs fast at {clip.num_frames} frames: bytes "
@@ -686,7 +737,7 @@ def quality_slice_1080p(torch, clip, fast_stats):
     # 700.00 W; PERF.md): they may flip a near-tie, not move the stream
     assert abs(stats["bytes"] - 362224) <= 0.01 * 362224, stats["bytes"]
     assert abs(stats["psnr_y"] - 41.471) <= 0.05, stats["psnr_y"]
-    return launches, key_args[-1], gop_args[0], tf_args[0]
+    return launches, key_args[-1], gop_args[0], tf_args[0], probe_args[0]
 
 
 def wave_bounds(n: int) -> dict:
@@ -1426,6 +1477,497 @@ def search_deblock_vs_plain(torch, gop_args, tf_args) -> dict:
     return recs
 
 
+# av1tpu/models/intra_part.py: what each probe kernel replaces
+PART_REPLACES = {"part_chain": "av1tpu/models/intra_part.py:167",
+                 "part_pred": "av1tpu/models/intra_part.py:73",
+                 "part_code": "av1tpu/models/intra_part.py:85",
+                 "part_merge": "av1tpu/models/intra_part.py:189"}
+
+
+@contextlib.contextmanager
+def plain_part_kernels():
+    """Within the block the probe's four wrappers run their plain versions
+    (on the tensors' device, the card): the plain side of phase 7e."""
+    from av1tpu_torch.kernels import intra_part as kpart
+    from av1tpu_torch.models import intra_part
+
+    saved = {n: getattr(intra_part, n) for n in PART_KERNELS}
+    for n in PART_KERNELS:
+        setattr(intra_part, n, getattr(kpart, n + "_plain"))
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(intra_part, n, f)
+
+
+def _clone_job(job):
+    return job._replace(**{k: v.clone() for k, v in job._asdict().items()
+                           if hasattr(v, "clone")})
+
+
+# A value that two float32 sums of the same terms in other orders can
+# reach, relative to the terms' magnitudes: the margin of a near-tie
+TIE_REL = 1e-5
+
+
+def _chain_check(torch, j, p) -> dict:
+    """part_chain's outputs for one plane, column by column from the
+    kernel's own carry, against float64: every level is the float64 level
+    of its coefficient (quantize, rd_zero where the site has a table) or,
+    where the coefficient lies within TIE_REL of its terms' magnitudes
+    from a rounding or rd_zero boundary, the level on the boundary's other
+    side, at most max(2, levels / 10,000) of those; the recon is exactly
+    the carry plus the inverse of the dequantized levels.  Returns the
+    levels and pixels differing from the plain version (after a boundary
+    level the carries differ) and the boundary levels."""
+    from av1tpu_torch.models.intra_v import quantize_with_offsets
+    from av1tpu_torch.models.rdoq import rd_zero
+    from av1tpu_torch.ops.transforms import inverse_transform
+
+    s = j.site
+    n, w = j.src.shape
+    cols = w // n
+    edge = torch.full((cols,), (1 << (s.bit_depth - 1)) - 1,
+                      dtype=torch.int32, device=j.src.device)
+    edge[1:] = j.rec[0, n - 1:w - 1:n]          # rec[0, c * n - 1]
+    resid = (j.src.reshape(n, cols, n).transpose(0, 1).reshape(cols, n * n)
+             - edge[:, None]).double()
+    f = j.fwdt.double()
+    c = resid @ f
+    tol = TIE_REL * (resid.abs() @ f.abs())
+    step, off = s.step.double(), s.off.double()
+
+    def level(x):
+        lv = quantize_with_offsets(x, step, s.cap, off)
+        if s.tab is None:
+            return lv
+        return rd_zero(lv, x, step, float(s.lam), s.tab.double(),
+                       s.gains.double())
+
+    mid = level(c)
+    got = j.lv.reshape(cols, n * n).int()
+    ok = ((got == mid) | (got == level(c.sign() * (c.abs() - tol)
+                                       .clamp_min(0)))
+          | (got == level(c.sign() * (c.abs() + tol))))
+    bad = (~ok).nonzero()
+    assert not len(bad), ("part_chain: a level off every boundary",
+                          n, bad[:4].tolist())
+    boundary = int((got != mid).sum())
+    assert boundary <= max(2, got.numel() // 10_000), (
+        "part_chain: boundary levels", n, boundary)
+    rec = torch.clamp(edge[:, None, None] + inverse_transform(
+        (got * s.q).reshape(cols, n, n), n, n, s.tx), 0, s.pix_max)
+    assert torch.equal(rec.transpose(0, 1).reshape(n, w), j.rec), (
+        "part_chain: recon", n)
+    return {"levels": int((j.lv != p.lv).sum()),
+            "pixels": int((j.rec != p.rec).sum()),
+            "max_abs_err": int((j.lv.int() - p.lv.int()).abs().max()),
+            "boundary": boundary}
+
+
+def _near_tie(a: float, b: float) -> bool:
+    return abs(a - b) <= TIE_REL * max(1.0, abs(b))
+
+
+def _merge_flips(torch, j, p) -> set:
+    """The superblock columns of one luma part_merge job where its split
+    or split64 grid differs from the plain version's.  Asserts each flip
+    a near-tie of this job's decisions: the float64 sum of the small
+    blocks' costs (of the regions' costs, by either side's, for split64)
+    within TIE_REL of the larger block's cost; a split of the superblock
+    row may also differ where its split64 flipped, and nothing else."""
+    s, r = j.sb_row, 2 * j.sb_row + j.half
+    flips = set()
+    for row, col in (j.split64 != p.split64).nonzero().tolist():
+        want = float(j.cost_b[col])
+        assert row == s and j.do_big and any(_near_tie(float(
+            reg[:, 2 * col:2 * col + 2].double().sum())
+            + float(j.lam_split), want)
+            for reg in (j.cost_region, p.cost_region)), (
+            "part_merge: a split64 flip off a near-tie", row, col)
+        flips.add(col)
+    for row, col in (j.split != p.split).nonzero().tolist():
+        if row // 2 == s and col // 2 in flips:
+            continue            # the 64 merge cleared it on one side
+        cs = j.cost_s[:, 2 * col:2 * col + 2].double()
+        assert row == r and _near_tie(float(cs.sum()) + float(j.lam_split),
+                                      float(j.cost_m[col])), (
+            "part_merge: a split flip off a near-tie", row, col)
+        flips.add(col // 2)
+    return flips
+
+
+def _mode_flips(torch, j, p, flip) -> list:
+    """The columns of a part_code job whose mode differs from the plain
+    version's.  Every candidate's cost in float64 from the coefficients
+    (the quantize is elementwise float32, bit-equal on both sides): the
+    two chosen candidates' costs within TIE_REL, and the kernel's levels
+    and recon those of the candidate it names.  Returns the flips."""
+    from av1tpu_torch.kernels.intra_part import MODE_BITS, MODE_VALS, _dq_shift
+    from av1tpu_torch.models.intra_v import log2_rate, quantize_with_offsets
+    from av1tpu_torch.models.rdoq import rd_zero
+    from av1tpu_torch.ops.transforms import inverse_transform
+
+    s = j.site
+    n, cw, cols = s.n, s.cw, j.lv.shape[0]
+    lv = quantize_with_offsets(j.coefs, s.step, s.cap, s.off)
+    if s.tab is not None:
+        lv = rd_zero(lv, j.coefs, s.step, float(s.lam), s.tab, s.gains)
+    d = j.coefs.double() - lv.double() * s.step.double()
+    bits = torch.tensor(MODE_BITS, dtype=torch.float64,
+                        device=lv.device)[:, None]
+    cost = ((d * d).sum(1).reshape(3, cols) * float(s.inv_ratio)
+            + float(s.lam) * (log2_rate(lv, 1).double().reshape(3, cols)
+                              + bits))
+    lv = lv.reshape(3, cols, cw, cw)
+    pred = j.pred.reshape(3, cols, n, n)
+    out = []
+    for c in flip.nonzero().flatten().tolist():
+        mk, mp = (MODE_VALS.index(int(x.modes[c])) for x in (j, p))
+        tie = (f"n{n} column {c}", MODE_VALS[mk], float(cost[mk, c]),
+               MODE_VALS[mp], float(cost[mp, c]))
+        assert _near_tie(tie[2], tie[4]), ("part_code: a mode flip off a "
+                                           "near-tie", tie)
+        assert torch.equal(j.lv[c].int(), lv[mk, c]), ("part_code: the "
+                                                       "levels", tie)
+        dq = (lv[mk, c] * s.q.reshape(cw, cw) if s.dq_shift == 0 else
+              _dq_shift(lv[mk, c], s.q.reshape(cw, cw), s.dq_shift))
+        want = torch.clamp(pred[mk, c] + inverse_transform(
+            dq[None], n, n, s.tx)[0], 0, s.pix_max)
+        assert torch.equal(j.rec[:, c * n:(c + 1) * n], want), (
+            "part_code: the recon", tie)
+        out.append(tie)
+    return out
+
+
+def _stage_diff(torch, name: str, jobs, plain_jobs) -> dict:
+    """One wrapper call against its plain version on the same inputs.
+    part_pred: resid and pred equal.  part_chain: _chain_check.
+    part_code: a mode flip only at a near-tie of the chosen costs, the
+    levels and recon of every other column equal.  part_merge: a split or
+    split64 flip only at a near-tie (_merge_flips), levels and recon equal
+    outside the flipped superblock columns.  Returns the counts: differing
+    decisions, levels and pixels, part_chain's boundary levels, the
+    largest level or pixel difference, the costs' largest relative
+    difference where the decisions agree, and the flips to print."""
+    rec = {"decisions": 0, "levels": 0, "pixels": 0, "max_abs_err": 0,
+           "boundary": 0, "cost_rel": 0.0, "ties": []}
+    for j, p in zip(jobs, plain_jobs):
+        if name == "part_pred":
+            assert torch.equal(j.resid, p.resid) and torch.equal(j.pred,
+                                                                 p.pred)
+            continue
+        if name == "part_chain":
+            d = _chain_check(torch, j, p)
+            for k in ("levels", "pixels", "boundary"):
+                rec[k] += d[k]
+            rec["max_abs_err"] = max(rec["max_abs_err"], d["max_abs_err"])
+            if d["boundary"]:
+                rec["ties"].append((f"chain n{j.site.n}: boundary levels",
+                                    d["boundary"]))
+            continue
+        if name == "part_code":
+            cols = j.lv.shape[0]
+            n = j.rec.shape[0]
+            flip = ((j.modes != p.modes) if j.modes is not None else
+                    torch.zeros(cols, dtype=torch.bool, device=j.lv.device))
+            rec["decisions"] += int(flip.sum())
+            keep = ~flip
+            lv_d = (j.lv.int() - p.lv.int()).abs().flatten(1).amax(1)
+            rc_d = (j.rec - p.rec).reshape(n, cols, n).abs().amax(
+                dim=(0, 2))
+            assert not bool((lv_d[keep] > 0).any()), (name, "levels")
+            assert not bool((rc_d[keep] > 0).any()), (name, "recon")
+            rec["levels"] += int((j.lv != p.lv).sum())
+            rec["pixels"] += int((j.rec != p.rec).sum())
+            rec["max_abs_err"] = max(rec["max_abs_err"], int(lv_d.max()),
+                                     int(rc_d.max()))
+            if j.cost is not None:
+                rel = ((j.cost - p.cost).abs() / p.cost.abs().clamp_min(1))
+                if bool(keep.any()):
+                    rec["cost_rel"] = max(rec["cost_rel"],
+                                          float(rel[keep].max()))
+            if bool(flip.any()):
+                rec["ties"] += _mode_flips(torch, j, p, flip)
+            continue
+        # part_merge: the split decisions of the half (and the 64's)
+        for k in ("split", "split64"):
+            rec["decisions"] += int((getattr(j, k) != getattr(p, k)).sum())
+        flips = _merge_flips(torch, j, p) if j.cost_m is not None else set()
+        nb = 4 * j.lv_s.shape[-1]
+        for k, per_sb in (("lv_s", 4), ("lv_m", 2), ("lv_b", 1),
+                          ("recon", nb)):
+            diff = getattr(j, k) != getattr(p, k)
+            rec["pixels" if k == "recon" else "levels"] += int(diff.sum())
+            at = diff.reshape(diff.shape[0], -1, per_sb, *diff.shape[2:])
+            at = at.any(dim=tuple(d for d in range(at.dim()) if d != 1))
+            assert set(at.nonzero().flatten().tolist()) <= flips, (
+                name, k, "differs outside a flipped superblock column")
+        if j.cost_region is not None:
+            r = j.cost_region[j.half]
+            rel = (r - p.cost_region[j.half]).abs() / r.abs().clamp_min(1)
+            rec["cost_rel"] = max(rec["cost_rel"], float(rel.max()))
+        if flips:
+            rec["ties"].append(("merge", j.sb_row, j.half, sorted(flips)))
+    return rec
+
+
+def part_bounds(calls: dict) -> dict:
+    """Least time of each probe kernel over one probed frame's calls, in
+    us: the larger of its float32 operations at the fp32 peak and its
+    bytes at the memory rate (each input read once, each output written
+    once).  part_chain: per column the product's 2 n^4 and the quantize's
+    and rd_zero's 10 per coefficient; its bytes the first rows, the
+    forward matrices, the levels and recon out.  part_pred: bytes (the
+    row above, the source band, the residuals and predictions out; its
+    arithmetic is integer).  part_code: 18 operations per coefficient of
+    each candidate (quantize 2, rd_zero 8, distortion 4, rate 4); bytes
+    the coefficients, the chosen prediction, the source at the 64, the
+    levels, recon and per-column results out.  part_merge: bytes, what
+    this frame's decisions need: the costs, the selection's recon and
+    source and both rows of levels for the luma SSE and rate, the losers'
+    levels zeroed, the winners' recon copied in.  Returns {name: (us,
+    "bytes" or "operations")}."""
+    out = {}
+    for name, jobs_list in calls.items():
+        ops = nbytes = 0
+        for jobs in jobs_list:
+            for j in jobs:
+                if name == "part_chain":
+                    n, w = j.src.shape
+                    nn, cols = n * n, w // n
+                    ops += cols * (2 * nn * nn + 10 * nn)
+                    nbytes += (4 * n * w + 4 * nn * nn + 2 * cols * nn
+                               + 4 * n * w)
+                elif name == "part_pred":
+                    n, w = j.src.shape
+                    nbytes += 4 * w + 4 * n * w + 8 * j.resid.numel()
+                elif name == "part_code":
+                    n, w = j.src.shape
+                    cols, nc = w // n, j.lv[0].numel()
+                    ops += 18 * j.coefs.numel()
+                    nbytes += (4 * j.coefs.numel() + 4 * n * w
+                               + (4 * n * w if j.site.cost == 2 else 0)
+                               + 2 * cols * nc + 4 * n * w + 5 * cols)
+                else:
+                    ns = j.lv_s.shape[-1]
+                    nm, nb, w = 2 * ns, 4 * ns, j.recon.shape[1]
+                    r = 2 * j.sb_row + j.half
+                    won = int((~j.split[r]).sum())   # regions the mid won
+                    # the losers' levels zeroed (a mid block or its four
+                    # small ones: the same bytes), the winners' recon
+                    nbytes += 2 * w * nm + 8 * nm * nm * won
+                    if j.cost_m is not None:   # luma: SSE, rate, costs
+                        nbytes += (8 * nm * w + 4 * nm * w
+                                   + 4 * (2 * w // ns + 2 * w // nm))
+                    if j.do_big:
+                        s64 = j.split64[j.sb_row]
+                        subs = int(s64.sum())
+                        nbytes += 2 * 1024 * subs + (len(s64) - subs) * (
+                            2 * 32 * ns * ns + 8 * nb * nb)
+        t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+        out[name] = (max(t_ops, t_bytes) * 1e6,
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def device_busy_ms(torch, fn) -> tuple[float, int, float]:
+    """One fn() after a warm-up under torch.profiler (CUDA activity): the
+    device's busy time in ms (the union of its kernels' intervals), the
+    number of device kernels, and the ms of those whose name says gemm
+    (cuBLAS).  For work that launches more kernels than the launch queue
+    holds, which device_us cannot queue behind a sleep."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b, _ in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    gemm = sum(b - a for a, b, name in spans if "gemm" in name.lower())
+    return busy / 1e3, len(spans), gemm / 1e3
+
+
+def probe_vs_plain(torch, probe_args) -> dict:
+    """Phase 7e: the probe's four kernels against their plain versions,
+    on phase 7's probed frame at its q and on a 10-bit frame made from it
+    (the planes times 4 plus 2, q 72).  (a) Every wrapper call of the
+    kernels' probe beside its plain version on copies of the same inputs
+    (_stage_diff): a decision may differ only at a near-tie, a chain level
+    only at a boundary, and nothing else; each is printed.  (b) The whole
+    probe both ways: every output grid equal to (a)'s run of the kernels,
+    the count of differing decisions (modes16, modes32, split, split64),
+    levels and pixels against the plain versions, all 0 where (a) found
+    nothing.  Every cost within TIE_REL of the plain version's.  (c) Per
+    kernel, the 8-bit frame's calls replayed: the device time per probed
+    frame (queued behind a sleep kernel), the plain versions' time (CUDA
+    events), the bound (part_bounds), the launches per frame; part_chain's
+    serial depth.  (d) The probe's host time with the kernels and with the
+    plain versions, and its device busy time with the kernels
+    (device_busy_ms).  Returns the four kernels' records for the JSON line."""
+    from av1tpu_torch.kernels import intra_part as kpart
+    from av1tpu_torch.models import intra_part
+
+    (y, u, v, q), kw = probe_args[0][:4], probe_args[1]
+    bd = kw.get("bit_depth", 8)
+    h, w = y.shape
+    frames = [("8-bit", (y, u, v), q, bd),
+              ("10-bit", tuple(p * 4 + 2 for p in (y, u, v)), 72, 10)]
+    per_frame = intra_part.part_launches(h, w)
+    recs = {n: {"decisions": 0, "levels": 0, "pixels": 0, "max_abs_err": 0,
+                "boundary": 0, "cost_rel": 0.0} for n in PART_KERNELS}
+    n_all = 0          # decisions of both frames
+    timing_calls = None
+    for label, planes, qq, b in frames:
+        # (a) stage by stage
+        calls = {n: [] for n in PART_KERNELS}
+        flagged = []       # this frame's flips and boundary levels
+        saved = {n: getattr(intra_part, n) for n in PART_KERNELS}
+
+        def catch(name):
+            kernel, plain = saved[name], getattr(kpart, name + "_plain")
+
+            def run(jobs):
+                copies = [_clone_job(j) for j in jobs]
+                plain(copies)
+                kernel(jobs)
+                d = _stage_diff(torch, name, jobs, copies)
+                for k in ("decisions", "levels", "pixels", "boundary"):
+                    recs[name][k] += d[k]
+                recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"],
+                                                d["max_abs_err"])
+                recs[name]["cost_rel"] = max(recs[name]["cost_rel"],
+                                             d["cost_rel"])
+                for tie in d["ties"]:
+                    print(f"probe {label} {name} differs at a near-tie: "
+                          f"{tie}", flush=True)
+                flagged.extend(d["ties"])
+                calls[name].append(list(jobs))
+            return run
+
+        for n in PART_KERNELS:
+            setattr(intra_part, n, catch(n))
+        try:
+            ka = intra_part.encode_intra_part(*planes, qq, bit_depth=b)
+        finally:
+            for n, f in saved.items():
+                setattr(intra_part, n, f)
+        torch.cuda.synchronize()
+        assert {n: len(c) for n, c in calls.items()} == per_frame
+        if timing_calls is None:
+            timing_calls = calls
+
+        # (b) the whole probe both ways
+        zero_launches()
+        ko = intra_part.encode_intra_part(*planes, qq, bit_depth=b)
+        torch.cuda.synchronize()
+        assert {n: k.launches for n, k in zip(
+            PART_KERNELS, (kpart.part_chain, kpart.part_pred,
+                           kpart.part_code, kpart.part_merge))} == per_frame
+        with plain_part_kernels():
+            po = intra_part.encode_intra_part(*planes, qq, bit_depth=b)
+        torch.cuda.synchronize()
+        assert set(ko) == set(po) == set(ka)
+        for k in ko:
+            assert ko[k].dtype == po[k].dtype and ko[k].shape == po[k].shape
+            # the kernels are deterministic: (a) checked this probe's calls
+            assert torch.equal(ko[k], ka[k]), (label, k)
+        decisions = {k: int((ko[k] != po[k]).sum())
+                     for k in ("modes16", "modes32", "split", "split64")}
+        levels = sum(int((ko[k] != po[k]).sum()) for k in ko
+                     if k.startswith("levels"))
+        pixels = sum(int((ko[k] != po[k]).sum()) for k in ko
+                     if k.startswith("recon"))
+        n_dec = sum(ko[k].numel() for k in decisions)
+        print(f"probe {label} {w}x{h} q={qq}: kernels vs plain, differing "
+              f"decisions {decisions} of {n_dec}, levels {levels}, recon "
+              f"pixels {pixels}; split {int(ko['split'].sum())} of "
+              f"{ko['split'].numel()}, split64 {int(ko['split64'].sum())} "
+              f"of {ko['split64'].numel()}", flush=True)
+        # a difference of the whole probe comes from a flip or boundary
+        # level of (a), each checked there
+        if not flagged:
+            assert sum(decisions.values()) == levels == pixels == 0, (
+                label, decisions, levels, pixels)
+        assert sum(decisions.values()) <= 0.001 * n_dec, decisions
+        n_all += n_dec
+    for n in PART_KERNELS:
+        print(f"{n} stage by stage on both frames: {recs[n]}", flush=True)
+        assert recs[n]["decisions"] <= 0.001 * n_all, (n, recs[n])
+        assert recs[n]["cost_rel"] < TIE_REL, (n, recs[n])
+
+    # (c) each kernel's time per probed frame, the 8-bit frame's calls
+    wrappers = {"part_chain": kpart.part_chain, "part_pred": kpart.part_pred,
+                "part_code": kpart.part_code, "part_merge": kpart.part_merge}
+    bounds = part_bounds(timing_calls)
+    reps = {"part_chain": 50, "part_pred": 5, "part_code": 5,
+            "part_merge": 10}
+    out = {}
+    for n in PART_KERNELS:
+        kernel, plain = wrappers[n], getattr(kpart, n + "_plain")
+        jobs_list = timing_calls[n]
+        dev = device_us(torch, lambda: [kernel(j) for j in jobs_list],
+                        reps[n], 4 * SLEEP_CYCLES)
+        plain_ms = _median_ms(torch, lambda: [plain(j) for j in jobs_list],
+                              n=3)
+        bound_us, by = bounds[n]
+        extra = (f", serial depth {w // 16} columns (one block per plane)"
+                 if n == "part_chain" else "")
+        print(f"{n} per probed {w}x{h} frame: {per_frame[n]} launches, "
+              f"device {dev:.3f} us, plain {plain_ms:.3f} ms, bound "
+              f"{bound_us:.4f} us ({by}{extra}, roofline "
+              f"{bound_us / dev:.4f})", flush=True)
+        out[n] = {"max_abs_err": recs[n]["max_abs_err"],
+                  "ms": dev / 1e3, "plain_ms": plain_ms,
+                  "bound_ms": bound_us / 1e3, "bound_by": by,
+                  "launches_per_frame": per_frame[n],
+                  "decisions_differ": recs[n]["decisions"]}
+
+    # (d) the probe's host and device time, kernels and plain versions
+    def probe():
+        return intra_part.encode_intra_part(y, u, v, q, bit_depth=bd)
+
+    def host_s(fn, n):
+        ts = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t)
+        return float(np.median(ts))
+
+    k_host = host_s(probe, 5)
+    k_dev, k_kernels, k_gemm = device_busy_ms(torch, probe)
+    with plain_part_kernels():
+        p_host = host_s(probe, 1)
+        a, b2 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        probe()
+        b2.record()
+        b2.synchronize()
+        p_event = a.elapsed_time(b2)
+    print(f"probe {w}x{h}: kernels host {k_host * 1e3:.3f} ms (median of "
+          f"5, synchronized), device busy {k_dev:.3f} ms in {k_kernels} "
+          f"device kernels ({k_gemm:.3f} ms of them the cuBLAS products; "
+          f"torch.profiler); plain versions host {p_host * 1e3:.3f} ms, "
+          f"events {p_event:.3f} ms", flush=True)
+    for n in PART_KERNELS:
+        out[n].update(probe_host_ms=k_host * 1e3, probe_device_ms=k_dev,
+                      probe_device_kernels=k_kernels,
+                      plain_probe_host_ms=p_host * 1e3)
+    return out
+
+
 def run_cli(argv: list) -> tuple[list, dict]:
     """av1tpu_torch.cli.main(argv) with its standard output captured and
     echoed: (progress records, stats record)."""
@@ -1496,7 +2038,8 @@ def daemon_1080p(torch, y4m: str, tmp: str):
     assert 0.0 <= stats["tpu_vmaf"] <= 100.0 and "metric_score" not in stats
     assert stats["psnr_y"] >= 30.0, stats["psnr_y"]
     assert stats["frames"] == ivf_frames(ivf) == CLI_FRAMES
-    assert launches["transform_quantize"] == COLS * stats["scenes"], launches
+    assert launches["transform_quantize"] == 0, launches
+    assert_part(launches, stats["scenes"])
     assert_wave(launches, stats["scenes"])
     assert_coder_cdef(launches, inter_want(plan.scenes(), "quality"))
     assert all(v == {"cuda"} for v in seen.values()), seen
@@ -1546,7 +2089,8 @@ def layered_1080p(torch, y4m: str, tmp: str, daemon_stats):
     assert stats["bytes"] <= 1.02 * daemon_stats["bytes"]
     assert stats["psnr_y"] >= 30.0, stats["psnr_y"]
     assert ivf_frames(ivf) == CLI_FRAMES
-    assert launches["transform_quantize"] == COLS * stats["scenes"], launches
+    assert launches["transform_quantize"] == 0, launches
+    assert_part(launches, stats["scenes"])
     assert_wave(launches, stats["scenes"])
     assert_coder_cdef(launches, inter_want(plan.scenes(), "quality",
                                            layered=True))
@@ -1555,12 +2099,13 @@ def layered_1080p(torch, y4m: str, tmp: str, daemon_stats):
 
 def all_intra_1080p(torch, y4m: str, tmp: str, preset: str):
     """Phase 11, one preset.  Returns the launches: per frame the fast
-    keyframe's U+V stack (COLS + ROWS - 1 steps; its luma takes the RDO
-    path, which has no kernel) or the quality frame's first-row luma
-    chain (COLS), plus one probe encode per scene (fast: luma and the U+V
-    stack, 2 * (COLS + ROWS - 1); quality: COLS), whose recon gives both
-    the metric score and the PSNR.  No wavefront keyframe: the all-intra
-    chunks are intra_v's and intra_part's."""
+    keyframe's U+V stack (COLS + ROWS - 1 transform_quantize steps; its
+    luma takes the RDO path, which has no kernel) or the quality frame's
+    probe kernels (part_launches), plus one probe encode per scene (fast:
+    luma and the U+V stack, 2 * (COLS + ROWS - 1); quality: the probe
+    kernels once more), whose recon gives both the metric score and the
+    PSNR.  No wavefront keyframe: the all-intra chunks are intra_v's and
+    intra_part's."""
     ivf = os.path.join(tmp, f"intra_{preset}.ivf")
     zero_launches()
     _, stats = run_cli(_daemon_argv(y4m, ivf, "--all-intra", "--max-frames",
@@ -1568,7 +2113,7 @@ def all_intra_1080p(torch, y4m: str, tmp: str, preset: str):
     torch.cuda.synchronize()
     launches = read_launches()
     per_frame, probe = ((COLS + ROWS - 1, 2 * (COLS + ROWS - 1))
-                        if preset == "fast" else (COLS, COLS))
+                        if preset == "fast" else (0, 0))
     want = INTRA_FRAMES * per_frame + stats["scenes"] * probe
     print(f"all-intra {preset}: frames={stats['frames']} "
           f"fps={stats['encode_fps']} bytes={stats['bytes']} "
@@ -1577,6 +2122,8 @@ def all_intra_1080p(torch, y4m: str, tmp: str, preset: str):
     assert stats["keyframes"] == stats["frames"] == ivf_frames(ivf)
     assert stats["frames"] == INTRA_FRAMES
     assert launches["transform_quantize"] == want, (launches, want)
+    assert_part(launches, 0 if preset == "fast" else
+                INTRA_FRAMES + stats["scenes"])
     assert_wave(launches, 0)
     assert_coder_cdef(launches, inter_want([], preset))
     return launches
@@ -1686,6 +2233,7 @@ def batch_parity(torch, quality_runs) -> dict:
     assert len(spy.results) == st_b["scenes"] == 2 and len(where) == 2
     assert {d for d, _ in where} == {str(d) for d in devices}
     assert s_b == s_gpu == s_cpu
+    assert_part(parent, st_b["scenes"], 64, 128)   # the parent's probes
     assert_wave(parent, 0)
     assert_wave(launches, st_b["scenes"], 64, 128)
     # the temporal filter runs in the parent, the inter frames in workers
@@ -1741,9 +2289,9 @@ def batch_1080p(torch) -> int:
                   flush=True)
             assert stats["scenes"] == 2 and len(streams) == 2 * BATCH_FRAMES
             # the probes run in the parent, the keyframes in the workers
-            assert parent["transform_quantize"] == COLS * stats["scenes"], (
-                parent)
-            assert launches["transform_quantize"] == COLS * stats["scenes"]
+            assert launches["transform_quantize"] == 0, launches
+            assert_part(parent, stats["scenes"])
+            assert_part(launches, stats["scenes"])
             assert_wave(launches, stats["scenes"])
             if workers > 1:
                 assert_wave(parent, 0)
@@ -1995,9 +2543,11 @@ def container_daemon(torch, tmp: str, out_dir: str, tool, daemon,
     assert stats["frames"] == ivf_frames(
         os.path.join(out_dir, "daemon_command.ivf")) == n
     on_card = device == "cuda"
-    assert launches["transform_quantize"] == (
-        w // 16 * stats["scenes"] if on_card else 0), launches
-    # the quality preset's keyframe, one per scene, at the coded size
+    assert launches["transform_quantize"] == 0, launches
+    # the quality preset's probe and keyframe, one per scene, at the coded
+    # size
+    assert_part(launches, stats["scenes"] if on_card else 0,
+                (h + 63) & ~63, (w + 63) & ~63)
     assert_wave(launches, stats["scenes"] if on_card else 0,
                 (h + 63) & ~63, (w + 63) & ~63)
     assert_coder_cdef(launches, inter_want(
@@ -2099,8 +2649,8 @@ def main() -> int:
     _phase("quality_parity", t)
 
     t = time.perf_counter()
-    launches_quality, key_args, gop_args, tf_args = quality_slice_1080p(
-        torch, clip, fast_stats)
+    (launches_quality, key_args, gop_args, tf_args,
+     probe_args) = quality_slice_1080p(torch, clip, fast_stats)
     _phase("quality_slice_1080p", t)
 
     t = time.perf_counter()
@@ -2115,6 +2665,11 @@ def main() -> int:
     inter_recs.update(search_deblock_vs_plain(torch, gop_args, tf_args))
     del gop_args, tf_args
     _phase("search_deblock_vs_plain", t)
+
+    t = time.perf_counter()
+    part_recs = probe_vs_plain(torch, probe_args)
+    del probe_args
+    _phase("probe_vs_plain", t)
 
     t = time.perf_counter()
     modes_parity(torch)
@@ -2206,6 +2761,15 @@ def main() -> int:
              "av1tpu/models/inter_v.py:252"),
             ("deblock_edges", "av1tpu_torch/csrc/deblock.cu",
              "av1tpu/models/deblock_tpu.py:394"))]
+    part = [{
+        "name": name, "route": "cuda",
+        "source": "av1tpu_torch/csrc/intra_part.cu",
+        "replaces": PART_REPLACES[name],
+        "launches": sum(path_counts(name).values()),
+        "launches_by_path": path_counts(name),
+        # no one PyTorch call computes any of these functions
+        "library_ms": None, **part_recs[name]}
+        for name in PART_KERNELS]
     print(json.dumps({"kernels": [{
         "name": "transform_quantize", "route": "cuda",
         "source": "av1tpu_torch/csrc/transform_quant.cu",
@@ -2219,7 +2783,7 @@ def main() -> int:
         "bound_by": main_rec["bound_by"], "library_ms": None,
         **{k: dict(zip(shape_key, (r[k] for r in recs)))
            for k in ("device_us", "call_us", "host_us", "bound_us")}},
-        *wave, *inter], "metric_pass_ms": metric_ms}), flush=True)
+        *wave, *inter, *part], "metric_pass_ms": metric_ms}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

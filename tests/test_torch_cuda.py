@@ -3,8 +3,10 @@ with its plain PyTorch version at the main path's shapes, the wavefront
 keyframe's two kernels agree with theirs from the same carried state, the
 wrappers reject what the kernels do not take, the inter coder's, CDEF's,
 the motion search's and the loop filter's kernels agree with their plain
-versions bit for bit, and the scene batch runs on the visible GPUs (its
-workers launching the wavefront kernels).  They skip where CUDA is absent.
+versions bit for bit, the partition probe's four kernels give every output
+of its plain versions (and their rate per level is torch.log2's, bit for
+bit), and the scene batch runs on the visible GPUs (its workers launching
+the wavefront kernels).  They skip where CUDA is absent.
 This file imports no JAX, so it also runs on a GPU machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -564,3 +566,76 @@ def test_deblock_edges_rejects_bad_inputs(dev):
         deblock_edges(y.t().contiguous().t(), von, 12, 0, 8, True, True, s16)
     with pytest.raises(ValueError):                 # not a multiple of 16
         deblock_edges(y[:, :88].contiguous(), von, 12, 0, 8, True, True, s16)
+
+
+PARTS = ("part_chain", "part_pred", "part_code", "part_merge")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bd,q", [(8, 72), (8, 180), (10, 72), (10, 30)])
+def test_probe_kernels_match_plain(dev, bd, q):
+    """The partition probe on the card with its four kernels
+    (kernels/intra_part.py) and with their plain versions, on a 256x384
+    frame (four superblock rows): every output of encode_intra_part equal,
+    and each kernel launched part_launches times."""
+    from av1tpu_torch.kernels import intra_part as kpart
+    from av1tpu_torch.models import intra_part
+
+    planes = _wave_planes(bd, dev, w=384, h=256, seed=5)
+    before = {n: getattr(kpart, n).launches for n in PARTS}
+    got = intra_part.encode_intra_part(*planes, q, bit_depth=bd)
+    torch.cuda.synchronize()
+    assert {n: getattr(kpart, n).launches - before[n] for n in PARTS} == (
+        intra_part.part_launches(256, 384))
+    saved = {n: getattr(intra_part, n) for n in PARTS}
+    try:
+        for n in PARTS:
+            setattr(intra_part, n, getattr(kpart, n + "_plain"))
+        want = intra_part.encode_intra_part(*planes, q, bit_depth=bd)
+    finally:
+        for n, f in saved.items():
+            setattr(intra_part, n, f)
+    torch.cuda.synchronize()
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        assert torch.equal(got[k], want[k]), (k, int((got[k] != want[k])
+                                                     .sum()))
+
+
+@pytest.mark.cuda
+def test_part_code_log2_rate_bit_for_bit(dev):
+    """part_code's rate per level, 2 + log2f(1 + |l|) (no fast math),
+    against torch.log2 on the card for every magnitude up to the cap (q
+    index 0: 16384): block c holds the one level c + 1, so its rate is that
+    level's; the plain version's rate equals it too."""
+    from av1tpu_torch.kernels.intra_part import (
+        COST_NONE, CodeJob, PartSite, part_code, part_code_plain,
+    )
+    from av1tpu_torch.models.intra_v import _plane_params
+
+    step, q, cap = _plane_params(0, 16, 8, dev)
+    cols = int(cap[1])
+    site = PartSite(n=16, tx=0, nm=1, step=step, q=q, cap=cap, tab=None,
+                    gains=None, lam=np.float32(1.0), dq_shift=0,
+                    cost=COST_NONE, bit_depth=8)
+    a = torch.arange(1, cols + 1, dtype=torch.float32, device=dev)
+    coefs = torch.zeros((cols, 256), device=dev)
+    coefs[:, 1] = a * step[1]
+    pred = torch.zeros((cols, 256), dtype=torch.int32, device=dev)
+    src = torch.zeros((16, 16 * cols), dtype=torch.int32, device=dev)
+
+    def run(fn):
+        lv = torch.empty((cols, 16, 16), dtype=torch.int16, device=dev)
+        rec = torch.empty((16, 16 * cols), dtype=torch.int32, device=dev)
+        rate = torch.empty((1, cols), device=dev)
+        fn([CodeJob(site, coefs, pred, src, lv, rec, rate=rate)])
+        return lv, rate
+
+    lv, rate = run(part_code)
+    _, plain_rate = run(part_code_plain)
+    torch.cuda.synchronize()
+    assert torch.equal(lv.flatten(1)[:, 1].to(torch.float32), a)
+    assert int(lv.flatten(1)[:, 2:].abs().sum()) == 0
+    assert torch.equal(rate[0], 2.0 + torch.log2(1.0 + a))
+    assert torch.equal(rate, plain_rate)

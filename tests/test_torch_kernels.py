@@ -68,30 +68,44 @@ def test_plane_constants_are_checked():
 
 
 def test_probe_col_step_takes_the_wrapper_once_per_column(monkeypatch):
-    """The quality probe's first-row luma chain calls transform_quantize
-    once per 16x16 column at (1, 256); on the CPU each call returns what
-    transform_quantize_ref returns on the same row, and those levels are
-    the frame's first block row."""
+    """The quality probe's first-row luma chain is the Pallas kernel's
+    function per 16x16 column (product, quantize, dequantize from the
+    carried edge pixel).  It runs in one part_chain call with the U and V
+    chains (on the CPU its plain version), the probe no longer calls
+    transform_quantize, and each column's levels are what
+    transform_quantize_ref gives on that column's residual from the
+    carried pixel: the frame's first block row.  The rows after the
+    first are not run: the test reads row 0 alone."""
     from av1tpu.utils.yuv import synthetic_clip
+    from av1tpu_torch.kernels.intra_part import part_chain
     from av1tpu_torch.models import intra_part
+    from av1tpu_torch.models.intra_v import _plane_params
+    from av1tpu_torch.state import tables
 
     calls = []
 
-    def spy(resid, plane):
-        out = transform_quantize(resid, plane)
-        calls.append((resid.clone(), plane, out))
-        return out
+    def spy(jobs):
+        calls.append(len(jobs))
+        return part_chain(jobs)
 
-    monkeypatch.setattr(intra_part, "transform_quantize", spy)
-    y = torch.from_numpy(synthetic_clip(128, 64, 1, seed=3).y[0].astype(
-        np.int32))
-    before = transform_quantize.launches
-    lv16 = intra_part._encode_luma_part(y, 72)[0]
-    assert transform_quantize.launches == before   # CPU: plain version
-    assert len(calls) == 128 // 16
-    for c, (resid, plane, (lv, dq)) in enumerate(calls):
-        assert tuple(resid.shape) == (1, 256) and plane.n2 == 256
-        rlv, rdq = transform_quantize_ref(resid, plane)
-        assert torch.equal(lv, rlv) and torch.equal(dq, rdq)
-        assert torch.equal(lv16[0, c].reshape(1, 256), lv)
-    assert any(int(lv.abs().sum()) > 0 for _, _, (lv, _) in calls)
+    monkeypatch.setattr(intra_part, "part_chain", spy)
+    monkeypatch.setattr(intra_part, "_luma_rows", lambda *a: None)
+    monkeypatch.setattr(intra_part, "_chroma_rows", lambda *a: None)
+    clip = synthetic_clip(128, 64, 1, seed=3)
+    y, u, v = (torch.from_numpy(p[0].astype(np.int32))
+               for p in (clip.y, clip.u, clip.v))
+    before = (transform_quantize.launches, part_chain.launches)
+    o = intra_part.encode_intra_part(y, u, v, 72)
+    assert (transform_quantize.launches, part_chain.launches) == before
+    assert calls == [3] and not hasattr(intra_part, "transform_quantize")
+    step, q, cap = _plane_params(72, 16, 8, "cpu")
+    plane = TQPlane(tables("cpu").fwdt(16, 0), step[None], q[None],
+                    cap[None])
+    edge = 127
+    for c in range(128 // 16):
+        resid = (y[:16, 16 * c:16 * c + 16] - edge).reshape(1, 256).to(
+            torch.float32)
+        rlv, _ = transform_quantize_ref(resid, plane)
+        assert torch.equal(o["levels_y16"][0, c].reshape(1, 256), rlv)
+        edge = int(o["recon_y"][0, 16 * c + 15])
+    assert int(o["levels_y16"][0].abs().sum()) > 0

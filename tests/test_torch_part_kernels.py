@@ -1,0 +1,595 @@
+"""The partition probe's kernel wrappers on the CPU (kernels/intra_part.py):
+part_chain, part_pred, part_code and part_merge take their plain versions
+for CPU tensors; each plain version equals the eager code it replaced (the
+port's `_mode_rdo` with `_recon16`/`_recon32`, the 64x64 candidate, the
+chroma coder, the first-row chains, and the merges of `row32_step`,
+`sb_step`, `row16_step` and `chroma_sb_step`, transcribed below from the
+port before the kernels) at the rows of 64x128 and 128x192 frames, in 8
+and 10 bits; the probe calls each wrapper as often as
+models/intra_part.part_launches says and launches nothing; a frame where
+the 64, the 32 and the 16 each win somewhere keeps the losers' levels at
+zero; and the wrappers reject what the kernels do not take.
+
+No reference graph is compiled and no forward matrix is built: stand-in
+matrices (the orthonormal DCT basis over the integer inverse's DC gain)
+take the place of the pseudo-inverses, which take tens of seconds.  The
+probe is held bit for bit against av1tpu with the real matrices by
+tests/test_torch_intra_part.py and tests/test_torch_slice_quality.py; the
+kernels against the plain versions on the card by tests/test_torch_cuda.py
+and chip_smoke.py phase 7e.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from av1tpu_torch.kernels import intra_part as K
+from av1tpu_torch.kernels.intra_part import (
+    ChainJob, CodeJob, MergeJob, PredJob, edges, part_chain, part_code,
+    part_merge, part_pred,
+)
+from av1tpu_torch.models import intra_part as M
+from av1tpu_torch.models.intra_v import (
+    _RDO_MODES, _directional_pred, _plane_params, log2_rate, quantize_coefs,
+)
+from av1tpu_torch.models.rdoq import rd_zero
+from av1tpu_torch.ops.transforms import _inverse_2d, inverse_transform
+from av1tpu_torch.state import Tables
+from av1tpu_torch.utils.yuv import synthetic_clip
+from tests.test_torch_threads import single_torch_thread  # noqa: F401
+
+f32 = np.float32
+ROWS = [(128, 8, 72), (192, 8, 72), (128, 10, 140), (192, 10, 140)]
+ROW_IDS = [f"w{w}-{bd}bit" for w, bd, _ in ROWS]
+
+
+def _stand_in(n: int, coded: int | None = None) -> torch.Tensor:
+    """A transposed forward matrix for tests: the separable orthonormal
+    DCT-II basis over the integer inverse's DC gain (coefs = r @ it); with
+    `coded`, only the top-left coded x coded coefficients (TX_64X64)."""
+    k = np.arange(n)
+    d = np.cos(np.pi * (2 * k[None, :] + 1) * k[:, None] / (2 * n))
+    d = d * np.sqrt(2 / n)
+    d[0] /= np.sqrt(2)
+    unit = torch.zeros((1, n, n), dtype=torch.int64)
+    unit[0, 0, 0] = 1 << 12
+    gain = float(_inverse_2d(unit, n, n, 0)[0, 0, 0]) / (1 << 12) * n
+    d = d[:coded or n]
+    f = np.kron(d, d) / gain
+    return torch.from_numpy(np.ascontiguousarray(f.T, np.float32))
+
+
+class _StandInTables(Tables):
+    """The CPU tables with the stand-in forward matrices and their gains."""
+
+    def fwdt(self, n, tx_type=0):
+        return self._get(("fwdt", n, tx_type), lambda: _stand_in(n))
+
+    def fwd64t(self):
+        return self._get("fwd64t", lambda: _stand_in(64, 32))
+
+    def coef_gains(self, n, tx_type=0):
+        f = self.fwd64t() if n == 64 else self.fwdt(n, tx_type)
+        return self._get(("gains", n, tx_type),
+                         lambda: (1.0 / (f * f).sum(0)).to(torch.float32))
+
+
+@pytest.fixture(scope="module")
+def T():
+    tabs = _StandInTables("cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(M, "tables", lambda device: tabs)
+        yield tabs
+
+
+def _consts(T, q, bd):
+    """The eager code's scalars: (lam_pix, lam_split, qctx)."""
+    from av1tpu_torch.models.intra_v import LAM_PIX, ac_squared, fold_consts
+    from av1tpu_torch.models.rates import qctx_index
+
+    a2 = ac_squared(q, bd, "cpu")
+    return (float(f32(a2 * f32(LAM_PIX))),
+            float(f32(a2 * fold_consts(LAM_PIX, 12.0))), qctx_index(q))
+
+
+def _rng_rows(w, n, bd, seed, rows=1):
+    """A row above (w,) and a source band (rows * n, w), int32: a smooth
+    gradient with noise, so that the quantizer keeps some levels."""
+    rng = np.random.RandomState(seed)
+    pm = (1 << bd) - 1
+    x = np.arange(w)[None, :] * (pm // 300 + 1) + np.arange(rows * n + 1)[
+        :, None] * 2
+    img = np.clip(x % (pm + 1) + rng.randint(-pm // 8, pm // 8 + 1,
+                                             x.shape), 0, pm)
+    img = img.astype(np.int32)
+    return torch.from_numpy(img[0].copy()), torch.from_numpy(img[1:].copy())
+
+
+def _blocks(band, n):
+    """(n, w) band -> (w/n, n, n) blocks."""
+    return band.reshape(n, -1, n).transpose(0, 1)
+
+
+def _band(blocks):
+    """(cols, n, n) blocks -> (n, cols*n) band."""
+    c, n, _ = blocks.shape
+    return blocks.transpose(0, 1).reshape(n, c * n)
+
+
+# ---- the eager code the kernels replaced, transcribed ----
+
+def _mode_rdo(blocks, ae, consts):
+    n, fwdt, step_eff, cap, lam_pix, tab, gains = consts
+    cols = blocks.shape[0]
+    pred_v = ae[:, None, :n].expand(cols, n, n)
+    cands = [pred_v] + [_directional_pred(ae, dx, n) for _, dx in _RDO_MODES]
+    nm = len(cands)
+    preds = torch.cat(cands, dim=0)
+    resid = (blocks.repeat(nm, 1, 1) - preds).reshape(nm * cols, n * n).to(
+        torch.float32)
+    coefs = resid @ fwdt
+    lv_all = quantize_coefs(coefs, step_eff, cap)
+    lv_all = rd_zero(lv_all, coefs, step_eff, lam_pix, tab, gains)
+    d = coefs - lv_all * step_eff
+    dist = ((d * d).sum(dim=1)
+            * float(f32(1.0) / f32(M._RATIO[n]))).reshape(nm, -1)
+    rate = log2_rate(lv_all, 1).reshape(nm, -1) + torch.tensor(
+        [0.0, 4.0, 4.0])[:, None]
+    cost = dist + lam_pix * rate
+    choice = torch.argmin(cost, dim=0)
+    sel = choice[None, :, None, None].expand(1, cols, n, n)
+    lv = torch.gather(lv_all.reshape(nm, cols, n, n), 0, sel)[0]
+    pred = torch.gather(preds.reshape(nm, cols, n, n), 0, sel)[0]
+    best = torch.gather(cost, 0, choice[None])[0]
+    return lv, pred, torch.tensor([1, 3, 8], dtype=torch.int8)[choice], best
+
+
+def _dq_shift(lv, q, shift):
+    return torch.sign(lv) * ((lv.abs() * q) >> shift)
+
+
+# ---- the sites ----
+
+def _code_site(site, fwdt, bottom, band, av):
+    """part_pred, the product and part_code on one site: (lv, rec band,
+    modes, cost)."""
+    n, w = band.shape
+    cols, nm = w // n, site.nm
+    resid = torch.empty((nm * cols, n * n))
+    pred = torch.empty((nm * cols, n * n), dtype=torch.int32)
+    part_pred([PredJob(bottom, band, av, resid, pred)])
+    lv = torch.empty((cols, site.cw, site.cw), dtype=torch.int16)
+    rec = torch.empty((n, w), dtype=torch.int32)
+    modes = torch.empty((cols,), dtype=torch.int8)
+    cost = torch.empty((cols,))
+    part_code([CodeJob(site, resid @ fwdt, pred, band, lv, rec,
+                       modes if site.nm == 3 else None,
+                       cost if site.cost else None)])
+    return lv, rec, modes, cost
+
+
+@pytest.mark.parametrize("n", [16, 32])
+@pytest.mark.parametrize("w,bd,q", ROWS, ids=ROW_IDS)
+def test_mode_rdo_site_matches_the_eager_code(T, n, w, bd, q):
+    """The luma 16 and 32 sites: _mode_rdo + _recon16/_recon32."""
+    S = M._sites(q, bd, "cpu")
+    site = S.y16 if n == 16 else S.y32
+    bottom, band = _rng_rows(w, n, bd, seed=n + w + bd)
+    cols = w // n
+    av = torch.from_numpy(np.random.RandomState(w).rand(cols) < 0.5)
+    av[-1] = False
+    lv, rec, modes, cost = _code_site(site, T.fwdt(n, 0), bottom, band, av)
+
+    lam, _, qctx = _consts(T, q, bd)
+    step, qq, cap = _plane_params(q, n, bd, "cpu")
+    step_eff = step if n == 16 else step * 0.5
+    want = _mode_rdo(_blocks(band, n), edges(bottom, av, n, cols),
+                     (n, T.fwdt(n, 0), step_eff, cap, lam,
+                      T.rate_tabs(n, 0)[qctx], T.coef_gains(n)))
+    wlv, wpred, wmodes, wcost = want
+    dq = (wlv * qq.reshape(16, 16) if n == 16 else
+          _dq_shift(wlv, qq.reshape(32, 32), 1))
+    wrec = torch.clamp(wpred + inverse_transform(dq, n, n, 0), 0,
+                       (1 << bd) - 1)
+    assert torch.equal(lv, wlv.to(torch.int16))
+    assert torch.equal(rec, _band(wrec))
+    assert torch.equal(modes, wmodes) and torch.equal(cost, wcost)
+    assert int(lv.abs().sum()) > 0
+
+
+@pytest.mark.parametrize("w,bd,q", ROWS, ids=ROW_IDS)
+def test_64_candidate_matches_the_eager_code(T, w, bd, q):
+    """sb_step's 64x64 V_PRED candidate, its pixel SSE and cost."""
+    S = M._sites(q, bd, "cpu")
+    bottom, band = _rng_rows(w, 64, bd, seed=w + bd)
+    lv, rec, _, cost = _code_site(S.y64, T.fwd64t(), bottom, band, None)
+
+    lam, _, qctx = _consts(T, q, bd)
+    step32, q32, cap32 = _plane_params(q, 32, bd, "cpu")
+    cols = w // 64
+    blocks = _blocks(band, 64)
+    pred64 = bottom.reshape(cols, 1, 64).expand(cols, 64, 64)
+    coefs = (blocks - pred64).reshape(cols, 4096).to(torch.float32) @ \
+        T.fwd64t()
+    wlv = quantize_coefs(coefs, step32 * 0.25, cap32)
+    wlv = rd_zero(wlv, coefs, q32.to(torch.float32) * 0.25, lam,
+                  T.rate_tabs(64, 0)[qctx], T.coef_gains(64))
+    full = torch.zeros((cols, 64, 64), dtype=torch.int32)
+    full[:, :32, :32] = _dq_shift(wlv, q32, 2).reshape(cols, 32, 32)
+    wrec = torch.clamp(pred64 + inverse_transform(full, 64, 64, 0), 0,
+                       (1 << bd) - 1)
+    e = wrec - blocks
+    wcost = (e * e).sum(dim=(1, 2)).to(torch.float32) + lam * log2_rate(
+        wlv, 1)
+    assert torch.equal(lv, wlv.reshape(cols, 32, 32).to(torch.int16))
+    assert torch.equal(rec, _band(wrec)) and torch.equal(cost, wcost)
+
+
+@pytest.mark.parametrize("n", [8, 16, 32])
+@pytest.mark.parametrize("w,bd,q", ROWS, ids=ROW_IDS)
+def test_chroma_site_matches_the_eager_code(T, n, w, bd, q):
+    """The chroma coder `enc` at 8x8 and 16x16 (ADST_DCT) and 32x32."""
+    S = M._sites(q, bd, "cpu")
+    site = {8: S.c8, 16: S.c16, 32: S.c32}[n]
+    tt = 0 if n == 32 else 1
+    bottom, band = _rng_rows(w // 2, n, bd, seed=n + w + bd + 1)
+    lv, rec, _, _ = _code_site(site, T.fwdt(n, tt), bottom, band, None)
+
+    lam, _, qctx = _consts(T, q, bd)
+    step, qq, cap = _plane_params(q, n, bd, "cpu")
+    shift = 1 if n == 32 else 0
+    cols = (w // 2) // n
+    pred = bottom.reshape(cols, 1, n).expand(cols, n, n)
+    resid = (_blocks(band, n) - pred).reshape(cols, n * n).to(torch.float32)
+    coefs = resid @ T.fwdt(n, tt)
+    wlv = quantize_coefs(coefs, step * (0.5 ** shift), cap)
+    wlv = rd_zero(wlv, coefs, qq.to(torch.float32) * (0.5 ** shift), lam,
+                  T.rate_tabs(n, 1)[qctx], T.coef_gains(n, tt))
+    dq = wlv * qq if shift == 0 else _dq_shift(wlv, qq, 1)
+    wrec = torch.clamp(pred + inverse_transform(dq.reshape(cols, n, n), n, n,
+                                                tt), 0, (1 << bd) - 1)
+    assert torch.equal(lv, wlv.reshape(cols, n, n).to(torch.int16))
+    assert torch.equal(rec, _band(wrec))
+
+
+@pytest.mark.parametrize("w,bd,q", ROWS, ids=ROW_IDS)
+def test_chains_match_the_eager_code(T, w, bd, q):
+    """The first block row: luma's 16x16 chain (no rd_zero) and U's and
+    V's 8x8 ADST_DCT chains, in one part_chain call."""
+    S = M._sites(q, bd, "cpu")
+    _, y = _rng_rows(w, 16, bd, seed=w)
+    _, u = _rng_rows(w // 2, 8, bd, seed=w + 1)
+    _, v = _rng_rows(w // 2, 8, bd, seed=w + 2)
+    outs = [(torch.empty((w // 16, 16, 16), dtype=torch.int16),
+             torch.empty((16, w), dtype=torch.int32))] + [
+        (torch.empty((w // 16, 8, 8), dtype=torch.int16),
+         torch.empty((8, w // 2), dtype=torch.int32)) for _ in range(2)]
+    part_chain([ChainJob(S.y_chain, T.fwdt(16, 0), y, *outs[0]),
+                ChainJob(S.c8, T.fwdt(8, 1), u, *outs[1]),
+                ChainJob(S.c8, T.fwdt(8, 1), v, *outs[2])])
+
+    lam, _, qctx = _consts(T, q, bd)
+    pix_max = (1 << bd) - 1
+    for (lv, rec), src, n in zip(outs, (y, u, v), (16, 8, 8)):
+        step, qq, cap = _plane_params(q, n, bd, "cpu")
+        edge = torch.full((1, 1), (1 << (bd - 1)) - 1, dtype=torch.int32)
+        for c, blk in enumerate(_blocks(src, n)):
+            coefs = (blk - edge).reshape(1, n * n).to(torch.float32) @ \
+                T.fwdt(n, 0 if n == 16 else 1)
+            wlv = quantize_coefs(coefs, step, cap)
+            if n == 8:
+                wlv = rd_zero(wlv, coefs, step, lam, T.rate_tabs(8, 1)[qctx],
+                              T.coef_gains(8, 1))
+            wrec = torch.clamp(edge + inverse_transform(
+                (wlv * qq).reshape(n, n), n, n, 0 if n == 16 else 1), 0,
+                pix_max)
+            edge = wrec[:1, n - 1:]
+            assert torch.equal(lv[c], wlv.reshape(n, n).to(torch.int16))
+            assert torch.equal(rec[:, c * n:(c + 1) * n], wrec)
+
+
+# ---- the merges ----
+
+def _merge_state(w, bd, ns, seed, luma):
+    """Random grids of one superblock row (4 small rows) at width w: the
+    level grids, the recon and source, the mid and big sites' recon
+    bands, the luma costs and the split grids."""
+    rng = np.random.RandomState(seed)
+    pm = (1 << bd) - 1
+    h = 8 * ns             # two superblock rows; row 1 is merged
+    cs = w // ns
+
+    def lv(shape):
+        a = rng.randint(-3, 4, shape) * (rng.rand(*shape) < 0.3)
+        return torch.from_numpy(a.astype(np.int16))
+
+    def px(shape):
+        return torch.from_numpy(rng.randint(0, pm + 1, shape).astype(
+            np.int32))
+
+    st = {"lv_s": lv((h // ns, cs, ns, ns)),
+          "lv_m": lv((h // ns // 2, cs // 2, 2 * ns, 2 * ns)),
+          "lv_b": lv((h // ns // 4, cs // 4, 32, 32)),
+          "recon": px((h, w)), "rec_m": [px((2 * ns, w)) for _ in "ab"],
+          "rec_b": px((4 * ns, w))}
+    if luma:
+        st.update(src=px((h, w)),
+                  cost_s=[torch.from_numpy(rng.rand(2, cs).astype(f32) * 4e4)
+                          for _ in "ab"],
+                  cost_m=[torch.from_numpy(rng.rand(cs // 2).astype(f32)
+                                           * 8e4) for _ in "ab"],
+                  cost_b=torch.from_numpy(rng.rand(cs // 4).astype(f32)
+                                          * 3e5),
+                  split=torch.zeros((h // ns // 2, cs // 2), dtype=torch.bool),
+                  split64=torch.zeros((h // ns // 4, cs // 4),
+                                      dtype=torch.bool))
+    else:          # luma's grids, split64 alternating in row 1
+        split64 = torch.zeros((h // ns // 4, cs // 4), dtype=torch.bool)
+        split64[1, ::2] = True
+        split = torch.from_numpy(rng.rand(h // ns // 2, cs // 2) < 0.5)
+        st.update(split=split & split64.repeat_interleave(
+            2, 0).repeat_interleave(2, 1), split64=split64)
+    return st
+
+
+def _eager_merges(st, ns, lam, lam_split, luma):
+    """row32_step's (row16_step's) merge of both halves of superblock
+    row 1, then sb_step's (chroma_sb_step's), on copies: (the grids as the
+    eager code leaves them, luma's cost_sub or None)."""
+    st = {k: (v.clone() if torch.is_tensor(v) else
+              [x.clone() for x in v] if isinstance(v, list) else v)
+          for k, v in st.items()}
+    nm, nb = 2 * ns, 4 * ns
+    w = st["recon"].shape[1]
+    cm, cb = w // nm, w // nb
+    costs = []
+    for half in (0, 1):
+        r = 2 + half
+        band = st["recon"][r * nm:(r + 1) * nm]
+        pair = st["lv_s"][2 * r:2 * r + 2]
+        if luma:
+            c16 = (st["cost_s"][half][0].reshape(cm, 2).sum(1)
+                   + st["cost_s"][half][1].reshape(cm, 2).sum(1) + lam_split)
+            split = c16 < st["cost_m"][half]
+            st["split"][r] = split
+        else:
+            split = st["split"][r]
+        s2 = split.repeat_interleave(2)
+        pair[:] = torch.where(s2[None, :, None, None], pair, 0)
+        st["lv_m"][r] = torch.where(split[:, None, None], 0, st["lv_m"][r])
+        sel = split.repeat_interleave(nm)[None]
+        band[:] = torch.where(sel, band, st["rec_m"][half])
+        if luma:
+            e = (band - st["src"][r * nm:(r + 1) * nm]).reshape(nm, 2 * cm,
+                                                                ns)
+            d_sel = (e * e).sum(dim=(0, 2)).to(torch.float32)
+            r16 = log2_rate(pair, (0, 2, 3)).reshape(cm, 2).sum(1)
+            r32 = log2_rate(st["lv_m"][r], (1, 2))
+            costs.append(d_sel.reshape(cm, 2).sum(1) + lam * (r16 + r32))
+    sub = None
+    if luma:
+        sub = (costs[0].reshape(cb, 2).sum(1) + costs[1].reshape(cb, 2).sum(1)
+               + lam_split)
+        split64 = sub < st["cost_b"]
+        st["split64"][1] = split64
+    else:
+        split64 = st["split64"][1]
+    st["lv_b"][1] = torch.where(split64[:, None, None], 0, st["lv_b"][1])
+    k2, k4 = split64.repeat_interleave(2), split64.repeat_interleave(4)
+    st["lv_s"][4:8] = torch.where(k4[None, :, None, None], st["lv_s"][4:8], 0)
+    st["lv_m"][2:4] = torch.where(k2[None, :, None, None], st["lv_m"][2:4], 0)
+    if luma:
+        st["split"][2:4] &= k2
+    big = st["recon"][nb:2 * nb]
+    big[:] = torch.where(split64.repeat_interleave(nb)[None], big,
+                         st["rec_b"])
+    return st, sub
+
+
+@pytest.mark.parametrize("luma", [True, False], ids=["luma", "chroma"])
+@pytest.mark.parametrize("w,bd,q", ROWS, ids=ROW_IDS)
+def test_merges_match_the_eager_code(T, luma, w, bd, q):
+    """Both halves of a superblock row, then its 64 (chroma 32) merge."""
+    ns = 16 if luma else 8
+    w = w if luma else w // 2
+    st = _merge_state(w, bd, ns, seed=w + bd + luma, luma=luma)
+    lam, lam_split, _ = _consts(T, q, bd)
+    want, sub = _eager_merges(st, ns, lam, lam_split, luma)
+    if luma:       # the 64 against its sub-levels: alternately won, lost
+        st["cost_b"] = sub * torch.tensor([0.5, 2.0]).repeat(
+            sub.shape[0])[:sub.shape[0]]
+        want, _ = _eager_merges(st, ns, lam, lam_split, luma)
+    region = torch.empty((2, w // (2 * ns)))
+    for half in (0, 1):
+        kw = dict(src=st["src"], cost_s=st["cost_s"][half],
+                  cost_m=st["cost_m"][half], cost_b=st["cost_b"],
+                  cost_region=region, lam=f32(lam),
+                  lam_split=f32(lam_split)) if luma else {}
+        part_merge([MergeJob(st["lv_s"], st["lv_m"], st["lv_b"], st["recon"],
+                             st["rec_m"][half], st["rec_b"], st["split"],
+                             st["split64"], 1, half, half == 1, **kw)])
+    for k in ("lv_s", "lv_m", "lv_b", "recon", "split", "split64"):
+        assert torch.equal(st[k], want[k]), k
+    assert bool(st["split64"][1].any()) and not bool(st["split64"][1].all())
+
+
+# ---- the probe ----
+
+def _frame(h, w, bd, seed):
+    c = synthetic_clip(w, h, 1, seed=seed)
+    planes = [c.y[0], c.u[0], c.v[0]]
+    if bd == 10:
+        planes = [p.astype(np.int32) * 4 + 1 for p in planes]
+    return [torch.from_numpy(p.astype(np.int32)) for p in planes]
+
+
+@pytest.mark.parametrize("h,w,bd,q", [(64, 128, 10, 140),
+                                      (128, 192, 8, 72)])
+def test_probe_takes_each_plain_version_per_stage(T, monkeypatch, h, w, bd,
+                                                  q):
+    """On the CPU the probe launches nothing and calls each wrapper's plain
+    version part_launches times, with the stage's jobs: luma's sites
+    apart, U's and V's together."""
+    calls = {n: [] for n in ("part_chain", "part_pred", "part_code",
+                             "part_merge")}
+    for name in calls:
+        plain = getattr(K, name + "_plain")
+
+        def spy(jobs, plain=plain, name=name):
+            calls[name].append(len(jobs))
+            return plain(jobs)
+        monkeypatch.setattr(K, name + "_plain", spy)
+    before = [k.launches for k in (part_chain, part_pred, part_code,
+                                   part_merge)]
+    M.encode_intra_part(*_frame(h, w, bd, seed=h + q), q, bit_depth=bd)
+    assert [k.launches for k in (part_chain, part_pred, part_code,
+                                 part_merge)] == before
+    assert {k: len(v) for k, v in calls.items()} == M.part_launches(h, w)
+    assert calls["part_chain"] == [3]
+    assert calls["part_pred"] == calls["part_code"]
+    # luma: the 16-row after the chain, then per half the top 16-row with
+    # the 32 (and the 64 in a superblock's first half), the bottom 16-row
+    halves = M._halves(h // 64)
+    luma = [1] + [n for s, hf in halves for n in ((3 if hf == 0 else 2), 1)]
+    assert calls["part_pred"] == luma + [2 * n for n in luma]
+    assert calls["part_merge"] == [1] * len(halves) + [2] * len(halves)
+
+
+def test_a_frame_where_64_32_and_16_each_win(T):
+    """Each partition wins somewhere, and the losers' levels are zero:
+    where the 64 wins, its superblock's 16 and 32 levels (and chroma's 8
+    and 16); where the 32 wins, its 16s (chroma 8s); where the 16s win,
+    the 32 (chroma 16); where the sub-levels win, the 64 (chroma 32)."""
+    o = M.encode_intra_part(*_frame(128, 192, 8, seed=2), 140)
+    s64 = o["split64"]
+    sp = o["split"]
+    s64r = s64.repeat_interleave(2, 0).repeat_interleave(2, 1)
+    assert int((~s64[1:]).sum()) > 0                   # a 64 wins
+    assert int((s64r & ~sp)[2:].sum()) > 0             # a 32 wins
+    assert int(sp[2:].sum()) > 0                       # the 16s win
+    assert not bool((sp & ~s64r).any())                # split & split64
+
+    def at32(lv, grid):     # a block has a level, at the 32 grid
+        m = (lv != 0).flatten(2).any(2)
+        if grid == "small":
+            return m.reshape(m.shape[0] // 2, 2, m.shape[1] // 2, 2).any(
+                3).any(1)
+        if grid == "big":
+            return m.repeat_interleave(2, 0).repeat_interleave(2, 1)
+        return m
+
+    for small, mid, big in (("levels_y16", "levels_y32", "levels_y64"),
+                            ("levels_u8", "levels_u16", "levels_u32"),
+                            ("levels_v8", "levels_v16", "levels_v32")):
+        assert not bool((at32(o[small], "small") & ~sp).any())
+        assert not bool((at32(o[mid], "mid") & (sp | ~s64r)).any())
+        assert not bool((at32(o[big], "big") & s64r).any())
+    assert int((o["levels_y64"] != 0).sum()) > 0
+
+
+# ---- what the wrappers refuse ----
+
+def _good_pred_job(n=16, w=128):
+    bottom, band = _rng_rows(w, n, 8, seed=1)
+    cols = w // n
+    return PredJob(bottom, band, torch.zeros(cols, dtype=torch.bool),
+                   torch.empty((3 * cols, n * n)),
+                   torch.empty((3 * cols, n * n), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("bad,err", [
+    (dict(resid=torch.empty((24, 256), dtype=torch.float64)), TypeError),
+    (dict(pred=torch.empty((23, 256), dtype=torch.int32)), ValueError),
+    (dict(bottom=torch.empty((128,), dtype=torch.int32, device="meta")),
+     ValueError),
+    (dict(av=torch.zeros(8, dtype=torch.int32)), TypeError),
+    (dict(src=torch.empty((16, 120), dtype=torch.int32)), ValueError),
+], ids=["dtype", "shape", "device", "av-dtype", "width"])
+def test_part_pred_rejects_bad_jobs(bad, err):
+    with pytest.raises(err):
+        part_pred([_good_pred_job()._replace(**bad)])
+
+
+def test_wrappers_reject_bad_calls(T):
+    S = M._sites(72, 8, "cpu")
+    job = _good_pred_job()
+    with pytest.raises(ValueError):
+        part_pred([])
+    with pytest.raises(ValueError):
+        part_pred([job] * 7)
+    lv = torch.empty((8, 16, 16), dtype=torch.int16)
+    rec = torch.empty((16, 128), dtype=torch.int32)
+    code = CodeJob(S.y16, torch.empty((24, 256)), job.pred, job.src, lv, rec)
+    with pytest.raises(TypeError):
+        part_code([code._replace(lv=lv.int())])
+    with pytest.raises(ValueError):
+        part_code([code._replace(coefs=torch.empty((24, 64)))])
+    with pytest.raises(ValueError):
+        part_code([code._replace(site=S.c8)])        # an 8x8 site, 16 rows
+    chain = ChainJob(S.y_chain, T.fwdt(16, 0), job.src, lv, rec)
+    with pytest.raises(ValueError):
+        part_chain([chain._replace(site=S.y16)])     # not a chain site
+    with pytest.raises(ValueError):
+        part_chain([chain] * 4)
+    with pytest.raises(ValueError):
+        part_chain([chain._replace(fwdt=T.fwdt(8, 1))])
+    st = _merge_state(128, 8, 16, seed=0, luma=False)
+    merge = MergeJob(st["lv_s"], st["lv_m"], st["lv_b"], st["recon"],
+                     st["rec_m"][0], st["rec_b"], st["split"],
+                     st["split64"], 1, 1, True)
+    with pytest.raises(ValueError):
+        part_merge([merge._replace(half=0)])         # do_big after half 1
+    with pytest.raises(ValueError):
+        part_merge([merge._replace(sb_row=2)])
+    with pytest.raises(ValueError):
+        part_merge([merge._replace(src=st["recon"])])   # chroma: no src
+    with pytest.raises(TypeError):
+        part_merge([merge._replace(split=st["split"].int())])
+    step, q, cap = _plane_params(72, 32, 8, "cpu")
+    with pytest.raises(ValueError):
+        K.PartSite(n=32, tx=1, nm=1, step=step, q=q, cap=cap, tab=None,
+                   gains=None, lam=f32(1), dq_shift=1, cost=K.COST_NONE,
+                   bit_depth=8)                      # no ADST at 32
+    with pytest.raises(TypeError):
+        K.PartSite(n=32, tx=0, nm=1, step=step, q=q, cap=cap, tab=None,
+                   gains=None, lam=1.0, dq_shift=1, cost=K.COST_NONE,
+                   bit_depth=8)                      # lam not float32
+
+
+def test_job_struct_mirrors_match_the_source(tmp_path, monkeypatch):
+    """csrc/intra_part.cu's job structs and av1_part_layout, built by the
+    host compiler (the layout nvcc gives them on x86-64), against the
+    ctypes mirrors through _lib's check; a mirror with two fields swapped
+    is refused."""
+    import ctypes
+    import pathlib
+    import shutil
+    import subprocess
+
+    import av1tpu_torch._build as build
+
+    src = (pathlib.Path(K.__file__).parent.parent / "csrc" /
+           "intra_part.cu").read_text()
+    structs = src[src.index("struct PartSite {"):src.index("namespace {")]
+    layout = src[src.index("// The job structs' layout"):]
+    cpp, so = tmp_path / "layout.cpp", tmp_path / "liblayout.so"
+    cpp.write_text("#include <stddef.h>\n#include <stdint.h>\n"
+                   "#include <stdio.h>\n" + structs + layout)
+    subprocess.run([shutil.which("g++"), "-std=c++17", "-shared", "-fPIC",
+                    "-o", str(so), str(cpp)], check=True)
+    lib = ctypes.CDLL(str(so))
+    lib.av1_part_layout.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.av1_part_layout.restype = ctypes.c_int
+    monkeypatch.setattr(build, "cuda_lib", lambda: lib)
+    K._lib.cache_clear()
+    try:
+        assert K._lib() is lib
+        fields = list(K.MergeJobC._fields_)
+        fields[3], fields[4] = fields[4], fields[3]    # recon, src
+        monkeypatch.setattr(K, "MergeJobC", type(
+            "MergeJobC", (ctypes.Structure,), {"_fields_": fields}))
+        K._lib.cache_clear()
+        with pytest.raises(RuntimeError, match="MergeJob.recon"):
+            K._lib()
+    finally:
+        K._lib.cache_clear()

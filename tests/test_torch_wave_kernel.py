@@ -301,5 +301,6 @@ def test_scene_worker_reports_its_launches(monkeypatch):
         "code_blocks": 0,
         "cdef_filter": searched + bool(np.any(res["cdef_s"])),
         "coarse_search": 0, "global_search": 0, "refine_subpel": 0,
-        "deblock_edges": 0}
+        "deblock_edges": 0, "part_chain": 0, "part_pred": 0, "part_code": 0,
+        "part_merge": 0}
     assert res["inter_bufs"] == []

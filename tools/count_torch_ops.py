@@ -58,7 +58,9 @@ KERNEL_PLAINS = (
     ("av1tpu_torch.kernels.motion", "global_search_plain", "global_search",
      3),
     ("av1tpu_torch.kernels.motion", "refine_subpel_plain", "refine_subpel",
-     2))
+     2),
+    *(("av1tpu_torch.kernels.intra_part", f"part_{k}_plain", f"part_{k}", 1)
+      for k in ("chain", "pred", "code", "merge")))
 
 
 def _caller() -> str:
@@ -162,7 +164,8 @@ def main() -> int:
             "wave_keyframe_per_diagonal": {k: round(v / nd)
                                            for k, v in key.items()},
             "probe_frame_128x192": counted(
-                lambda: intra_part.encode_intra_part(*planes[0], 72), card),
+                lambda: intra_part.encode_intra_part(*planes[0], 72), card,
+                split=card),
             "inter_frame_fast": counted(fast, card, split=card),
             "inter_frame_quality": counted(quality, card, split=True)}
     print(json.dumps(out))

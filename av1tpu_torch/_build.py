@@ -136,16 +136,13 @@ def cuda_lib() -> ctypes.CDLL:
     signatures = {
         "av1_transform_quantize": [vp, vp, vp, vp, vp, vp, vp, ci, ci, cf,
                                    cf, vp],
-        # WaveTabs*, src_y, width, rec_y, r, c, valid, ur, bl, n_valid,
-        # pick, lv, rec, cost_b, grp_b, stream
-        "av1_wave_luma16": [vp, vp, ci, vp, vp, vp, vp, vp, vp, ci, vp, vp,
-                            vp, vp, vp, vp],
-        # WaveTabs*, src_y, src_u, src_v, width, rec_y/u/v, lv_y/u/v,
-        # modes, txds, r, c, valid, ur, n_valid, pick, lv16, rec16,
-        # cost_b, grp_b, stream
-        "av1_wave_sub_chroma": [vp, vp, vp, vp, ci, vp, vp, vp, vp, vp, vp,
-                                vp, vp, vp, vp, vp, vp, ci, vp, vp, vp, vp,
-                                vp, vp],
+        # WaveTabs*, src_y, src_u, src_v, height, width, rec_y/u/v,
+        # lv_y/u/v, modes, txds, lanes, n, d0, flags, stream
+        "av1_wave_key": [vp, vp, vp, vp, ci, ci, vp, vp, vp, vp, vp, vp, vp,
+                         vp, vp, ci, ci, vp, vp],
+        # (return the resident clusters, each CTA's shared memory bytes)
+        "av1_wave_key_clusters": [],
+        "av1_wave_key_smem": [],
         # CodeTabs*, coefs, src, pred, nblocks, lv, rec, dist, rate, dskip,
         # stream
         "av1_code_blocks": [vp, vp, vp, vp, ci, vp, vp, vp, vp, vp, vp],

@@ -12,12 +12,12 @@ def hand_kernels() -> tuple:
     from av1tpu_torch.kernels.intra_part import (
         part_chain, part_code, part_merge, part_pred,
     )
-    from av1tpu_torch.kernels.intra_wave import wave_luma16, wave_sub_chroma
+    from av1tpu_torch.kernels.intra_wave import wave_key
     from av1tpu_torch.kernels.motion import (
         coarse_search, global_search, refine_subpel,
     )
     from av1tpu_torch.kernels.transform_quant import transform_quantize
 
-    return (transform_quantize, wave_luma16, wave_sub_chroma, code_blocks,
-            cdef_filter, coarse_search, global_search, refine_subpel,
+    return (transform_quantize, wave_key, code_blocks, cdef_filter,
+            coarse_search, global_search, refine_subpel,
             deblock_edges, part_chain, part_pred, part_code, part_merge)

@@ -1,24 +1,27 @@
-"""The wavefront keyframe's diagonal step: two CUDA kernels and their plain
-versions.
+"""The wavefront keyframe as one persistent CUDA kernel, and its plain
+version.
 
 Port of the jitted step of av1tpu/models/intra_wave.py (`step`, :383,
-scanned over the diagonals at :569; not a `pallas_call`).  One diagonal
-is two calls:
+scanned over the diagonals at :569; not a `pallas_call`).  `wave_key`
+codes the diagonals [d0, d1) of a keyframe in one launch (the encode
+passes them all): per lane (a 16x16 block of a diagonal)
 
-- `wave_luma16`: the 13 WAVE_MODES candidates of every lane at TX_16X16
-  (prediction, forward transform, quantize, rd_zero, inverse, SSE and
-  rate), the D203 mask and the argmin;
-- `wave_sub_chroma`: the winner re-coded at TX_8X8 and TX_4X4 with
-  per-tx-block prediction (`sub_chain`), the tx-depth choice, U and V
-  DC_PRED at 8x8, and the write of the valid lanes into the carried grids.
+- the 13 WAVE_MODES candidates at TX_16X16 (prediction, forward
+  transform, quantize, rd_zero, inverse, SSE and rate), the D203 mask and
+  the argmin (`wave_luma16_plain`);
+- the winner re-coded at TX_8X8 and TX_4X4 with per-tx-block prediction
+  (`sub_chain`), the tx-depth choice, U and V DC_PRED at 8x8, and the
+  write of the lane into the carried grids (`wave_sub_chroma_plain`).
 
-The hand kernels live in av1tpu_torch/csrc/intra_wave.cu (built for sm_90a
-by av1tpu_torch._build); the note at its top states their design and what
-bounds them.  Every table the step reads is checked once per encode, into
-a `WaveTables`; each call then checks only its per-diagonal tensors.  The
-wrappers take the plain versions only for tensors on the CPU.  A CUDA
-tensor always launches the kernel, and anything the kernel does not take
-raises: there is no fallback.
+The hand kernel lives in av1tpu_torch/csrc/intra_wave.cu (built for
+sm_90a by av1tpu_torch._build); the note at its top states its design,
+what bounds it and why it cannot deadlock.  Every table the step reads is
+checked once per encode, into a `WaveTables`, and the lane schedule once
+per frame size, into a `WaveSchedule`; each call then checks the frame's
+tensors.  The wrapper takes the plain version (the two plain pieces, once
+each per diagonal) only for tensors on the CPU.  A CUDA tensor always
+launches the kernel, and anything the kernel does not take raises: there
+is no fallback.
 """
 
 from __future__ import annotations
@@ -32,10 +35,11 @@ from av1tpu_torch.kernels.transform_quant import _check
 
 N_POS = 13          # mode candidates per block (WAVE_MODES)
 MAX_GROUP = 4       # candidates of one transform type, at most
+MAX_BLOCKS = 1 << 12  # block rows and columns a schedule entry holds
 
 
 class WaveTabsC(ctypes.Structure):
-    """The kernels' view of a WaveTables: device pointers and float32
+    """The kernel's view of a WaveTables: device pointers and float32
     scalars, in the order of `struct WaveTabs` in csrc/intra_wave.cu."""
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "fwd16", "fwd8", "fwd4",
@@ -80,7 +84,7 @@ _SPEC = {
 
 
 class WaveTables:
-    """Every table the diagonal step reads, checked once per encode.
+    """Every table the keyframe step reads, checked once per encode.
 
     Candidates are indexed by their position in _TX_ORDER (grouped by the
     transform type their mode derives).  Tensors (all contiguous, on one
@@ -101,7 +105,8 @@ class WaveTables:
         0 elsewhere).
     Scalars: lam, lam_txd0 and gate as float32 values, bit_depth (8 or
     10).  Positions of one tx type must be contiguous and at most
-    MAX_GROUP long (the kernel codes one group at a time).
+    MAX_GROUP long, and the tx types 0..3 at most (the kernel codes each
+    run on a CTA of its own, with that type's matrices).
 
     `groups` lists (tx type, candidates) in position order."""
 
@@ -124,7 +129,7 @@ class WaveTables:
         grp = tensors["grp_of_pos"].cpu().numpy()
         runs = [(int(t), int(np.sum(grp == t))) for t in dict.fromkeys(grp)]
         if (sorted(t for t, _ in runs) != list(range(len(runs)))
-                or any(n > MAX_GROUP for _, n in runs)
+                or len(runs) > 4 or any(n > MAX_GROUP for _, n in runs)
                 or not np.array_equal(grp, np.repeat(*zip(*runs)))):
             raise ValueError("grp_of_pos: each tx type's positions must be "
                              f"one run of at most {MAX_GROUP}, got {grp}")
@@ -137,8 +142,7 @@ class WaveTables:
             return
         from av1tpu_torch._build import cuda_lib
 
-        lib = cuda_lib()
-        self._luma, self._sub = lib.av1_wave_luma16, lib.av1_wave_sub_chroma
+        self._key = cuda_lib().av1_wave_key
         self.c = WaveTabsC(
             **{k: tensors[k].data_ptr() for k, _ in WaveTabsC._fields_
                if k in tensors},
@@ -147,15 +151,38 @@ class WaveTables:
         self.c_ptr = ctypes.addressof(self.c)
 
 
-def _check_diag(tabs: WaveTables, r, c, valid, ur, bl, n_lanes: int,
-                n_valid: int) -> None:
-    dev = tabs.device
-    for name, t in (("r", r), ("c", c)):
-        _check(name, t, torch.int64, (n_lanes,), dev)
-    for name, t in (("valid", valid), ("ur", ur), ("bl", bl)):
-        _check(name, t, torch.bool, (n_lanes,), dev)
-    if not 1 <= n_valid <= n_lanes:
-        raise ValueError(f"n_valid must be in [1, {n_lanes}], got {n_valid}")
+class WaveSchedule:
+    """The wavefront's lanes for one frame size on one device, in both
+    forms the step takes.
+
+    From numpy (nd, L) arrays r_i, c_i (block rows and columns), valid,
+    ur, bl (bool: a lane exists; above-right available; D203 masked), each
+    diagonal's valid lanes first (models/intra_wave.py:_diagonals):
+      diags: per diagonal the plain version's arguments (r, c int64; valid,
+        ur, bl bool; L; the valid count), tensors of L lanes;
+      lanes: (N,) int32, the N valid lanes diagonal after diagonal, each
+        r | c << 12 | ur << 24 | bl << 25 (the kernel's tickets);
+      starts: nd + 1 host ints, diagonal d's lanes are lanes[starts[d] :
+        starts[d + 1]]."""
+
+    def __init__(self, rows: int, cols: int, r_i, c_i, valid, ur, bl,
+                 device):
+        if not (0 < rows <= MAX_BLOCKS and 0 < cols <= MAX_BLOCKS):
+            raise ValueError(f"a schedule holds at most {MAX_BLOCKS} block "
+                             f"rows and columns, got {rows} x {cols}")
+        dev = torch.device(device)
+        self.rows, self.cols, self.device = rows, cols, dev
+        self.nd, n_lanes = r_i.shape
+        n_valid = valid.sum(axis=1)
+        self.starts = [0] + np.cumsum(n_valid).tolist()
+        as_t = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=dev)
+        r_all, c_all = as_t(r_i, torch.int64), as_t(c_i, torch.int64)
+        v_all, ur_all, bl_all = as_t(valid), as_t(ur), as_t(bl)
+        self.diags = [(r_all[d], c_all[d], v_all[d], ur_all[d], bl_all[d],
+                       n_lanes, int(n_valid[d])) for d in range(self.nd)]
+        packed = (r_i.astype(np.int64) | (c_i.astype(np.int64) << 12)
+                  | (ur.astype(np.int64) << 24) | (bl.astype(np.int64) << 25))
+        self.lanes = as_t(packed[valid].astype(np.int32))
 
 
 def _check_frame(tabs: WaveTables, src_y, rec_y) -> tuple[int, int]:
@@ -180,15 +207,11 @@ def _on_card(tabs: WaveTables) -> bool:
     return True
 
 
-def _launched(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-
-
 def wave_luma16_plain(src_y, rec_y, tabs: WaveTables, r_i, c_i, valid, ur_ok,
                       bl, n_lanes: int, n_valid: int):
-    """Plain version of wave_luma16: full-mode RDO at TX_16X16 for every
-    lane of one diagonal (padded lanes included, then discarded).
+    """The luma half of wave_key's plain version: full-mode RDO at
+    TX_16X16 for every lane of one diagonal (padded lanes included, then
+    discarded).  r_i .. n_valid: WaveSchedule.diags[d].
     Returns (pick int64 (L,) position in _TX_ORDER, levels int16 (L, 16,
     16), recon int32 (L, 16, 16), cost_b float32 (L,) = the winner's cost
     + lam_txd0, grp_b int64 (L,) its tx type)."""
@@ -268,11 +291,12 @@ def wave_sub_chroma_plain(src_y, src_u, src_v, rec_y, rec_u, rec_v, lv_y,
                           lv_u, lv_v, modes, txds, tabs: WaveTables, r_i,
                           c_i, valid, ur_ok, bl, n_lanes: int, n_valid: int,
                           pick, lv16, rec16, cost_b, grp_b) -> None:
-    """Plain version of wave_sub_chroma: each lane's winner (wave_luma16's
-    pick, levels, recon, cost_b and grp_b) re-coded at TX_8X8 and TX_4X4
-    (sub_chain), the tx depth chosen, U and V coded with 8x8 DC_PRED, and
-    the valid lanes (the first n_valid) written into the carried grids
-    rec_y/u/v, lv_y/u/v, modes and txds, which are updated in place."""
+    """The other half of wave_key's plain version: each lane's winner
+    (wave_luma16_plain's pick, levels, recon, cost_b and grp_b) re-coded at
+    TX_8X8 and TX_4X4 (sub_chain), the tx depth chosen, U and V coded with
+    8x8 DC_PRED, and the valid lanes (the first n_valid) written into the
+    carried grids rec_y/u/v, lv_y/u/v, modes and txds, which are updated in
+    place."""
     _sub_chroma_plain(src_y, src_u, src_v, rec_y, rec_u, rec_v, lv_y, lv_u,
                       lv_v, modes, txds, tabs, r_i, c_i, valid, ur_ok,
                       n_lanes, n_valid, pick, lv16, rec16, cost_b, grp_b)
@@ -452,52 +476,35 @@ def _sub_chroma_plain(src_y, src_u, src_v, rec_y, rec_u, rec_v, lv_y, lv_u,
     return cost8, cost4
 
 
-def wave_luma16(src_y, rec_y, tabs: WaveTables, r, c, valid, ur, bl,
-                n_lanes: int, n_valid: int):
-    """One diagonal's TX_16X16 mode decision.  src_y: (H, W) int32 luma
-    source; rec_y: (H/16, W/16, 16, 16) int32 carried recon; r, c: (L,)
-    int64 block rows and columns of the diagonal's lanes, valid, ur, bl:
-    (L,) bool (a lane exists; above-right available; D203 masked), L =
-    n_lanes; the first n_valid lanes are the valid ones.  Returns (pick,
-    levels, recon, cost_b, grp_b) as wave_luma16_plain; on the card only
-    the valid lanes' rows are written."""
-    _check_frame(tabs, src_y, rec_y)
-    _check_diag(tabs, r, c, valid, ur, bl, n_lanes, n_valid)
-    if not _on_card(tabs):
-        return wave_luma16_plain(src_y, rec_y, tabs, r, c, valid, ur, bl,
-                                 n_lanes, n_valid)
-    dev = tabs.device
-    pick = torch.empty(n_lanes, dtype=torch.int64, device=dev)
-    lv = torch.empty((n_lanes, 16, 16), dtype=torch.int16, device=dev)
-    rec = torch.empty((n_lanes, 16, 16), dtype=torch.int32, device=dev)
-    cost_b = torch.empty(n_lanes, dtype=torch.float32, device=dev)
-    grp_b = torch.empty(n_lanes, dtype=torch.int64, device=dev)
-    err = tabs._luma(
-        tabs.c_ptr, src_y.data_ptr(), src_y.shape[1],
-        rec_y.data_ptr(), r.data_ptr(), c.data_ptr(), valid.data_ptr(),
-        ur.data_ptr(), bl.data_ptr(), n_valid, pick.data_ptr(),
-        lv.data_ptr(), rec.data_ptr(), cost_b.data_ptr(), grp_b.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _launched("wave_luma16", err)
-    wave_luma16.launches += 1
-    return pick, lv, rec, cost_b, grp_b
 
 
-wave_luma16.launches = 0
+_GRIDS = ("rec_y", "rec_u", "rec_v", "lv_y", "lv_u", "lv_v", "modes",
+          "txds")
 
 
-def wave_sub_chroma(src_y, src_u, src_v, rec_y, rec_u, rec_v, lv_y, lv_u,
-                    lv_v, modes, txds, tabs: WaveTables, r, c, valid, ur, bl,
-                    n_lanes: int, n_valid: int, pick, lv16, rec16, cost_b,
-                    grp_b) -> None:
-    """One diagonal's tx-depth choice, chroma and write.  src_u, src_v:
-    (H/2, W/2) int32; rec_u, rec_v: (H/16, W/16, 8, 8) int32; lv_y, lv_u,
-    lv_v: int16 grids shaped as the recon grids; modes, txds: (H/16,
-    W/16) int8; the carried grids are updated in place.  pick .. grp_b:
-    wave_luma16's outputs for the same diagonal.  Other arguments as
-    wave_luma16."""
+def wave_key_plain(src_y, src_u, src_v, rec_y, rec_u, rec_v, lv_y, lv_u,
+                   lv_v, modes, txds, tabs: WaveTables,
+                   sched: WaveSchedule, d0: int, d1: int) -> None:
+    """Plain version of wave_key: the diagonals d0 .. d1 - 1 in turn, each
+    wave_luma16_plain then wave_sub_chroma_plain (the step's arithmetic)."""
+    for d in range(d0, d1):
+        diag = sched.diags[d]
+        best = wave_luma16_plain(src_y, rec_y, tabs, *diag)
+        wave_sub_chroma_plain(src_y, src_u, src_v, rec_y, rec_u, rec_v, lv_y,
+                              lv_u, lv_v, modes, txds, tabs, *diag, *best)
+
+
+def wave_key(src_y, src_u, src_v, rec_y, rec_u, rec_v, lv_y, lv_u, lv_v,
+             modes, txds, tabs: WaveTables, sched: WaveSchedule, d0: int,
+             d1: int) -> None:
+    """The wavefront keyframe's diagonals [d0, d1) in one launch.  src_y:
+    (H, W) int32 luma source, src_u, src_v: (H/2, W/2) int32; the carried
+    grids rec_y (H/16, W/16, 16, 16) and rec_u, rec_v (H/16, W/16, 8, 8)
+    int32, lv_y, lv_u, lv_v int16 shaped alike, modes, txds (H/16, W/16)
+    int8, updated in place (the blocks of the diagonals before d0 must hold
+    their final values); sched: the schedule of this frame size on the
+    tables' device; 0 <= d0 < d1 <= sched.nd."""
     h, w = _check_frame(tabs, src_y, rec_y)
-    _check_diag(tabs, r, c, valid, ur, bl, n_lanes, n_valid)
     dev, rows, cols = tabs.device, h // 16, w // 16
     for name, t, dtype, shape in (
             ("src_u", src_u, torch.int32, (h // 2, w // 2)),
@@ -508,64 +515,108 @@ def wave_sub_chroma(src_y, src_u, src_v, rec_y, rec_u, rec_v, lv_y, lv_u,
             ("lv_u", lv_u, torch.int16, (rows, cols, 8, 8)),
             ("lv_v", lv_v, torch.int16, (rows, cols, 8, 8)),
             ("modes", modes, torch.int8, (rows, cols)),
-            ("txds", txds, torch.int8, (rows, cols)),
-            ("pick", pick, torch.int64, (n_lanes,)),
-            ("lv16", lv16, torch.int16, (n_lanes, 16, 16)),
-            ("rec16", rec16, torch.int32, (n_lanes, 16, 16)),
-            ("cost_b", cost_b, torch.float32, (n_lanes,)),
-            ("grp_b", grp_b, torch.int64, (n_lanes,))):
+            ("txds", txds, torch.int8, (rows, cols))):
         _check(name, t, dtype, shape, dev)
+    if not isinstance(sched, WaveSchedule):
+        raise TypeError(f"sched: expected a WaveSchedule, got "
+                        f"{type(sched).__name__}")
+    if (sched.rows, sched.cols) != (rows, cols) or sched.device != dev:
+        raise ValueError(f"sched: for {sched.rows} x {sched.cols} blocks on "
+                         f"{sched.device}, the frame is {rows} x {cols} on "
+                         f"{dev}")
+    for name, d in (("d0", d0), ("d1", d1)):
+        if not isinstance(d, int) or isinstance(d, bool):
+            raise TypeError(f"{name}: expected an int, got "
+                            f"{type(d).__name__}")
+    if not 0 <= d0 < d1 <= sched.nd:
+        raise ValueError(f"diagonals [{d0}, {d1}) not in [0, {sched.nd})")
     if not _on_card(tabs):
-        wave_sub_chroma_plain(src_y, src_u, src_v, rec_y, rec_u, rec_v, lv_y,
-                              lv_u, lv_v, modes, txds, tabs, r, c, valid, ur,
-                              bl, n_lanes, n_valid, pick, lv16, rec16,
-                              cost_b, grp_b)
+        wave_key_plain(src_y, src_u, src_v, rec_y, rec_u, rec_v, lv_y, lv_u,
+                       lv_v, modes, txds, tabs, sched, d0, d1)
         return
-    err = tabs._sub(
-        tabs.c_ptr, src_y.data_ptr(), src_u.data_ptr(),
-        src_v.data_ptr(), w, rec_y.data_ptr(), rec_u.data_ptr(),
-        rec_v.data_ptr(), lv_y.data_ptr(), lv_u.data_ptr(), lv_v.data_ptr(),
-        modes.data_ptr(), txds.data_ptr(), r.data_ptr(), c.data_ptr(),
-        valid.data_ptr(), ur.data_ptr(), n_valid,
-        pick.data_ptr(), lv16.data_ptr(), rec16.data_ptr(),
-        cost_b.data_ptr(), grp_b.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _launched("wave_sub_chroma", err)
-    wave_sub_chroma.launches += 1
+    lo, hi = sched.starts[d0], sched.starts[d1]
+    # the ready flags, then the ticket counter
+    flags = torch.zeros(rows * cols + 1, dtype=torch.int32, device=dev)
+    err = tabs._key(
+        tabs.c_ptr, src_y.data_ptr(), src_u.data_ptr(), src_v.data_ptr(), h,
+        w, rec_y.data_ptr(), rec_u.data_ptr(), rec_v.data_ptr(),
+        lv_y.data_ptr(), lv_u.data_ptr(), lv_v.data_ptr(), modes.data_ptr(),
+        txds.data_ptr(), sched.lanes.data_ptr() + 4 * lo, hi - lo, d0,
+        flags.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wave_key kernel launch failed: cudaError {err}")
+    wave_key.launches += 1
 
 
-wave_sub_chroma.launches = 0
+wave_key.launches = 0
+
+
+def block_diffs(got, want) -> dict:
+    """Blocks of two sets of the eight carried grids (rec_y .. txds) that
+    differ: in the mode, else the tx depth, else a level (any plane), else
+    a recon sample or the chroma (must not happen where the decisions and
+    levels agree); and level_max_diff, the largest |level difference| in
+    the blocks whose mode and tx depth agree.  Every count 0 means the two
+    sets are equal bit for bit."""
+    rows, cols = want[6].shape
+    differs = {}
+    for name, a, b in zip(_GRIDS, got, want):
+        differs[name] = (a != b).reshape(rows, cols, -1).any(-1)
+    mode = differs["modes"]
+    txd = differs["txds"] & ~mode
+    levels = (differs["lv_y"] | differs["lv_u"] | differs["lv_v"]) & ~(
+        mode | txd)
+    recon = (differs["rec_y"] | differs["rec_u"] | differs["rec_v"]) & ~(
+        mode | txd | levels)
+    level_max = 0
+    for a, b in zip(got[3:6], want[3:6]):
+        d = (a.int() - b.int()).abs().reshape(rows, cols, -1).amax(-1)
+        level_max = max(level_max, int(torch.where(mode | txd, 0, d).max()))
+    return {"blocks": rows * cols, "modes": int(mode.sum()),
+            "txds": int(txd.sum()), "levels": int(levels.sum()),
+            "recon": int(recon.sum()), "level_max_diff": level_max}
 
 
 def wave_compare(y, u, v, qindex: int, bit_depth: int = 8,
                  lam_scale: float = 1.0, noise_gate: float = 0.0,
                  sync=None):
-    """The kernels against their plain versions from the same carried
-    state: the plain keyframe of the planes y, u, v (on their device, the
-    card), and at every diagonal the two kernels run from the plain
-    version's grids (copies).  Per valid lane, compares pick, tx depth and
-    levels, and where all three agree the recon, the mode and the chroma.
-    Returns a dict: lanes; picks, txds (the differing lanes: diagonal,
-    block row and column, both choices and the plain version's costs of
-    both); level_lanes (decisions agree, a level differs) with
-    level_max_diff; recon_lanes (decisions and levels agree, recon or mode
-    differs: must be 0); plain (encode_intra_wave's result of the plain
-    keyframe); plain_seconds, the host clock around the plain calls, each
-    interval closed by sync() (pass torch.cuda.synchronize on the card)."""
+    """The kernel against its plain version from the same carried state:
+    the plain keyframe of the planes y, u, v (on their device, the card),
+    and at every diagonal d the kernel run over [d, d + 1) from the plain
+    version's grids (copies).  Per valid lane, compares pick (from the
+    signalled mode), tx depth and levels, and where all three agree the
+    recon, the mode and the chroma.  Then the whole keyframe in one launch
+    against the plain keyframe, and against the kernel's own chain of
+    one-diagonal launches, each from the state the one before it left (a
+    one-diagonal launch waits on no flag: its neighbours lie on earlier
+    diagonals; the one launch waits on every flag).  Returns a dict:
+    lanes; picks, txds (the differing lanes: diagonal, block row and
+    column, both choices and the plain version's costs of both);
+    level_lanes (decisions agree, a level differs) with level_max_diff;
+    recon_lanes (decisions and levels agree, recon or mode differs: must
+    be 0); whole (block_diffs of the one-launch keyframe against the plain
+    one); chain (block_diffs of the one-launch keyframe against the
+    chain: the kernel is deterministic, so every count must be 0); plain
+    (encode_intra_wave's result of the plain keyframe); plain_seconds, the
+    host clock around the plain calls, each interval closed by sync()
+    (pass torch.cuda.synchronize on the card)."""
     import time
 
     from av1tpu_torch.models.intra_wave import wave_outputs, wave_setup
 
-    tabs, (src_y, src_u, src_v), diags, grids = wave_setup(
-        y, u, v, qindex, bit_depth, lam_scale, noise_gate)
+    tabs, src, sched, grids = wave_setup(y, u, v, qindex, bit_depth,
+                                         lam_scale, noise_gate)
+    src_y, src_u, src_v = src
+    # the position that signals each mode value
+    pos_of_mode = torch.full((N_POS,), -1, dtype=torch.int64)
+    pos_of_mode[tabs.mode_vals.long().cpu()] = torch.arange(N_POS)
     out = {"lanes": 0, "picks": [], "txds": [], "level_lanes": 0,
            "level_max_diff": 0, "recon_lanes": 0, "plain_seconds": 0.0}
     sync = sync or (lambda: None)
-    for d, diag in enumerate(diags):
+    for d, diag in enumerate(sched.diags):
         r_i, c_i, nv = diag[0], diag[1], diag[6]
         kg = [g.clone() for g in grids]
-        kb = wave_luma16(src_y, kg[0], tabs, *diag)
-        wave_sub_chroma(src_y, src_u, src_v, *kg, tabs, *diag, *kb)
+        wave_key(*src, *kg, tabs, sched, d, d + 1)
         sync()
         t = time.perf_counter()
         pb = _luma16_plain(src_y, grids[0], tabs, *diag[:6])
@@ -574,7 +625,8 @@ def wave_compare(y, u, v, qindex: int, bit_depth: int = 8,
         sync()
         out["plain_seconds"] += time.perf_counter() - t
         rv, cv = r_i[:nv], c_i[:nv]
-        pick_p, pick_k = pb[0][:nv].cpu(), kb[0][:nv].cpu()
+        pick_p = pb[0][:nv].cpu()
+        pick_k = pos_of_mode[kg[6][rv, cv].long().cpu()]
         cost_p = pb[5][:, :nv].cpu()
         costs_t = torch.stack([pb[3][:nv], cost8[:nv], cost4[:nv]]).cpu()
         txd_p, txd_k = grids[7][rv, cv].cpu(), kg[7][rv, cv].cpu()
@@ -606,5 +658,12 @@ def wave_compare(y, u, v, qindex: int, bit_depth: int = 8,
             elif bool(other[k]):
                 out["recon_lanes"] += 1
         out["lanes"] += nv
+    whole = [torch.zeros_like(g) for g in grids]
+    wave_key(*src, *whole, tabs, sched, 0, sched.nd)
+    chain = [torch.zeros_like(g) for g in grids]
+    for d in range(sched.nd):
+        wave_key(*src, *chain, tabs, sched, d, d + 1)
+    out["whole"] = block_diffs(whole, grids)
+    out["chain"] = block_diffs(whole, chain)
     out["plain"] = wave_outputs(grids)
     return out

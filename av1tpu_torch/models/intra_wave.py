@@ -8,13 +8,15 @@ transform type the mode derives, then re-codes the winning mode at TX_8X8
 and TX_4X4 with per-tx-block prediction and picks a tx depth per block.
 Chroma is 8x8 DC_PRED (DCT_DCT).
 
-The reference scans the diagonals with lax.scan; here it is a Python loop
-that carries the eight state tensors (recon and level grids of the three
-planes, modes, tx depths) on the device and codes each diagonal with the
-two calls of kernels/intra_wave.py: hand CUDA kernels on the card, their
-plain PyTorch versions (the arithmetic that used to be this loop's body)
-on the CPU.  The schedule pads every diagonal to the longest one; the
-padded lanes are never written (the kernels do not compute them).
+The reference scans the diagonals with lax.scan; here the eight state
+tensors (recon and level grids of the three planes, modes, tx depths) stay
+on the device and kernels/intra_wave.py:wave_key codes the whole keyframe
+in one call: on the card one launch of a persistent hand CUDA kernel that
+takes the lanes diagonal after diagonal, each once its neighbours are
+coded; on the CPU its plain PyTorch version, a loop over the diagonals
+(the arithmetic that used to be this loop's body).  The plain version's
+schedule pads every diagonal to the longest one; the padded lanes are
+never written.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 from av1tpu_torch.kernels.intra_wave import (
-    WaveTables, wave_luma16, wave_sub_chroma,
+    WaveSchedule, WaveTables, wave_key,
 )
 from av1tpu_torch.models.intra_v import (
     LAM_PIX, _plane_params, ac_squared, compact_values, fold_consts,
@@ -116,8 +118,21 @@ def _diagonals(rows: int, cols: int):
 
 def wave_diagonals(height: int, width: int) -> int:
     """The diagonals of a wavefront keyframe coded at height x width
-    (multiples of 16): each is one launch of each of its two kernels."""
+    (multiples of 16): the chain of dependent lanes the keyframe is."""
     return _diagonals(height // 16, width // 16)[0].shape[0]
+
+
+def wave_schedule(rows: int, cols: int, device) -> WaveSchedule:
+    """The wavefront's lane schedule of a rows x cols block grid on
+    `device` (kernels/intra_wave.py:WaveSchedule), built once per frame
+    size and device."""
+    def build(dev):
+        r_i, c_i, valid = _diagonals(rows, cols)
+        return WaveSchedule(rows, cols, r_i, c_i, valid,
+                            _ur_avail_grid(rows, cols)[r_i, c_i] & valid,
+                            _bl_avail_grid(rows, cols)[r_i, c_i] & valid,
+                            dev)
+    return tables(device).const(("wave_schedule", rows, cols), build)
 
 
 def _pred_consts(n: int, dev):
@@ -341,28 +356,15 @@ def wave_tables(qindex: int, bit_depth: int, lam_scale: float,
 def wave_setup(y, u, v, qindex: int, bit_depth: int, lam_scale: float,
                noise_gate: float):
     """What a wavefront encode of the planes y, u, v carries: (tables,
-    (src_y, src_u, src_v) int32 planes, the schedule as a list of per-
-    diagonal wrapper arguments (r, c, valid, ur, bl, lane count, valid
-    count), the eight zeroed grids rec_y, rec_u, rec_v, lv_y, lv_u, lv_v,
-    modes, txds)."""
+    (src_y, src_u, src_v) int32 planes, the lane schedule (wave_schedule),
+    the eight zeroed grids rec_y, rec_u, rec_v, lv_y, lv_u, lv_v, modes,
+    txds)."""
     h, w = y.shape
     dev = y.device
     rows, cols = h // 16, w // 16
     tabs = wave_tables(qindex, bit_depth, lam_scale, noise_gate, dev)
     src = tuple(p.to(torch.int32).contiguous() for p in (y, u, v))
-
-    r_np, c_np, valid_np = _diagonals(rows, cols)
-    n_lanes = r_np.shape[1]
-    n_valid = valid_np.sum(axis=1)
-    r_all = torch.as_tensor(r_np, dtype=torch.int64, device=dev)
-    c_all = torch.as_tensor(c_np, dtype=torch.int64, device=dev)
-    valid_all = torch.as_tensor(valid_np, device=dev)
-    ur_all = torch.as_tensor(_ur_avail_grid(rows, cols)[r_np, c_np]
-                             & valid_np, device=dev)
-    bl_all = torch.as_tensor(_bl_avail_grid(rows, cols)[r_np, c_np]
-                             & valid_np, device=dev)
-    diags = [(r_all[d], c_all[d], valid_all[d], ur_all[d], bl_all[d],
-              n_lanes, int(n_valid[d])) for d in range(r_np.shape[0])]
+    sched = wave_schedule(rows, cols, dev)
 
     def zeros(n, dtype, blocks=True):
         shape = (rows, cols, n, n) if blocks else (rows, cols)
@@ -371,7 +373,7 @@ def wave_setup(y, u, v, qindex: int, bit_depth: int, lam_scale: float,
              zeros(8, torch.int32), zeros(16, torch.int16),
              zeros(8, torch.int16), zeros(8, torch.int16),
              zeros(0, torch.int8, False), zeros(0, torch.int8, False)]
-    return tabs, src, diags, grids
+    return tabs, src, sched, grids
 
 
 def wave_outputs(grids) -> dict:
@@ -393,15 +395,12 @@ def encode_intra_wave(y, u, v, qindex: int, bit_depth: int = 8,
     bits).  noise_gate: (3*sigma)^2 RDOQ noise floor, a Python float
     (0 = only exact zeros fall under it).
 
-    Each diagonal is two calls, kernels/intra_wave.py's wave_luma16 and
-    wave_sub_chroma: the hand kernels on the card, their plain versions on
-    the CPU.  The schedule's lane and valid counts are host ints, so the
-    loop never waits for the device."""
-    tabs, (src_y, src_u, src_v), diags, grids = wave_setup(
-        y, u, v, qindex, bit_depth, lam_scale, noise_gate)
-    for diag in diags:
-        best = wave_luma16(src_y, grids[0], tabs, *diag)
-        wave_sub_chroma(src_y, src_u, src_v, *grids, tabs, *diag, *best)
+    The keyframe is one call of kernels/intra_wave.py:wave_key over every
+    diagonal: one launch of the hand kernel on the card, its plain version
+    on the CPU.  Nothing waits for the device."""
+    tabs, src, sched, grids = wave_setup(y, u, v, qindex, bit_depth,
+                                         lam_scale, noise_gate)
+    wave_key(*src, *grids, tabs, sched, 0, sched.nd)
     return wave_outputs(grids)
 
 

@@ -29,22 +29,24 @@ exits non-zero:
    set to 0 before the timed run and read after it: no transform_quantize
    launch (the probe's first-row chains are part_chain's), the probe's
    four kernels part_launches(1088, 1920) times for the one probed frame
-   (1 part_chain, 134 part_pred, 134 part_code, 66 part_merge), and the
-   wavefront keyframe's two kernels once per diagonal each (254 at
-   1088x1920).  The probe's arguments are caught for phase 7e.  Spies
+   (1 part_chain, 134 part_pred, 134 part_code, 66 part_merge), and
+   wave_key once for the wavefront keyframe.  The probe's arguments are
+   caught for phase 7e.  Spies
    assert that the keyframe recon, the inter carry (recon and MV field)
    and GOLDEN live on the card, and the bytes must come out below the fast
    preset's.
-7b. wave kernels vs plain, on phase 7's keyframe with the CLI's arguments
-   (wave_vs_plain): (a) the plain keyframe on the card with the two
-   kernels run at every diagonal from its carried state: recon identical
+7b. wave_key vs plain, on phase 7's keyframe with the CLI's arguments
+   (wave_vs_plain): (a) the plain keyframe on the card with wave_key run
+   over each diagonal [d, d + 1) from its carried state: recon identical
    wherever pick, tx depth and levels agree, levels within 1 where the
    decisions agree, at most 0.1% of the 8,160 lanes with another pick or
-   tx depth (each printed with the plain costs of both choices); (b) the
-   kernels' keyframe alone: PSNR-Y within 0.05 dB and nonzero levels
-   within 1% of the plain one; (c) its time (events, and device time
-   queued behind a sleep), each kernel per keyframe and per launch at the
-   largest lane count, the plain versions' time there, and the bounds;
+   tx depth (each printed with the plain costs of both choices); then the
+   whole keyframe in one launch against the plain one, block by block;
+   (b) the kernel's keyframe through encode_intra_wave: PSNR-Y within
+   0.05 dB and nonzero levels within 1% of the plain one; (c) its device
+   time (one launch queued behind a sleep), its time with the host (an
+   event pair), the mean time of a one-diagonal launch, the plain
+   keyframe's time, and the bound (wave_key_bound);
 7c. inter kernels vs plain, on phase 7's first inter frame with the CLI's
    arguments (inter_vs_plain): (a) the partition RDO with code_blocks and
    with its plain version on the card: differing levels and skip, split
@@ -119,9 +121,8 @@ exits non-zero:
    each worker: encode seconds, scenes per second, key_device, bytes
    (equal), peak memory per device and process; the probe kernels'
    launches of one frame per scene, all in the parent's probe (no
-   transform_quantize launch), and 254 of each wave
-   kernel per scene's keyframe, in the workers (in the parent at
-   workers=1);
+   transform_quantize launch), and one wave_key launch per scene's
+   keyframe, in the workers (in the parent at workers=1);
 13. container and daemon.  (a) Where pkg-config finds libavcodec,
    libavformat and libavutil: the daemon's cycle, a 640x360 8-frame mpeg4
    mkv with a tone track in a library directory, `av1tpu-daemon --once`
@@ -146,12 +147,13 @@ exits non-zero:
    $AV1TPU_SMOKE_OUT (a temporary directory when unset), where
    tools/card_decode_check.py decodes them on a host that has libav.
 
-Every path's launches of the two wavefront kernels are asserted equal to
-its wavefront keyframes times their diagonals (models/intra_wave.py:
-wave_diagonals, from the schedule): one 1080p keyframe per scene in
-phases 7, 9, 10 and 12 (b), the 128x64 clip's two scenes in the workers of
-12 (a), the 640x360 clip's scenes at its coded 384x640 in 13 (a); none on
-the fast and all-intra paths.  Those of code_blocks and cdef_filter are
+Every path's wave_key launches are asserted equal to its wavefront
+keyframes, one launch each: one 1080p keyframe per scene in phases 7, 9,
+10 and 12 (b), the 128x64 clip's two scenes in the workers of 12 (a), the
+640x360 clip's scenes in 13 (a); none on the fast and all-intra paths.
+Each cell's stream is printed as a sha256 (print_digest; phase 7's and
+9's equal tools/time_encode.py's on the same checkout, for parent and
+change in one call).  Those of code_blocks and cdef_filter are
 asserted equal to what each path's scenes imply (coder_cdef_want, from
 each scene's frames and chosen preset, spied by ScenePlan or reported by
 the batch's workers): 8 code_blocks launches per quality inter frame, 3 per
@@ -176,7 +178,7 @@ step's kernels (362,224 B and 41.471 dB; 104,684 B; NVIDIA H100 80GB HBM3,
 
 The line before the last is the kernels' JSON record (launches summed over
 the timed runs, with the count of each path beside it: transform_quantize,
-wave_luma16, wave_sub_chroma, code_blocks, cdef_filter, coarse_search,
+wave_key, code_blocks, cdef_filter, coarse_search,
 global_search, refine_subpel, deblock_edges, part_chain, part_pred,
 part_code and part_merge); the last line
 is {"ok": true, "device": {...}}.  Imports nothing of JAX or av1tpu.
@@ -187,6 +189,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import functools
+import hashlib
 import io
 import json
 import os
@@ -236,17 +239,27 @@ def add_launches(a: dict, b: dict) -> dict:
     return {k: a.get(k, 0) + b.get(k, 0) for k in {*a, *b}}
 
 
-def assert_wave(launches: dict, keyframes: int, h: int | None = None,
-                w: int | None = None) -> None:
-    """Each wavefront kernel launched once per diagonal of each of the
-    path's `keyframes` wavefront keyframes coded at h x w (default: the
-    padded 1080p frame; the count from the schedule,
-    models/intra_wave.py:_diagonals)."""
-    from av1tpu_torch.models.intra_wave import wave_diagonals
+def assert_wave(launches: dict, keyframes: int) -> None:
+    """wave_key launched once for each of the path's `keyframes`
+    wavefront keyframes, whatever their size."""
+    assert launches["wave_key"] == keyframes, (launches["wave_key"],
+                                               keyframes)
 
-    want = keyframes * wave_diagonals(h or ROWS * 16, w or COLS * 16)
-    got = (launches["wave_luma16"], launches["wave_sub_chroma"])
-    assert got == (want, want), (got, want)
+
+def print_digest(cell: str, stream) -> str:
+    """Print and return the sha256 of a cell's stream: an IVF file's bytes
+    (a path) or the concatenated temporal units (a list of bytes), so that
+    two checkouts' streams can be held equal in one call
+    (tools/time_encode.py prints the same digests)."""
+    h = hashlib.sha256()
+    if isinstance(stream, str):
+        with open(stream, "rb") as f:
+            h.update(f.read())
+    else:
+        for tu in stream:
+            h.update(tu)
+    print(f"{cell} stream sha256: {h.hexdigest()}", flush=True)
+    return h.hexdigest()
 
 
 PART_KERNELS = ("part_chain", "part_pred", "part_code", "part_merge")
@@ -618,6 +631,7 @@ def _timed_slice(torch, clip, name: str, partitions: bool):
           f"launches={launches} max_memory_allocated={peak}", flush=True)
     assert len(streams) == clip.num_frames
     assert all(len(s) > 0 for s in streams)
+    print_digest(name, streams)
     assert stats["scenes"] == 1, stats["scenes"]
     assert stats["psnr_y"] >= 30.0, stats["psnr_y"]
     assert_coder_cdef(launches, inter_want(
@@ -740,57 +754,54 @@ def quality_slice_1080p(torch, clip, fast_stats):
     return launches, key_args[-1], gop_args[0], tf_args[0], probe_args[0]
 
 
-def wave_bounds(n: int) -> dict:
-    """Least time of one launch of each wavefront kernel on a diagonal of
-    n valid lanes, {name: (us, "bytes" or "operations")}: the larger of
-    the fp32 operations of the forward products at the fp32 peak (the
-    integer inverse, quantize and rate work are not counted) and the bytes
-    at the memory rate (every table the launch reads once, each lane's
-    inputs read once and outputs written once).  The work is the same for
-    any data: every candidate and sub-block is coded."""
-    tables = 4 * (3 * 256 + 3 * 64 + 3 * 16 + 3 * 64)   # quantizer rows
+def wave_key_bound(lanes: int) -> tuple[float, str]:
+    """Least time of wave_key coding `lanes` lanes, in ms, and what bounds
+    it: the larger of the fp32 operations of the forward products at the
+    fp32 peak (per lane 13 candidate 256x256 products, 4 8x8 and 16 4x4
+    sub-block products and 2 chroma 8x8 products; the integer inverse,
+    quantize and rate work are not counted) and the bytes at the memory
+    rate (every table read once per launch, each lane's schedule entry,
+    source and neighbours' edges read once, its grids and ready flag
+    written once).  The work is the same for any data: every candidate and
+    sub-block is coded."""
+    tables = 4 * 4 * (256 * 256 + 64 * 64 + 16 * 16)    # forward matrices
+    tables += 4 * (3 * 256 + 3 * 64 + 3 * 16 + 3 * 64)   # quantizer rows
     tables += 4 * (4 * 256 + 4 * 64 + 4 * 16 + 64)      # gains
     tables += 4 * (4 * 256 + 257 + 65 + 17 + 6) + 4 * (256 + 64 + 16)
-    edges = 4 * (16 + 16 + 16 + 1)                      # above, ur, left
-    lane = 8 + 8 + 3                                     # r, c, flags
-    luma_ops = n * 13 * 2 * 256 * 256
-    luma_bytes = (4 * 4 * 256 * 256 + tables
-                  + n * (lane + 4 * 256 + edges)         # src, rec edges
-                  + n * (8 + 2 * 256 + 4 * 256 + 4 + 8))  # outputs
-    sub_ops = n * (4 * 2 * 64 * 64 + 16 * 2 * 16 * 16 + 2 * 2 * 64 * 64)
-    sub_bytes = (4 * 4 * (64 * 64 + 16 * 16) + tables
-                 + n * (lane + 4 * (256 + 2 * 64) + edges + 2 * 4 * 16)
-                 + n * (8 + 2 * 256 + 4 * 256 + 4 + 8)   # wave_luma16's
-                 + n * (4 * 256 + 2 * 256 + 2 * (4 * 64 + 2 * 64) + 2))
-    out = {}
-    for name, ops, nbytes in (("wave_luma16", luma_ops, luma_bytes),
-                              ("wave_sub_chroma", sub_ops, sub_bytes)):
-        t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
-        out[name] = (max(t_ops, t_bytes) * 1e6,
-                     "operations" if t_ops >= t_bytes else "bytes")
-    return out
+    edges = 4 * (16 + 16 + 16 + 1) + 2 * 4 * 16         # luma, chroma
+    lane_in = 4 + 4 * (256 + 2 * 64) + edges
+    lane_out = 4 * 256 + 2 * 256 + 2 * (4 * 64 + 2 * 64) + 2 + 4
+    ops = lanes * (13 * 2 * 256 * 256 + 4 * 2 * 64 * 64 + 16 * 2 * 16 * 16
+                   + 2 * 2 * 64 * 64)
+    nbytes = tables + lanes * (lane_in + lane_out)
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def wave_vs_plain(torch, key_args) -> dict:
-    """Phase 7b: the wavefront kernels against their plain versions on the
-    keyframe that phase 7's quality encode coded (the temporally filtered
-    first frame of the 1080p clip, with the CLI's key q, lam_scale, noise
-    gate and bit depth).  (a) The plain keyframe on the card, and at every
-    diagonal the two kernels from its carried state (wave_compare):
+    """Phase 7b: wave_key against its plain version on the keyframe that
+    phase 7's quality encode coded (the temporally filtered first frame
+    of the 1080p clip, with the CLI's key q, lam_scale, noise gate and bit
+    depth).  (a) The plain keyframe on the card, and at every diagonal d
+    the kernel over [d, d + 1) from its carried state (wave_compare):
     wherever pick, tx depth and levels agree the recon must be identical,
     where the decisions agree a level may differ by 1 only, and at most
     0.1% of the lanes may take another pick or tx depth (each printed with
-    the plain version's costs of both choices).  (b) The kernels' keyframe
-    alone (encode_intra_wave) against the plain one: PSNR-Y within 0.05 dB,
-    nonzero levels within 1%.  (c) Times: the kernels' keyframe (CUDA
-    events after a warm-up, and its device time queued behind a sleep),
-    each kernel's device time per keyframe and per launch at the largest
-    lane count, the plain versions' at that diagonal, and the bounds.
-    Returns the kernels' records for the JSON line."""
-    from av1tpu_torch.kernels.intra_wave import (
-        wave_compare, wave_luma16, wave_luma16_plain, wave_sub_chroma,
-        wave_sub_chroma_plain,
-    )
+    the plain version's costs of both choices), and at most 0.1% differ in
+    a level only; then the whole keyframe in one launch against the plain
+    one, block by block, under the same limits (decisions and levels
+    together at most 0.1%), and against the kernel's own chain of
+    one-diagonal launches bit for bit (the one launch alone waits on the
+    ready flags: a lost wait shows here).  (b) The kernel's keyframe through encode_intra_wave against
+    the plain one: PSNR-Y within 0.05 dB, nonzero levels within 1%.  (c)
+    Times: the keyframe's one launch on the device (queued behind a sleep)
+    and with the host (encode_intra_wave, an event pair), the mean device
+    time of a one-diagonal launch, the plain keyframe's time, and the
+    bound (wave_key_bound).  Returns the kernel's record for the JSON
+    line."""
+    from av1tpu_torch._build import cuda_lib
+    from av1tpu_torch.kernels.intra_wave import wave_compare, wave_key
     from av1tpu_torch.models.intra_v import unfuse
     from av1tpu_torch.models.intra_wave import (
         encode_intra_wave, wave_outputs, wave_setup,
@@ -802,7 +813,7 @@ def wave_vs_plain(torch, key_args) -> dict:
     print(f"wave keyframe: {w}x{h} q={q} lam_scale={lam_scale} "
           f"noise_gate={gate} bit_depth={bd}", flush=True)
 
-    # (a) same input
+    # (a) same input, per diagonal, then the whole keyframe
     t = time.perf_counter()
     o = wave_compare(y, u, v, q, bd, lam_scale, gate,
                      sync=torch.cuda.synchronize)
@@ -810,17 +821,27 @@ def wave_vs_plain(torch, key_args) -> dict:
     flips = o["picks"] + o["txds"]
     for f in flips:
         print(f"wave decision differs: {json.dumps(f)}", flush=True)
+    whole = o["whole"]
     print(f"wave same-input: lanes={o['lanes']} pick_differs="
           f"{len(o['picks'])} txd_differs={len(o['txds'])} "
           f"level_only_lanes={o['level_lanes']} (max |diff| "
           f"{o['level_max_diff']}) recon_mismatch_lanes={o['recon_lanes']}; "
-          f"plain keyframe {o['plain_seconds']:.3f} s of {compare_s:.3f} s",
-          flush=True)
+          f"whole keyframe in one launch vs plain, blocks differing: "
+          f"{json.dumps(whole)}; vs the kernel's one-diagonal chain: "
+          f"{json.dumps(o['chain'])}; plain keyframe "
+          f"{o['plain_seconds']:.3f} s of {compare_s:.3f} s", flush=True)
+    few = o["lanes"] // 1000
     assert o["recon_lanes"] == 0, o["recon_lanes"]
     assert o["level_max_diff"] <= 1, o["level_max_diff"]
-    assert len(flips) <= o["lanes"] // 1000, len(flips)
+    assert len(flips) <= few, len(flips)
+    assert o["level_lanes"] <= few, o["level_lanes"]
+    assert whole["recon"] == 0 and whole["level_max_diff"] <= 1, whole
+    assert whole["modes"] + whole["txds"] + whole["levels"] <= few, whole
+    assert not any(v for k, v in o["chain"].items() if k != "blocks"), (
+        o["chain"])
 
-    # (b) the kernels' keyframe alone (the first run warms up)
+    # (b) the kernel's keyframe through the encode's entry (the first run
+    # warms up)
     encode_intra_wave(y, u, v, q, bd, lam_scale, gate)
     a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     a.record()
@@ -843,78 +864,49 @@ def wave_vs_plain(torch, key_args) -> dict:
     pk, pp = psnr(k["recon_y"]), psnr(p["recon_y"])
     nk, npl = nonzero(k), nonzero(p)
     print(f"wave whole keyframe: modes differ {modes_diff}, txd differ "
-          f"{txd_diff} of {k['modes'].numel()} blocks; psnr_y kernels {pk} "
-          f"plain {pp}; nonzero levels kernels {nk} plain {npl}", flush=True)
+          f"{txd_diff} of {k['modes'].numel()} blocks; psnr_y kernel {pk} "
+          f"plain {pp}; nonzero levels kernel {nk} plain {npl}", flush=True)
     assert abs(pk - pp) <= 0.05, (pk, pp)
     assert abs(nk - npl) <= 0.01 * npl, (nk, npl)
 
     # (c) times
-    tabs, (sy, su, sv), diags, grids = wave_setup(y, u, v, q, bd, lam_scale,
-                                                  gate)
-    bests = []
-    for diag in diags:       # realistic carried state for the timings
-        bests.append(wave_luma16(sy, grids[0], tabs, *diag))
-        wave_sub_chroma(sy, su, sv, *grids, tabs, *diag, *bests[-1])
+    tabs, src, sched, grids = wave_setup(y, u, v, q, bd, lam_scale, gate)
+
+    def key():
+        wave_key(*src, *grids, tabs, sched, 0, sched.nd)
+
+    def per_diagonal():
+        for d in range(sched.nd):
+            wave_key(*src, *grids, tabs, sched, d, d + 1)
+
+    key()
     assert all(torch.equal(x, z) for x, z in zip(
         wave_outputs(grids).values(), k.values()))
-
-    def luma_all():
-        for diag in diags:
-            wave_luma16(sy, grids[0], tabs, *diag)
-
-    def sub_all():       # rewrites each block with the same values
-        for diag, best in zip(diags, bests):
-            wave_sub_chroma(sy, su, sv, *grids, tabs, *diag, *best)
-
-    def both_all():
-        for diag in diags:
-            best = wave_luma16(sy, grids[0], tabs, *diag)
-            wave_sub_chroma(sy, su, sv, *grids, tabs, *diag, *best)
-
-    big = max(range(len(diags)), key=lambda d: diags[d][6])
-    dg, best = diags[big], bests[big]
-    n = dg[6]
-    key_dev = {name: device_us(torch, fn, 1, sleep_cycles=8 * SLEEP_CYCLES)
-               / 1e3 for name, fn in (("wave_luma16", luma_all),
-                                      ("wave_sub_chroma", sub_all),
-                                      ("both", both_all))}
-    per = {"wave_luma16": device_us(
-               torch, lambda: wave_luma16(sy, grids[0], tabs, *dg), 100),
-           "wave_sub_chroma": device_us(
-               torch, lambda: wave_sub_chroma(sy, su, sv, *grids, tabs, *dg,
-                                              *best), 100)}
-    plain = {"wave_luma16": _median_ms(
-                 torch, lambda: wave_luma16_plain(sy, grids[0], tabs, *dg),
-                 n=5),
-             "wave_sub_chroma": _median_ms(
-                 torch, lambda: wave_sub_chroma_plain(
-                     sy, su, sv, *grids, tabs, *dg, *best), n=5)}
-    bounds = wave_bounds(n)
-    key_bound = {name: sum(wave_bounds(d[6])[name][0] for d in diags) / 1e3
-                 for name in bounds}
-    print(f"wave keyframe time: {key_ms:.3f} ms with the host (events), "
-          f"{key_dev['both']:.3f} ms of device queued behind a sleep "
-          f"({len(diags)} diagonals, {2 * len(diags)} launches); plain "
-          f"keyframe {o['plain_seconds'] * 1e3:.1f} ms; bound "
-          f"{sum(key_bound.values()):.4f} ms", flush=True)
-    recs = {}
-    for name in ("wave_luma16", "wave_sub_chroma"):
-        recs[name] = {
-            "lanes": n, "device_us": per[name], "plain_ms": plain[name],
-            "bound_us": bounds[name][0], "bound_by": bounds[name][1],
-            "keyframe_device_ms": key_dev[name],
-            "keyframe_bound_ms": key_bound[name],
-            "keyframe_ms": key_ms, "plain_keyframe_ms":
-                o["plain_seconds"] * 1e3,
-            "decisions_differ": len(flips),
-            "max_abs_err": o["level_max_diff"]}
-        print(f"{name} at {n} lanes: device {per[name]:.3f} us per launch, "
-              f"plain {plain[name]:.3f} ms per call, bound "
-              f"{bounds[name][0]:.4f} us ({bounds[name][1]}, roofline "
-              f"{bounds[name][0] / per[name]:.4f}); per keyframe device "
-              f"{key_dev[name]:.3f} ms, bound {key_bound[name]:.4f} ms",
-              flush=True)
-    return recs
+    lanes = sched.starts[-1]
+    key_dev = device_us(torch, key, 10) / 1e3
+    diag_dev = device_us(torch, per_diagonal, 1,
+                         sleep_cycles=8 * SLEEP_CYCLES) / 1e3 / sched.nd
+    bound, by = wave_key_bound(lanes)
+    plain_ms = o["plain_seconds"] * 1e3
+    lib = cuda_lib()
+    clusters, smem = lib.av1_wave_key_clusters(), lib.av1_wave_key_smem()
+    print(f"wave_key keyframe ({lanes} lanes, {sched.nd} diagonals, 1 "
+          f"launch of {clusters} clusters of 4 CTAs, {smem} B of shared "
+          f"memory each): device {key_dev:.3f} ms queued behind a sleep, "
+          f"{key_ms:.3f} ms with the host (events around "
+          f"encode_intra_wave); one-diagonal launches {diag_dev * 1e3:.3f} "
+          f"us each on average ({diag_dev * sched.nd:.3f} ms for the "
+          f"{sched.nd}); plain keyframe {plain_ms:.1f} ms; bound "
+          f"{bound:.4f} ms ({by}, roofline {bound / key_dev:.4f})",
+          flush=True)
+    return {"wave_key": {
+        "lanes": lanes, "diagonals": sched.nd, "clusters": clusters,
+        "cta_shared_bytes": smem, "ms": key_dev,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        "keyframe_ms": key_ms, "per_diagonal_ms": diag_dev,
+        "decisions_differ": len(flips), "whole_differs": whole,
+        "whole_vs_chain": o["chain"],
+        "max_abs_err": max(o["level_max_diff"], whole["level_max_diff"])}}
 
 
 def code_bounds(b: int, n: int) -> tuple[float, str]:
@@ -2038,6 +2030,7 @@ def daemon_1080p(torch, y4m: str, tmp: str):
     assert 0.0 <= stats["tpu_vmaf"] <= 100.0 and "metric_score" not in stats
     assert stats["psnr_y"] >= 30.0, stats["psnr_y"]
     assert stats["frames"] == ivf_frames(ivf) == CLI_FRAMES
+    print_digest("daemon command", ivf)
     assert launches["transform_quantize"] == 0, launches
     assert_part(launches, stats["scenes"])
     assert_wave(launches, stats["scenes"])
@@ -2089,6 +2082,7 @@ def layered_1080p(torch, y4m: str, tmp: str, daemon_stats):
     assert stats["bytes"] <= 1.02 * daemon_stats["bytes"]
     assert stats["psnr_y"] >= 30.0, stats["psnr_y"]
     assert ivf_frames(ivf) == CLI_FRAMES
+    print_digest("layers 2", ivf)
     assert launches["transform_quantize"] == 0, launches
     assert_part(launches, stats["scenes"])
     assert_wave(launches, stats["scenes"])
@@ -2121,6 +2115,7 @@ def all_intra_1080p(torch, y4m: str, tmp: str, preset: str):
           f"launches={launches} (derived {want})", flush=True)
     assert stats["keyframes"] == stats["frames"] == ivf_frames(ivf)
     assert stats["frames"] == INTRA_FRAMES
+    print_digest(f"all-intra {preset}", ivf)
     assert launches["transform_quantize"] == want, (launches, want)
     assert_part(launches, 0 if preset == "fast" else
                 INTRA_FRAMES + stats["scenes"])
@@ -2235,7 +2230,7 @@ def batch_parity(torch, quality_runs) -> dict:
     assert s_b == s_gpu == s_cpu
     assert_part(parent, st_b["scenes"], 64, 128)   # the parent's probes
     assert_wave(parent, 0)
-    assert_wave(launches, st_b["scenes"], 64, 128)
+    assert_wave(launches, st_b["scenes"])
     # the temporal filter runs in the parent, the inter frames in workers
     assert_coder_cdef(parent, {"code_blocks": 0, "cdef_filter": 0,
                                **search_deblock_want(spy.scenes(), "quality",
@@ -2288,6 +2283,7 @@ def batch_1080p(torch) -> int:
             print(f"batch 1080p workers={workers} stats:", json.dumps(stats),
                   flush=True)
             assert stats["scenes"] == 2 and len(streams) == 2 * BATCH_FRAMES
+            print_digest(f"batch 1080p workers={workers}", streams)
             # the probes run in the parent, the keyframes in the workers
             assert launches["transform_quantize"] == 0, launches
             assert_part(parent, stats["scenes"])
@@ -2542,14 +2538,15 @@ def container_daemon(torch, tmp: str, out_dir: str, tool, daemon,
           f"scenes={stats['scenes']} launches={launches}", flush=True)
     assert stats["frames"] == ivf_frames(
         os.path.join(out_dir, "daemon_command.ivf")) == n
+    print_digest(f"daemon command {w}x{h}",
+                 os.path.join(out_dir, "daemon_command.ivf"))
     on_card = device == "cuda"
     assert launches["transform_quantize"] == 0, launches
     # the quality preset's probe and keyframe, one per scene, at the coded
     # size
     assert_part(launches, stats["scenes"] if on_card else 0,
                 (h + 63) & ~63, (w + 63) & ~63)
-    assert_wave(launches, stats["scenes"] if on_card else 0,
-                (h + 63) & ~63, (w + 63) & ~63)
+    assert_wave(launches, stats["scenes"] if on_card else 0)
     assert_coder_cdef(launches, inter_want(
         scenes if on_card else [], "fast" if "fast" in extra else "quality"))
     if tool is not None:
@@ -2587,6 +2584,8 @@ def container_1080p(torch, tmp: str, out_dir: str, tool,
           f"bytes={stats['bytes']} psnr_y={stats['psnr_y']} "
           f"scenes={stats['scenes']} launches={launches}", flush=True)
     assert stats["frames"] == n
+    print_digest(f"fast preset {w}x{h}", os.path.join(out_dir,
+                                                      "fast_1080p.ivf"))
     # at chunk 1 the scene detector's minimum scene length is 1
     assert launches["transform_quantize"] == (
         3 * (COLS + ROWS - 1) * stats["scenes"] if device == "cuda" else 0), (
@@ -2732,14 +2731,8 @@ def main() -> int:
         "replaces": "av1tpu/models/intra_wave.py:383",
         "launches": sum(path_counts(name).values()),
         "launches_by_path": path_counts(name),
-        "max_abs_err": r["max_abs_err"],
-        "ms": r["device_us"] / 1e3, "plain_ms": r["plain_ms"],
-        "bound_ms": r["bound_us"] / 1e3, "bound_by": r["bound_by"],
-        # no PyTorch call computes the diagonal step
-        "library_ms": None,
-        **{k: r[k] for k in ("lanes", "keyframe_device_ms",
-                             "keyframe_bound_ms", "keyframe_ms",
-                             "plain_keyframe_ms", "decisions_differ")}}
+        # no PyTorch call computes the keyframe step
+        "library_ms": None, **r}
         for name, r in wave_recs.items()]
     inter = [{
         "name": name, "route": "cuda", "source": source,

@@ -93,8 +93,8 @@ def test_daemon_accepts_the_torch_config(daemon, tmp_path):
 
 
 # what phase 13 counts on the CPU: the plain versions launch nothing
-NO_LAUNCHES = {"transform_quantize": 0, "wave_luma16": 0,
-               "wave_sub_chroma": 0, "code_blocks": 0, "cdef_filter": 0,
+NO_LAUNCHES = {"transform_quantize": 0, "wave_key": 0, "code_blocks": 0,
+               "cdef_filter": 0,
                "coarse_search": 0, "global_search": 0, "refine_subpel": 0,
                "deblock_edges": 0, "part_chain": 0, "part_pred": 0,
                "part_code": 0, "part_merge": 0}

@@ -1,12 +1,13 @@
 """Tests that need an NVIDIA GPU: the CUDA transform+quantize kernel agrees
 with its plain PyTorch version at the main path's shapes, the wavefront
-keyframe's two kernels agree with theirs from the same carried state, the
-wrappers reject what the kernels do not take, the inter coder's, CDEF's,
+keyframe's kernel agrees with its plain version from the same carried
+state at every diagonal and over the whole frame (and its ranges add up
+to the whole keyframe), the wrappers reject what the kernels do not take, the inter coder's, CDEF's,
 the motion search's and the loop filter's kernels agree with their plain
 versions bit for bit, the partition probe's four kernels give every output
 of its plain versions (and their rate per level is torch.log2's, bit for
 bit), and the scene batch runs on the visible GPUs (its workers launching
-the wavefront kernels).  They skip where CUDA is absent.
+one wavefront launch per keyframe).  They skip where CUDA is absent.
 This file imports no JAX, so it also runs on a GPU machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -17,7 +18,7 @@ import pytest
 import torch
 
 from av1tpu_torch.kernels.intra_wave import (
-    wave_compare, wave_luma16, wave_sub_chroma,
+    block_diffs, wave_compare, wave_key, wave_key_plain,
 )
 from av1tpu_torch.kernels.transform_quant import (
     TQPlane, count_level_flips, transform_quantize, transform_quantize_ref,
@@ -117,11 +118,9 @@ def test_scene_batch_on_the_gpus(dev):
         res = gop.SceneBatchEncoder(scenes, pool, 64, 64).encode(8192, 8192)
     assert [r["device"] for r in res] == [str(d) for d in devices]
     assert all(r["peak_bytes"] > 0 for r in res)
-    # each worker's keyframe: two wavefront launches per diagonal
-    nd = wave_diagonals(64, 64)
+    # each worker's keyframe: one wavefront launch
     for r in res:
-        assert r["launches"]["wave_luma16"] == nd, r["launches"]
-        assert r["launches"]["wave_sub_chroma"] == nd, r["launches"]
+        assert r["launches"]["wave_key"] == 1, r["launches"]
     for sc, r in zip(scenes, res):
         here = gop._encode_scene(
             dict(sc, frames=torch.from_numpy(sc["frames"])), dev, 64, 64, 8,
@@ -144,50 +143,84 @@ def _wave_planes(bd, dev, w=192, h=128, seed=7):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bd,q,gate", [(8, 72, 0.0), (10, 40, 6.25)])
 def test_wave_kernels_match_plain(dev, bd, q, gate):
-    """Each diagonal's two kernels from the plain version's carried state
-    on a 128x192 frame: where pick, tx depth and levels agree the recon,
-    mode and chroma are identical (the integer path is exact); a level may
-    differ by 1 where the decisions agree (a quantize or rd_zero rounding
-    boundary, float32 sums in another order than cuBLAS's); a decision may
-    flip at a near-tie, in at most 1 of the 96 lanes."""
-    before = (wave_luma16.launches, wave_sub_chroma.launches)
+    """wave_key over each diagonal from the plain version's carried state
+    on a 128x192 frame, then over the whole frame in one launch: where
+    pick, tx depth and levels agree the recon, mode and chroma are
+    identical (the integer path is exact); a level may differ by 1 where
+    the decisions agree (a quantize or rd_zero rounding boundary, float32
+    sums in another order than cuBLAS's); a decision may flip at a
+    near-tie, or a level differ, in at most 1 of the 96 lanes, in the
+    per-diagonal check and in the whole keyframe.  The one launch equals
+    the kernel's own chain of one-diagonal launches bit for bit (only the
+    one launch waits on the ready flags)."""
+    before = wave_key.launches
     o = wave_compare(*_wave_planes(bd, dev), q, bit_depth=bd, lam_scale=0.3,
                      noise_gate=gate)
     torch.cuda.synchronize()
     nd = wave_diagonals(128, 192)
-    assert (wave_luma16.launches, wave_sub_chroma.launches) == (
-        before[0] + nd, before[1] + nd)
+    assert wave_key.launches == before + 2 * nd + 1
     print({k: v for k, v in o.items() if k != "plain"})
     assert o["lanes"] == 96
     assert o["recon_lanes"] == 0
     assert o["level_max_diff"] <= 1
-    assert len(o["picks"]) + len(o["txds"]) <= 1
+    assert len(o["picks"]) + len(o["txds"]) + o["level_lanes"] <= 1
+    whole = o["whole"]
+    assert whole["recon"] == 0 and whole["level_max_diff"] <= 1
+    assert whole["modes"] + whole["txds"] + whole["levels"] <= 1
+    assert o["chain"] == dict.fromkeys(o["chain"], 0) | {"blocks": 96}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bd,q,ranges", [
+    (8, 72, ((0, 1), (1, 9), (9, 10), (10, 26))),
+    (10, 40, ((0, 13), (13, 26)))])
+def test_wave_key_ranges_equal_the_whole(dev, bd, q, ranges):
+    """wave_key over consecutive ranges of diagonals (one launch each)
+    gives the whole keyframe's one launch bit for bit, 128x192; the plain
+    version over the same ranges gives the plain keyframe."""
+    tabs, src, sched, grids = wave_setup(*_wave_planes(bd, dev), q, bd, 0.3,
+                                         6.25)
+    assert sched.nd == 26
+    whole = [g.clone() for g in grids]
+    wave_key(*src, *whole, tabs, sched, 0, sched.nd)
+    parts = [g.clone() for g in grids]
+    for d0, d1 in ranges:
+        wave_key(*src, *parts, tabs, sched, d0, d1)
+    plain = [g.clone() for g in grids]
+    wave_key_plain(*src, *plain, tabs, sched, 0, sched.nd)
+    torch.cuda.synchronize()
+    for a, b in zip(parts, whole):
+        assert torch.equal(a, b)
+    diffs = block_diffs(whole, plain)
+    assert diffs["recon"] == 0 and diffs["level_max_diff"] <= 1
+    assert diffs["modes"] + diffs["txds"] + diffs["levels"] <= 1
 
 
 @pytest.mark.cuda
 def test_wave_wrappers_reject_bad_inputs(dev):
+    from av1tpu_torch.models.intra_wave import wave_schedule
+
     y, u, v = _wave_planes(8, dev, 64, 48)
-    tabs, (sy, su, sv), diags, grids = wave_setup(y, u, v, 72, 8, 1.0, 0.0)
-    diag = diags[3]
-    best = wave_luma16(sy, grids[0], tabs, *diag)
-    wave_sub_chroma(sy, su, sv, *grids, tabs, *diag, *best)
-    with pytest.raises(TypeError):                  # int32 rows
-        wave_luma16(sy, grids[0], tabs, diag[0].int(), *diag[1:])
+    tabs, (sy, su, sv), sched, grids = wave_setup(y, u, v, 72, 8, 1.0, 0.0)
+    wave_key(sy, su, sv, *grids, tabs, sched, 0, 3)
+    before = wave_key.launches
     with pytest.raises(ValueError):                 # on the CPU
-        wave_luma16(sy.cpu(), grids[0], tabs, *diag)
+        wave_key(sy.cpu(), su, sv, *grids, tabs, sched, 3, 4)
     with pytest.raises(ValueError):                 # not contiguous
-        wave_luma16(sy.t().contiguous().t(), grids[0], tabs, *diag)
-    with pytest.raises(ValueError):                 # no valid lane
-        wave_luma16(sy, grids[0], tabs, *diag[:6], 0)
+        wave_key(sy.t().contiguous().t(), su, sv, *grids, tabs, sched, 3, 4)
     with pytest.raises(ValueError):                 # the grid's shape
-        wave_sub_chroma(sy, su, sv, grids[0][:, :2].contiguous(),
-                        *grids[1:], tabs, *diag, *best)
+        wave_key(sy, su, sv, grids[0][:, :2].contiguous(), *grids[1:],
+                 tabs, sched, 3, 4)
     with pytest.raises(TypeError):                  # the levels' dtype
-        wave_sub_chroma(sy, su, sv, *grids[:3], grids[3].int(), *grids[4:],
-                        tabs, *diag, *best)
-    with pytest.raises(TypeError):                  # a float64 cost
-        wave_sub_chroma(sy, su, sv, *grids, tabs, *diag, *best[:3],
-                        best[3].double(), best[4])
+        wave_key(sy, su, sv, *grids[:3], grids[3].int(), *grids[4:], tabs,
+                 sched, 3, 4)
+    with pytest.raises(ValueError):                 # an empty range
+        wave_key(sy, su, sv, *grids, tabs, sched, 3, 3)
+    with pytest.raises(ValueError):                 # the schedule's device
+        wave_key(sy, su, sv, *grids, tabs, wave_schedule(3, 4, "cpu"), 3, 4)
+    with pytest.raises(ValueError):                 # another frame size
+        wave_key(sy, su, sv, *grids, tabs, wave_schedule(4, 4, dev), 3, 4)
+    assert wave_key.launches == before
     # the tables: one tensor on another device, or of another dtype
     t = {k: getattr(tabs, k) for k in ("fwd16", "mode_vals")}
     with pytest.raises(ValueError):

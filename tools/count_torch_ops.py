@@ -5,10 +5,11 @@
 
 An eager encode is bound by the host's cost per dispatched operation, so
 the counts say where that time goes before any profile does.  The numbers
-of operations per wavefront diagonal and per inter frame do not depend on
-the frame size (only the tensors grow), so they are counted here on a
-128x192 frame with torch's dispatch mode (the probe's count does grow with
-the frame's block rows and columns, and is given for this size only):
+of operations per inter frame do not depend on the frame size (only the
+tensors grow), so they are counted here on a 128x192 frame with torch's
+dispatch mode (the wavefront keyframe's plain count grows with its
+diagonals, the probe's with the frame's block rows and columns: both are
+given for this size only):
 every aten operation, split into those that only make a view (no device
 work) and the rest (each launches at least one kernel on a GPU).
 
@@ -44,10 +45,7 @@ VIEW_OPS = ("view", "reshape", "expand", "permute", "transpose", "slice",
 KERNEL_PLAINS = (
     ("av1tpu_torch.kernels.transform_quant", "transform_quantize_ref",
      "transform_quantize", 1),
-    ("av1tpu_torch.kernels.intra_wave", "wave_luma16_plain", "wave_luma16",
-     1),
-    ("av1tpu_torch.kernels.intra_wave", "wave_sub_chroma_plain",
-     "wave_sub_chroma", 1),
+    ("av1tpu_torch.kernels.intra_wave", "wave_key_plain", "wave_key", 1),
     ("av1tpu_torch.kernels.inter_code", "code_blocks_plain", "code_blocks",
      1),
     ("av1tpu_torch.kernels.cdef", "cdef_filter_plain", "cdef_filter", 1),
@@ -161,8 +159,7 @@ def main() -> int:
         key = counted(lambda: intra_wave.encode_intra_wave(
             *planes[0], 72, lam_scale=0.3), card)
         out[mode] = {
-            "wave_keyframe_per_diagonal": {k: round(v / nd)
-                                           for k, v in key.items()},
+            "wave_keyframe": key,
             "probe_frame_128x192": counted(
                 lambda: intra_part.encode_intra_part(*planes[0], 72), card,
                 split=card),

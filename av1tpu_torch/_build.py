@@ -146,6 +146,9 @@ def cuda_lib() -> ctypes.CDLL:
         # CodeTabs*, coefs, src, pred, nblocks, lv, rec, dist, rate, dskip,
         # stream
         "av1_code_blocks": [vp, vp, vp, vp, ci, vp, vp, vp, vp, vp, vp],
+        # n, out (4 ints: blocks and threads per CTA, dynamic and static
+        # shared bytes)
+        "av1_code_blocks_layout": [ci, vp],
         # y, u, v, skip8, weights, h, w, pri_y, sec_y, pri_uv, sec_uv,
         # damping, coeff_shift, out y, u, v, stream
         "av1_cdef_filter": [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
@@ -159,6 +162,9 @@ def cuda_lib() -> ctypes.CDLL:
         # y, ref, h, w, bias (host), margin, ws, coarse, coarse2, shifts4,
         # stream
         "av1_coarse_search": [vp, vp, ci, ci, vp, cf, vp, vp, vp, vp, vp],
+        # h, w, out (5 ints: the three grids, the sweep's threads and
+        # static shared bytes)
+        "av1_coarse_layout": [ci, ci, vp],
         # y, ref, h, w, shifts4, zeroed ws, vol, sad_g, c0, g_full, stream
         "av1_global_search": [vp, vp, ci, ci, vp, vp, vp, vp, vp, vp, vp],
         # y, ref, h, w, base0, base1, base2, c0, g_full, sad_g, unit_r,

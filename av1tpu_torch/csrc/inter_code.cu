@@ -29,29 +29,51 @@
 // merges), about 2 M coefficients and 3 M pixels each way: tens of
 // megabytes, a few microseconds at 3.35 TB/s each.  The integer inverse is
 // about 20 to 60 operations per pixel, well under a millisecond at the
-// card's integer rate.  So the launches are bound by bytes, and by the
-// serial butterflies of the 32- and 64-point inverses inside one block.
+// card's integer rate.  So the launches are bound by bytes.
 //
-// What the design does about it.  One block of 256 threads per transform
-// block at n >= 16 (each thread owns 1, 4 or 16 pixels and 1 or 4
-// coefficients), and 16 or 4 transform blocks per block at n = 4 and 8, so
-// every block has 256 pixels or more.  The dequantized levels go to shared
-// memory; the rows and then the columns of the inverse are one thread
-// each, on a padded stride (n + 1) so that a row's reads do not collide in
-// one bank.  Per transform block, SSE, skip SSE, end of block and bits are
-// tree reductions (warp shuffles, then one value per warp in shared
-// memory) in a fixed order, so a run repeats its bits.
-//
+// What the design does about it.  The first version of this kernel gave
+// a CTA of 256 threads one transform block at n >= 16 (16 or 4 at n = 4
+// and 8), and the inverse one thread per row, then per column: 16 to 64
+// of the 256 threads worked through the butterflies.  Giving every thread
+// a line (256 / n blocks per CTA) measured slower on the main path's
+// batches: the work per element outside the inverse (the quantize's IEEE
+// division, rd_zero and the rate per coefficient; the recon; five sums
+// per block) is what the launches spend there, most blocks having no
+// level.  So a CTA takes the number of blocks that measured best at each
+// size (Layout<N>::NB: 64, 32, 8, 2 and 2 at n = 4 to 64; PERF.md,
+// code_blocks per site, which also times batches whose every block
+// carries levels), each thread the same elements of each of its blocks
+// as a thread of the first version had of its one.  Two threads per
+// 64-point line (the even and the odd half of idct64 on two warps,
+// meeting in shared memory) measured no faster either, so a line keeps
+// one thread.  What is new:
+// - a block without a nonzero level skips its inverse (its residual is
+//   the zeros it holds; chip_smoke.py phase 7c prints their share);
+// - the per-block sums of a thread's several blocks share one transposed
+//   butterfly (log2 NV shuffles fewer per step) that pairs the first
+//   version's lanes in its order;
+// - the coefficients go to shared memory first, all loads in flight, and
+//   the levels stay there for the rate, so no value lives in a register
+//   across the division's slow-path calls (which spilled at n = 64);
+// - the CTA sends its source and prediction lines to L2
+//   (prefetch.global.L2) before it quantizes; the inverse runs in place
+//   on one buffer of n + 1 words per row (an odd stride puts a warp's
+//   rows, and its columns, on 32 banks), at TX_64X64 over the 32 coded
+//   rows with the zero inputs folded away.
+
 // Bits.  The plain version rounds every float operation, so the quantize,
 // rd_zero's c*c - t*t and save > lam*bits, and the rate are written with
 // __fmul_rn/__fadd_rn/__fsub_rn and IEEE division (nvcc would contract
 // a*b + c into an FMA).  floor(log2(a - 14)) is 31 - __clz.  The SSE is an
 // integer sum; the inverse wraps in int32 as the plain version's tensors
-// do.  What cannot match: the skip SSE and the rate are float32
-// sums in another order than PyTorch's (exact while the skip SSE's partial
-// sums stay under 2^24, as they always do for 8-bit blocks up to 16x16),
-// so a skip or merge decision may flip at a near-tie; chip_smoke.py counts
-// them.
+// do.  The skip SSE and the rate are float32 sums in another order than
+// PyTorch's (exact while the skip SSE's partial sums stay under 2^24, as
+// they always do for 8-bit blocks up to 16x16), so a skip or merge
+// decision may flip at a near-tie; chip_smoke.py counts them.  Each is
+// summed in the first version's order (a thread's elements of a block in
+// turn, the warp's butterfly, the block's warps in order): a thread of
+// this layout takes that version's thread's elements of each of its
+// blocks, so the sums, and the streams, are the same bit for bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -71,7 +93,6 @@ struct CodeTabs {
 
 namespace {
 
-constexpr int NT = 256;
 constexpr int KEEP_ALWAYS = 8;
 
 // Deadzone quantize of one coefficient, then rd_zero's keep test.
@@ -104,120 +125,245 @@ __device__ __forceinline__ float coef_bits(int a, const float* tab) {
 struct FAdd {
   __device__ float operator()(float a, float b) const { return __fadd_rn(a, b); }
 };
-struct LAdd {
-  __device__ long long operator()(long long a, long long b) const {
-    return a + b;
-  }
+struct UAdd {
+  __device__ u32 operator()(u32 a, u32 b) const { return a + b; }
 };
 struct IMax {
   __device__ int operator()(int a, int b) const { return max(a, b); }
 };
 
-// Reduction over segments of SEG consecutive threads (a power of two, 16
-// to NT): warp shuffles, then the segment's warp values in order.  Every
-// thread gets its segment's result.  red: NT / 32 values of scratch.
-template <int SEG, typename V, typename Op>
-__device__ V seg_reduce(V v, V* red, Op op) {
-  constexpr int W = SEG < 32 ? SEG : 32;
-  for (int o = W / 2; o; o >>= 1) v = op(v, __shfl_xor_sync(~0u, v, o));
-  if (SEG <= 32) return v;
+constexpr int NT = 256;     // threads per CTA
+
+// Layout<N>: NB blocks of N x N per CTA.  Each per-block sum keeps the
+// first version's order, whose CTA gave a block VT = min(NC, 256) threads:
+// thread t summed its elements t + VT m in turn, the warp's butterfly
+// joined a warp's threads, then the block's warps were added in order.
+// Here thread t takes the same elements of each of its NV blocks blk(v).
+template <int N>
+struct Layout {
+  // transform blocks per CTA (measured: PERF.md, code_blocks per site;
+  // kernels/inter_code.py:CODE_BLOCKS_PER_CTA mirrors them)
+  static constexpr int NB = N == 4 ? 64 : N == 8 ? 32 : N == 16 ? 8 : 2;
+  static constexpr int CW = N < 32 ? N : 32;       // coded width
+  static constexpr int NC = CW * CW, NP = N * N;
+  static constexpr int LD = N + 1;                 // shared row stride (odd)
+  static constexpr int BS = N * LD;                // a block's words
+  static constexpr int VT = NC < NT ? NC : NT;     // threads per block
+  static constexpr int NV = NB * VT / NT;          // blocks per thread
+  static constexpr int EPL = NC / VT, PPL = NP / VT;
+  static constexpr int W = VT < 32 ? VT : 32;      // a butterfly's lanes
+  static constexpr int RED = VT > 32 ? NV * NT / 32 : 0;   // scratch words
+  static constexpr size_t SMEM = (size_t)NB * (BS + NC) * sizeof(u32);
+  static_assert(NB * VT % NT == 0 && NV >= 1 && (NV & (NV - 1)) == 0 &&
+                NV <= W, "code_blocks layout");
+  static_assert(SMEM <= 48 * 1024, "the default dynamic shared memory");
+  __device__ static int blk(int v) {
+    return VT == NT ? v : (int)threadIdx.x / VT + v * (NT / VT);
+  }
+  __device__ static int elem(int m) { return (int)threadIdx.x % VT + VT * m; }
+};
+
+// One step of the butterfly at lane offset O on H values per lane, then
+// the rest.  While H > 1 it is transposed: a lane with bit O set keeps
+// the upper half of its values and trades the lower half with lane ^ O,
+// so each value still meets its own partner (the plain butterfly's pairs,
+// in its order) with H / 2 shuffles, not H.
+template <int O, int H, typename V, typename Op>
+__device__ __forceinline__ void butterfly(V* v, Op op, int lane) {
+  if constexpr (O > 0) {
+    if constexpr (H > 1) {
+      const bool up = lane & O;
+#pragma unroll
+      for (int k = 0; k < H / 2; ++k) {
+        const V send = up ? v[k] : v[k + H / 2];
+        const V keep = up ? v[k + H / 2] : v[k];
+        v[k] = op(keep, __shfl_xor_sync(~0u, send, O));
+      }
+      butterfly<O / 2, H / 2>(v, op, lane);
+    } else {
+      v[0] = op(v[0], __shfl_xor_sync(~0u, v[0], O));
+      butterfly<O / 2, 1>(v, op, lane);
+    }
+  }
+}
+
+// The per-block sums of each of a thread's NV values (one per block):
+// the butterfly over W lanes, which leaves block v's warp sum in the lanes
+// (lane % W) / (W / NV) == v, then the block's warps in order.  out[b]
+// gets local block b's sum; every thread sees it after the call.  red:
+// Layout<N>::RED words of scratch.
+template <int N, typename V, typename Op>
+__device__ void block_reduce(V (&v)[Layout<N>::NV], V* out, V* red, Op op) {
+  using L = Layout<N>;
+  constexpr int W = L::W, NV = L::NV, NW = NT / 32;
+  const int t = threadIdx.x, lane = t & 31;
+  butterfly<W / 2, NV>(v, op, lane);
+  const int s = (lane % W) / (W / NV);             // this lane's block
+  const bool holder = lane % (W / NV) == 0;
+  if constexpr (L::VT <= 32) {
+    if (holder) out[t / L::VT + s * (NT / L::VT)] = v[0];
+  } else {
+    if (holder) red[s * NW + (t >> 5)] = v[0];
+    __syncthreads();
+    constexpr int PER = NT / L::VT, WPB = L::VT / 32;   // blocks per slot
+    if (t < L::NB) {
+      const V* r = red + (t / PER) * NW + (t % PER) * WPB;
+      V acc = r[0];
+#pragma unroll
+      for (int k = 1; k < WPB; ++k) acc = op(acc, r[k]);
+      out[t] = acc;
+    }
+  }
   __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  const int first = (threadIdx.x / SEG) * (SEG / 32);
-  V s = red[first];
-  for (int k = 1; k < SEG / 32; ++k) s = op(s, red[first + k]);
-  return s;
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+// One 1-D inverse DCT of N points on a line of the shared buffer, in place:
+// inputs p[k * step], k < K (the rest zero), outputs shifted right by SH.
+template <int N, int K, int SH>
+__device__ __forceinline__ void inv_line(u32* p, int step) {
+  u32 in[N], out[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) in[k] = k < K ? p[k * step] : 0u;
+  inv1d<N>(false, in, out);
+#pragma unroll
+  for (int k = 0; k < N; ++k) p[k * step] = rs(out[k], SH);
 }
 
 template <int N>
 __global__ void __launch_bounds__(NT) code_blocks_kernel(
     CodeTabs T, const float* __restrict__ coefs, const int* __restrict__ src,
-    const int* __restrict__ pred, int nblocks, int* lv_out, int* rec_out,
-    float* dist_out, float* rate_out, float* dskip_out) {
-  constexpr int NB = N <= 16 ? NT / (N * N) : 1;   // transform blocks
-  constexpr int CW = N < 32 ? N : 32;              // coded width
-  constexpr int NC = CW * CW, NP = N * N;
-  constexpr int LD = N + 1;                        // shared row stride
-  constexpr int EPT = NB * NC / NT;                // coefficients / thread
-  constexpr int PPT = NB * NP / NT;                // pixels / thread
-  constexpr int SEG = N <= 16 ? NP : NT;           // threads per block
-  __shared__ u32 s_dq[NB * N * LD], s_tmp[NB * N * LD];
-  __shared__ float s_fred[NT / 32];
-  __shared__ long long s_lred[NT / 32];
-  __shared__ int s_ired[NT / 32];
+    const int* __restrict__ pred, int nblocks, int* __restrict__ lv_out,
+    int* __restrict__ rec_out, float* __restrict__ dist_out,
+    float* __restrict__ rate_out, float* __restrict__ dskip_out) {
+  using L = Layout<N>;
+  constexpr int NB = L::NB, CW = L::CW, NC = L::NC, NP = L::NP, LD = L::LD,
+                BS = L::BS, NV = L::NV;
+  extern __shared__ u32 s_buf[];                 // NB blocks of N x LD
+  __shared__ u32 s_red[L::RED > 0 ? L::RED : 1];
+  __shared__ u32 s_dist[NB];
+  __shared__ float s_dskip[NB], s_bits[NB];
+  __shared__ int s_eob[NB];
+  __shared__ int s_nz[NB];                       // a nonzero level
 
   const int t = threadIdx.x;
+  __builtin_assume(t < NT);
   const int b0 = blockIdx.x * NB;
-  const bool valid = b0 + t / SEG < nblocks;   // this thread's block
+  const int nb = min(NB, nblocks - b0);          // blocks of this CTA
 
-  // quantize, rd_zero, dequantize into shared memory
-  if (CW < N) {
-    for (int p = t; p < NB * N * LD; p += NT) s_dq[p] = 0u;
-    __syncthreads();
+  // the CTA's source and prediction lines on their way to L2 while it
+  // quantizes and inverts
+  for (int i = t; i < nb * NP / 32; i += NT) {
+    prefetch_l2(src + (size_t)b0 * NP + 32 * i);
+    prefetch_l2(pred + (size_t)b0 * NP + 32 * i);
   }
-  int lvr[EPT];
-  for (int k = 0; k < EPT; ++k) {
-    const int e = t + k * NT, blk = e / NC, j = e % NC;
-    int lv = 0;
-    if (valid) {
-      const size_t g = (size_t)(b0 + blk) * NC + j;
-      lv = quant_rdz(coefs[g], T, j);
-      lv_out[g] = lv;
-    }
-    lvr[k] = lv;
-    const int a = abs(lv);
-    const int dq = (int)(((u32)a * (u32)T.q[j]) >> T.dq_shift);
-    s_dq[blk * N * LD + (j / CW) * LD + j % CW] = (u32)(lv < 0 ? -dq : dq);
-  }
+  if (CW < N)                                    // TX_64X64: zero the rest
+    for (int p = t; p < NB * BS; p += NT) s_buf[p] = 0u;
+  for (int b = t; b < NB; b += NT) s_nz[b] = 0;
   __syncthreads();
 
-  // the inverse DCT (TX_64X64: rows 32..63 are zero)
-  inverse_2d<N>(0, NB, s_dq, s_tmp, N * LD, LD, CW);
-
-  // recon, SSE and skip SSE
-  long long dist = 0;
-  float dskip = 0.f;
-  for (int k = 0; k < PPT; ++k) {
-    const int p = t + k * NT, blk = p / NP, idx = p % NP;
-    if (!valid) break;
-    const size_t g = (size_t)(b0 + blk) * NP + idx;
-    const int s = src[g], pr = pred[g];
-    const int r = (int)s_dq[blk * N * LD + (idx / N) * LD + idx % N];
-    const int rec = min(max(pr + r, 0), T.pix_max);
-    rec_out[g] = rec;
-    const int e = rec - s, d = s - pr;
-    dist += (long long)(e * e);
-    dskip = __fadd_rn(dskip, (float)(d * d));
+  // quantize, rd_zero, dequantize into shared memory; each thread's
+  // levels also go to s_lv for the rate
+  int* s_lv = reinterpret_cast<int*>(s_buf + NB * BS);   // NB x NC levels
+  // the coefficients into s_lv (as bits), all loads in flight at once
+#pragma unroll
+  for (int s = 0; s < NV; ++s)
+#pragma unroll
+    for (int m = 0; m < L::EPL; ++m)
+      s_lv[L::blk(s) * NC + L::elem(m)] = L::blk(s) < nb
+          ? __float_as_int(coefs[(size_t)(b0 + L::blk(s)) * NC + L::elem(m)])
+          : 0;
+  int eob[NV];
+#pragma unroll
+  for (int s = 0; s < NV; ++s) {
+    eob[s] = 0;
+#pragma unroll
+    for (int m = 0; m < L::EPL; ++m) {
+      const int b = L::blk(s), j = L::elem(m);
+      int lv = 0;
+      if (b < nb) {
+        lv = quant_rdz(__int_as_float(s_lv[b * NC + j]), T, j);
+        lv_out[(size_t)(b0 + b) * NC + j] = lv;
+        if (lv != 0) {
+          s_nz[b] = 1;
+          if (T.with_rate) eob[s] = max(eob[s], T.rank[j] + 1);
+        }
+      }
+      s_lv[b * NC + j] = lv;
+      const int dq = (int)(((u32)abs(lv) * (u32)T.q[j]) >> T.dq_shift);
+      s_buf[b * BS + (j / CW) * LD + j % CW] = (u32)(lv < 0 ? -dq : dq);
+    }
   }
-  dist = seg_reduce<SEG>(dist, s_lred, LAdd());
-  dskip = seg_reduce<SEG>(dskip, s_fred, FAdd());
-  const int bi = b0 + t / SEG;
-  const bool writer = valid && t % SEG == 0;
-  if (writer) {
-    dist_out[bi] = __int2float_rn((int)(u32)dist);   // int32, wrapped
-    dskip_out[bi] = dskip;
-  }
-  if (!T.with_rate) return;
 
   // RateModel: end of block, then the coded coefficients' bits
-  int eob = 0;
-  for (int k = 0; k < EPT; ++k) {
-    const int j = (t + k * NT) % NC;
-    if (lvr[k] != 0) eob = max(eob, T.rank[j] + 1);
+  if (T.with_rate) {
+    block_reduce<N>(eob, s_eob, reinterpret_cast<int*>(s_red), IMax());
+    float bits[NV];
+#pragma unroll
+    for (int s = 0; s < NV; ++s) {
+      bits[s] = 0.f;
+      const int b = L::blk(s), e = s_eob[b];
+      if (e == 0) continue;                      // no coded coefficient
+#pragma unroll
+      for (int m = 0; m < L::EPL; ++m)
+        if (T.rank[L::elem(m)] < e)
+          bits[s] = __fadd_rn(bits[s], coef_bits(abs(s_lv[b * NC + L::elem(m)]),
+                                                 T.tab));
+    }
+    block_reduce<N>(bits, s_bits, reinterpret_cast<float*>(s_red), FAdd());
+    for (int b = t; b < nb; b += NT)
+      rate_out[b0 + b] = s_eob[b] == 0
+          ? T.skip[1] : __fadd_rn(__fadd_rn(T.skip[0], T.eob[s_eob[b]]),
+                                   s_bits[b]);
+  } else {
+    __syncthreads();
   }
-  eob = seg_reduce<SEG>(eob, s_ired, IMax());
-  float bits = 0.f;
-  for (int k = 0; k < EPT; ++k) {
-    const int j = (t + k * NT) % NC;
-    if (T.rank[j] < eob) bits = __fadd_rn(bits, coef_bits(abs(lvr[k]),
-                                                           T.tab));
+
+  // the inverse DCT in place, a thread per line: the coded rows (TX_64X64:
+  // 32 rows of 32 nonzero inputs), shifted by _ROW_SHIFT, then the columns.
+  // A block without a nonzero level is skipped: its residual is the zeros
+  // it holds (every butterfly and rounding of zeros gives zero).
+  constexpr int ROW_SHIFT = N == 4 ? 0 : (N == 8 ? 1 : 2);
+  for (int line = t; line < NB * CW; line += NT)
+    if (s_nz[line / CW])
+      inv_line<N, CW, ROW_SHIFT>(s_buf + (line / CW) * BS + (line % CW) * LD,
+                                 1);
+  __syncthreads();
+  for (int line = t; line < NB * N; line += NT)
+    if (s_nz[line / N])
+      inv_line<N, N, 4>(s_buf + (line / N) * BS + line % N, LD);
+  __syncthreads();
+
+  // recon, SSE (int32, wrapping) and skip SSE
+  u32 dist[NV];
+  float dskip[NV];
+#pragma unroll
+  for (int s = 0; s < NV; ++s) {
+    const int b = L::blk(s);
+    dist[s] = 0u;
+    dskip[s] = 0.f;
+    if (b >= nb) continue;
+#pragma unroll
+    for (int m = 0; m < L::PPL; ++m) {
+      const int idx = L::elem(m);
+      const size_t g = (size_t)(b0 + b) * NP + idx;
+      const int sv = src[g], pr = pred[g];
+      const int r = (int)s_buf[b * BS + (idx / N) * LD + idx % N];
+      const int rec = min(max(pr + r, 0), T.pix_max);
+      rec_out[g] = rec;
+      const int e = rec - sv, d = sv - pr;
+      dist[s] += (u32)(e * e);
+      dskip[s] = __fadd_rn(dskip[s], (float)(d * d));
+    }
   }
-  bits = seg_reduce<SEG>(bits, s_fred, FAdd());
-  if (writer) {
-    rate_out[bi] = eob == 0 ? T.skip[1]
-                            : __fadd_rn(__fadd_rn(T.skip[0], T.eob[eob]),
-                                        bits);
+  block_reduce<N>(dist, s_dist, s_red, UAdd());
+  block_reduce<N>(dskip, s_dskip, reinterpret_cast<float*>(s_red), FAdd());
+  for (int b = t; b < nb; b += NT) {
+    dist_out[b0 + b] = __int2float_rn((int)s_dist[b]);   // int32, wrapped
+    dskip_out[b0 + b] = s_dskip[b];
   }
 }
 
@@ -225,9 +371,10 @@ template <int N>
 int launch(const CodeTabs& T, const float* coefs, const int* src,
            const int* pred, int nblocks, int* lv, int* rec, float* dist,
            float* rate, float* dskip, cudaStream_t stream) {
-  constexpr int NB = N <= 16 ? NT / (N * N) : 1;
-  code_blocks_kernel<N><<<(nblocks + NB - 1) / NB, NT, 0, stream>>>(
-      T, coefs, src, pred, nblocks, lv, rec, dist, rate, dskip);
+  using L = Layout<N>;
+  code_blocks_kernel<N><<<(nblocks + L::NB - 1) / L::NB, NT, L::SMEM,
+                          stream>>>(T, coefs, src, pred, nblocks, lv, rec,
+                                    dist, rate, dskip);
   return (int)cudaGetLastError();
 }
 
@@ -250,4 +397,27 @@ extern "C" int av1_code_blocks(const CodeTabs* T, const float* coefs,
                                rate, dskip, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The launch layout of size n, for kernels/inter_code.py:code_layout to
+// check its mirror against: out = {blocks per CTA, threads per CTA,
+// dynamic shared bytes, static shared bytes (cudaFuncGetAttributes)}.
+extern "C" int av1_code_blocks_layout(int n, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t e;
+  switch (n) {
+#define LAYOUT_CASE(N)                                                  \
+    case N:                                                             \
+      e = cudaFuncGetAttributes(&a, code_blocks_kernel<N>);             \
+      out[0] = Layout<N>::NB;                                           \
+      out[2] = (int)Layout<N>::SMEM;                                    \
+      break;
+    LAYOUT_CASE(4) LAYOUT_CASE(8) LAYOUT_CASE(16) LAYOUT_CASE(32)
+    LAYOUT_CASE(64)
+#undef LAYOUT_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+  out[1] = NT;
+  out[3] = (int)a.sharedSizeBytes;
+  return (int)e;
 }

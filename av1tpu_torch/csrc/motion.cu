@@ -39,9 +39,23 @@
 //    the least cost, a strict < across dx), the second-basin candidate
 //    (Chebyshev > 1 from the winner, dy-major, first index), and the
 //    frame totals of the 289 SADs; then the frame-dominant shift g (argmin
-//    of the totals) with its snap, and the top 4 totals (stable).  One
-//    block per 16x16 block, one thread per candidate; the short walks
-//    over 17 columns and the top-4 scan are serial.
+//    of the totals) with its snap, and the top 4 totals (stable).  Three
+//    launches: the pool (bytes: it reads both planes once), the sweep and
+//    the select.  The sweep gives a warp to a block, and a CTA to a 4x8
+//    tile of blocks with its 32x48 quarter-res window in shared memory
+//    (row stride 49, so lane k's reads fall on bank k: conflict-free);
+//    lane l sums the candidates l + 32 i with __sad and keeps them in
+//    registers.  The plain walks reduce to lexicographic keys, so each is
+//    one butterfly argmin: the winner the least (cost, dx, dy), its
+//    best_sad the least raw SAD of the winning column, the second basin
+//    the least (cost, dy-major index) outside Chebyshev 1.  A CTA sums
+//    its 32 blocks' SADs per candidate (integers, so in any order) and
+//    adds them to the frame totals with one 64-bit atomic per candidate:
+//    255 CTAs x 289 atomics at 1088x1920, where one per block and
+//    candidate made 2.36 M on 289 addresses.  No per-block SAD volume:
+//    the select recomputes each block's SAD at g from the pooled planes,
+//    16 abs-diffs, the same integer.  The select's top 4 is four warp
+//    argmins on (total, index), each without the earlier picks.
 // B. global_search: 125 whole-frame candidate shifts, 25 around each of
 //    shifts4[0], shifts4[1] and (0, 0), then two descent sweeps of 25
 //    around the running winner (clipped to +-34 px), each judged by the
@@ -90,7 +104,7 @@ constexpr int NR = 25;              // (2 RR + 1)^2
 constexpr int MAXMV = 4 * CR + RR;  // inter_v.MAX_MV_PX = 34
 constexpr int NSUB = 49;            // 7 x 7 quarter-pel candidates
 constexpr int NG = 125;             // global candidates: 3 x 25 + 2 x 25
-constexpr int NT = 256;             // A: one thread per pixel of a block
+constexpr int NT = 256;             // A: the pool's and the select's CTA
 constexpr unsigned FULL = 0xffffffffu;
 
 __constant__ int kSubD[7] = {-6, -4, -2, 0, 2, 4, 6};
@@ -219,6 +233,15 @@ __device__ __forceinline__ void sad25(const int* win, int stride,
 
 // ---- A. coarse_search ------------------------------------------------------
 
+constexpr int CTR = 4, CTC = 8;           // a sweep CTA's tile of blocks
+constexpr int CWARPS = CTC;               // a warp per column, CTR blocks
+constexpr int CSLOT = (NC + 31) / 32;     // 10 candidates per lane
+constexpr int CWH = 4 * CTR + 2 * CR;     // the tile's quarter-res window,
+constexpr int CWW = 4 * CTC + 2 * CR;     // rows and columns (32 x 48 at 4)
+constexpr int CWS = 49;                   // its row stride, 17 mod 32: lane
+                                          // k reads bank k + const
+static_assert(CWS >= CWW && CWS % 32 == ND, "coarse window stride");
+
 // The 4x4 mean pools of y and ref (exact ints / 16), and the totals zeroed.
 __global__ void __launch_bounds__(NT) coarse_pool_kernel(
     const int* __restrict__ y, const int* __restrict__ ref, int h, int w,
@@ -230,133 +253,184 @@ __global__ void __launch_bounds__(NT) coarse_pool_kernel(
   if (idx >= 2 * hq * wq) return;
   const int plane = idx / (hq * wq), q = idx % (hq * wq);
   const int qy = q / wq, qx = q % wq;
-  const int* p = plane ? ref : y;
+  const int* p = (plane ? ref : y) + (size_t)(4 * qy) * w + 4 * qx;
   int s = 0;
+#pragma unroll
   for (int i = 0; i < 4; ++i)
-    for (int j = 0; j < 4; ++j) s += p[(size_t)(4 * qy + i) * w + 4 * qx + j];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s += p[(size_t)i * w + j];
   (plane ? ref_q : src_q)[q] = s >> 4;
 }
 
-// One block per 16x16 block (a 4x4 quarter-res block): its 289 SADs into
-// the volume and the totals, its running winner, its best_sad and its
-// second-basin candidate.
-__global__ void __launch_bounds__(320) coarse_sad_kernel(
+// One CTA per 4x8 tile of 16x16 blocks (4x4 quarter-res blocks), one warp
+// per column of the tile, lane l on the candidates k = l + 32 i, (dy, dx) =
+// (k / 17, k % 17) - 8.  Per block: its 289 SADs in registers, its running
+// winner, best_sad and second-basin candidate as warp argmins, written to
+// win; the CTA's sums of the SADs go to the totals, one atomic per
+// candidate.
+__global__ void __launch_bounds__(CWARPS * 32) coarse_sweep_kernel(
     const int* __restrict__ src_q, const int* __restrict__ ref_q, int hq,
-    int wq, Bias bias, int* __restrict__ vol,
-    unsigned long long* __restrict__ tot, int* __restrict__ win,
-    float* __restrict__ best_sad_out) {
-  __shared__ int s_src[16];
-  __shared__ int s_ref[20][20];
-  __shared__ int s_sad[NC];
-  __shared__ float s_colc[ND], s_colmin[ND], s_rowc[ND];
-  __shared__ int s_colk[ND], s_rowk[ND], s_best[2];
-  const int cols = wq >> 2, nblk = (hq >> 2) * cols;
-  const int blk = blockIdx.x, R = blk / cols, C = blk % cols;
-  const int t = threadIdx.x;
-  if (t < 16) s_src[t] = src_q[(size_t)(4 * R + (t >> 2)) * wq + 4 * C + (t & 3)];
-  for (int i = t; i < 400; i += blockDim.x) {
-    const int ry = clampi(4 * R - CR + i / 20, 0, hq - 1);
-    const int rx = clampi(4 * C - CR + i % 20, 0, wq - 1);
-    s_ref[i / 20][i % 20] = ref_q[(size_t)ry * wq + rx];
+    int wq, Bias bias, unsigned long long* __restrict__ tot,
+    int4* __restrict__ win) {
+  __shared__ int s_ref[CWH * CWS];
+  __shared__ int s_src[4 * CTR][4 * CTC];
+  __shared__ int s_part[CWARPS][NC];
+  __shared__ float s_vec[ND], s_add[NC];
+  const int rows = hq >> 2, cols = wq >> 2;
+  const int tiles_c = (cols + CTC - 1) / CTC;
+  const int R0 = CTR * (blockIdx.x / tiles_c), C0 = CTC * (blockIdx.x % tiles_c);
+  const int t = threadIdx.x, lane = t & 31, wp = t >> 5;
+  const int qy0 = 4 * R0 - CR, qx0 = 4 * C0 - CR;
+  for (int i = t; i < CWH * CWW; i += CWARPS * 32)
+    copy4(&s_ref[(i / CWW) * CWS + i % CWW],
+          &ref_q[(size_t)clampi(qy0 + i / CWW, 0, hq - 1) * wq +
+                 clampi(qx0 + i % CWW, 0, wq - 1)]);
+  for (int i = t; i < 16 * CTR * CTC; i += CWARPS * 32) {
+    const int r = i / (4 * CTC), c = i % (4 * CTC);
+    s_src[r][c] = src_q[(size_t)min(4 * R0 + r, hq - 1) * wq +
+                        min(4 * C0 + c, wq - 1)];
   }
+  if (t < ND) s_vec[t] = bias.vec[t];
+  for (int k = t; k < NC; k += CWARPS * 32)
+    s_add[k] = __fadd_rn(bias.vec[k / ND], bias.sca[k % ND]);
+  copy_wait();
   __syncthreads();
-  if (t < NC) {            // candidate (dy, dx) = (t / 17 - 8, t % 17 - 8)
-    const int dy = t / ND, dx = t % ND;
+
+  int part[CSLOT] = {};
+  for (int br = 0; br < CTR; ++br) {
+    const int R = R0 + br, C = C0 + wp;
+    if (R >= rows || C >= cols) break;
+    int src[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) src[i] = s_src[4 * br + (i >> 2)][4 * wp + (i & 3)];
+    const int* wb = s_ref + 4 * br * CWS + 4 * wp;
+    int sad[CSLOT];
+    // the winner: the least (cost, dx, dy), which is the plain version's
+    // walk (torch.min's first dy per column, a strict < across dx)
+    float bc = inf_f();
+    int bkey = NC;
+#pragma unroll
+    for (int i = 0; i < CSLOT; ++i) {
+      const int k = lane + 32 * i;
+      if (k >= NC) { sad[i] = 0; continue; }
+      const int dy = k / ND, dx = k % ND;
+      const int* p = wb + dy * CWS + dx;
+      int s = 0;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) s = sad_acc(src[e], p[(e >> 2) * CWS + (e & 3)], s);
+      sad[i] = s;
+      part[i] += s;
+      const float cost = __fadd_rn((float)s, s_add[k]);
+      const int key = dx * ND + dy;
+      if (cost < bc || (cost == bc && key < bkey)) { bc = cost; bkey = key; }
+    }
+    warp_argmin(bc, bkey);
+    const int bdx = bkey / ND, bdy = bkey % ND;
+    // best_sad: the least raw SAD of the winning column
+    int mn = 0x7fffffff;
+#pragma unroll
+    for (int i = 0; i < CSLOT; ++i) {
+      const int k = lane + 32 * i;
+      if (k < NC && k % ND == bdx) mn = min(mn, sad[i]);
+    }
+    mn = __reduce_min_sync(FULL, mn);
+    // the second basin: the least (cost, k) outside Chebyshev 1 of the
+    // winner, k dy-major (torch.argmin's first index; the near ones inf)
+    float c2 = inf_f();
+    int k2 = NC;
+#pragma unroll
+    for (int i = 0; i < CSLOT; ++i) {
+      const int k = lane + 32 * i;
+      if (k >= NC) continue;
+      const int dy = k / ND, dx = k % ND;
+      const float cost =
+          max(abs(dy - bdy), abs(dx - bdx)) <= 1
+              ? inf_f()
+              : __fadd_rn(__fadd_rn((float)sad[i], s_vec[dy]), s_vec[dx]);
+      if (cost < c2 || (cost == c2 && k < k2)) { c2 = cost; k2 = k; }
+    }
+    warp_argmin(c2, k2);
+    if (lane == 0)
+      win[(size_t)R * cols + C] = make_int4(bdy, bdx, k2,
+                                            __float_as_int((float)mn));
+  }
+#pragma unroll
+  for (int i = 0; i < CSLOT; ++i)
+    if (lane + 32 * i < NC) s_part[wp][lane + 32 * i] = part[i];
+  __syncthreads();
+  for (int k = t; k < NC; k += CWARPS * 32) {
     int s = 0;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s += abs(s_src[i * 4 + j] - s_ref[dy + i][dx + j]);
-    s_sad[t] = s;
-    vol[(size_t)t * nblk + blk] = s;
-    atomicAdd(&tot[t], (unsigned long long)s);
-  }
-  __syncthreads();
-  if (t < ND) {            // column dx = t: torch.min over dy (first index)
-    float c = inf_f(), mn = inf_f();
-    int k = 0;
-    for (int dy = 0; dy < ND; ++dy) {
-      const float sad = (float)s_sad[dy * ND + t];
-      const float cost = __fadd_rn(sad, __fadd_rn(bias.vec[dy], bias.sca[t]));
-      if (cost < c) { c = cost; k = dy; }
-      mn = fminf(mn, sad);
-    }
-    s_colc[t] = c; s_colk[t] = k; s_colmin[t] = mn;
-  }
-  __syncthreads();
-  if (t == 0) {            // across dx: a strict <
-    float bc = inf_f(), bs = inf_f();
-    int bdy = CR, bdx = CR;
-    for (int dx = 0; dx < ND; ++dx)
-      if (s_colc[dx] < bc) { bc = s_colc[dx]; bs = s_colmin[dx]; bdy = s_colk[dx]; bdx = dx; }
-    s_best[0] = bdy; s_best[1] = bdx;
-    best_sad_out[blk] = bs;
-  }
-  __syncthreads();
-  const int bdy = s_best[0], bdx = s_best[1];
-  if (t < ND) {            // second basin, row dy = t, first index
-    float c = inf_f();
-    int k = t * ND;
-    for (int dx = 0; dx < ND; ++dx) {
-      if (max(abs(t - bdy), abs(dx - bdx)) <= 1) continue;
-      const float cost = __fadd_rn(__fadd_rn((float)s_sad[t * ND + dx],
-                                             bias.vec[t]), bias.vec[dx]);
-      if (cost < c) { c = cost; k = t * ND + dx; }
-    }
-    s_rowc[t] = c; s_rowk[t] = k;
-  }
-  __syncthreads();
-  if (t == 0) {
-    float c = inf_f();
-    int k = 0;
-    for (int dy = 0; dy < ND; ++dy)
-      if (s_rowc[dy] < c) { c = s_rowc[dy]; k = s_rowk[dy]; }
-    int* o = win + 4 * (size_t)blk;
-    o[0] = bdy; o[1] = bdx; o[2] = k / ND; o[3] = k % ND;
+    for (int i = 0; i < CWARPS; ++i) s += s_part[i][k];
+    atomicAdd(&tot[k], (unsigned long long)s);
   }
 }
 
-// One thread per 16x16 block: the snap to the dominant shift g; block 0
-// also writes the stable top 4 totals as shifts4.
+// One thread per 16x16 block: the frame-dominant shift g (each CTA's warp
+// 0), the block's SAD at g recomputed from the pooled planes, and the snap;
+// CTA 0's warp 1 writes the stable top 4 totals as shifts4, four warp
+// argmins on (total, index), each without the earlier picks.
 __global__ void __launch_bounds__(NT) coarse_select_kernel(
-    const unsigned long long* __restrict__ tot, const int* __restrict__ vol,
-    const int* __restrict__ win, const float* __restrict__ best_sad,
-    int nblk, float margin, int* __restrict__ coarse,
-    int* __restrict__ coarse2, int* __restrict__ shifts4) {
+    const unsigned long long* __restrict__ tot,
+    const int* __restrict__ src_q, const int* __restrict__ ref_q, int hq,
+    int wq, const int4* __restrict__ win, float margin,
+    int* __restrict__ coarse, int* __restrict__ coarse2,
+    int* __restrict__ shifts4) {
   __shared__ int s_g;
-  const int t = threadIdx.x;
+  const int t = threadIdx.x, lane = t & 31;
+  const int cols = wq >> 2, nblk = (hq >> 2) * cols;
+  const int blk = blockIdx.x * NT + t;
+  const int R = blk / cols, C = blk % cols;
+  int src[16];             // loaded while warp 0 finds g
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    src[i] = blk < nblk ? src_q[(size_t)(4 * R + (i >> 2)) * wq + 4 * C + (i & 3)]
+                        : 0;
   if (t < 32) {
     const int g = argmin_totals(tot, NC);
     if (t == 0) s_g = g;
-  }
-  if (blockIdx.x == 0 && t == 32) {   // top 4, ties: the lower index first
-    int chosen[4];
+  } else if (blockIdx.x == 0 && t < 64) {
+    float v[CSLOT];
+#pragma unroll
+    for (int i = 0; i < CSLOT; ++i)
+      v[i] = lane + 32 * i < NC ? total_f32(tot[lane + 32 * i]) : inf_f();
+    unsigned used = 0;
     for (int r = 0; r < 4; ++r) {
       float bv = inf_f();
-      int bk = -1;
-      for (int k = 0; k < NC; ++k) {
-        bool used = false;
-        for (int q = 0; q < r; ++q) used |= chosen[q] == k;
-        if (used) continue;
-        const float v = total_f32(tot[k]);
-        if (bk < 0 || v < bv) { bv = v; bk = k; }
+      int bk = NC;
+#pragma unroll
+      for (int i = 0; i < CSLOT; ++i) {
+        const int k = lane + 32 * i;
+        if (k < NC && !(used >> i & 1) && (v[i] < bv || (v[i] == bv && k < bk))) {
+          bv = v[i];
+          bk = k;
+        }
       }
-      chosen[r] = bk;
-      shifts4[2 * r] = (bk / ND - CR) * 4;
-      shifts4[2 * r + 1] = (bk % ND - CR) * 4;
+      warp_argmin(bv, bk);
+      if ((bk & 31) == lane) used |= 1u << (bk >> 5);
+      if (lane == 0) {
+        shifts4[2 * r] = (bk / ND - CR) * 4;
+        shifts4[2 * r + 1] = (bk % ND - CR) * 4;
+      }
     }
   }
   __syncthreads();
-  const int blk = blockIdx.x * NT + t;
   if (blk >= nblk) return;
-  const int g = s_g;
-  const int* o = win + 4 * (size_t)blk;
-  const bool snap = (float)vol[(size_t)g * nblk + blk] <=
-                    __fadd_rn(best_sad[blk], margin);
-  coarse[2 * blk] = ((snap ? g / ND : o[0]) - CR) * 4;
-  coarse[2 * blk + 1] = ((snap ? g % ND : o[1]) - CR) * 4;
-  coarse2[2 * blk] = (o[2] - CR) * 4;
-  coarse2[2 * blk + 1] = (o[3] - CR) * 4;
+  const int g = s_g, gy = g / ND - CR, gx = g % ND - CR;
+  int s = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int* rr = ref_q + (size_t)clampi(4 * R + i + gy, 0, hq - 1) * wq;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      s = sad_acc(src[4 * i + j], rr[clampi(4 * C + j + gx, 0, wq - 1)], s);
+  }
+  const int4 o = win[blk];
+  const bool snap = (float)s <= __fadd_rn(__int_as_float(o.w), margin);
+  coarse[2 * blk] = ((snap ? g / ND : o.x) - CR) * 4;
+  coarse[2 * blk + 1] = ((snap ? g % ND : o.y) - CR) * 4;
+  coarse2[2 * blk] = (o.z / ND - CR) * 4;
+  coarse2[2 * blk + 1] = (o.z % ND - CR) * 4;
 }
 
 // ---- B. global_search ------------------------------------------------------
@@ -788,17 +862,15 @@ __global__ void __launch_bounds__(RW * 32) subpel_snap_kernel(
 
 // workspace layouts, in int32 words (64-bit totals first)
 struct CoarseWs {
-  size_t tot, src_q, ref_q, vol, win, best_sad, words;
+  size_t tot, src_q, ref_q, win, words;
   __host__ __device__ CoarseWs(int h, int w) {
     const size_t nq = (size_t)(h >> 2) * (w >> 2);
     const size_t nblk = (size_t)(h >> 4) * (w >> 4);
     tot = 0;
     src_q = 2 * NC;
     ref_q = src_q + nq;
-    vol = ref_q + nq;
-    win = vol + NC * nblk;
-    best_sad = win + 4 * nblk;
-    words = best_sad + nblk;
+    win = (ref_q + nq + 3) & ~(size_t)3;   // int4 aligned
+    words = win + 4 * nblk;
   }
 };
 
@@ -810,8 +882,8 @@ extern "C" int av1_motion_ws_words(int kind, int h, int w) {
   return 0;
 }
 
-// ws: CoarseWs(h, w).words int32 words; coarse, coarse2: (rows, cols, 2);
-// shifts4: (4, 2).  bias: 2 x 17 floats (host).
+// ws: CoarseWs(h, w).words int32 words (16-byte aligned); coarse, coarse2:
+// (rows, cols, 2); shifts4: (4, 2).  bias: 2 x 17 floats (host).
 extern "C" int av1_coarse_search(const int* y, const int* ref, int h, int w,
                                  const float* bias, float margin, int* ws,
                                  int* coarse, int* coarse2, int* shifts4,
@@ -820,16 +892,33 @@ extern "C" int av1_coarse_search(const int* y, const int* ref, int h, int w,
   Bias b;
   for (int k = 0; k < ND; ++k) { b.vec[k] = bias[k]; b.sca[k] = bias[ND + k]; }
   auto* tot = reinterpret_cast<unsigned long long*>(ws + L.tot);
-  const int hq = h >> 2, wq = w >> 2, nblk = (h >> 4) * (w >> 4);
+  auto* win = reinterpret_cast<int4*>(ws + L.win);
+  const int hq = h >> 2, wq = w >> 2, rows = h >> 4, cols = w >> 4;
+  const int tiles = (rows + CTR - 1) / CTR * ((cols + CTC - 1) / CTC);
   coarse_pool_kernel<<<(max(2 * hq * wq, NC) + NT - 1) / NT, NT, 0, stream>>>(
       y, ref, h, w, ws + L.src_q, ws + L.ref_q, tot);
-  coarse_sad_kernel<<<nblk, 320, 0, stream>>>(
-      ws + L.src_q, ws + L.ref_q, hq, wq, b, ws + L.vol, tot, ws + L.win,
-      reinterpret_cast<float*>(ws + L.best_sad));
-  coarse_select_kernel<<<(nblk + NT - 1) / NT, NT, 0, stream>>>(
-      tot, ws + L.vol, ws + L.win, reinterpret_cast<float*>(ws + L.best_sad),
-      nblk, margin, coarse, coarse2, shifts4);
+  coarse_sweep_kernel<<<tiles, CWARPS * 32, 0, stream>>>(
+      ws + L.src_q, ws + L.ref_q, hq, wq, b, tot, win);
+  coarse_select_kernel<<<(rows * cols + NT - 1) / NT, NT, 0, stream>>>(
+      tot, ws + L.src_q, ws + L.ref_q, hq, wq, win, margin, coarse, coarse2,
+      shifts4);
   return (int)cudaGetLastError();
+}
+
+// coarse_search's launch layout at h x w, for kernels/motion.py:
+// coarse_layout to check its mirror against: out = {pool CTAs, sweep CTAs,
+// select CTAs, the sweep's threads per CTA and static shared bytes
+// (cudaFuncGetAttributes)}.
+extern "C" int av1_coarse_layout(int h, int w, int* out) {
+  const int hq = h >> 2, wq = w >> 2, rows = h >> 4, cols = w >> 4;
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, coarse_sweep_kernel);
+  out[0] = (max(2 * hq * wq, NC) + NT - 1) / NT;
+  out[1] = (rows + CTR - 1) / CTR * ((cols + CTC - 1) / CTC);
+  out[2] = (rows * cols + NT - 1) / NT;
+  out[3] = CWARPS * 32;
+  out[4] = (int)a.sharedSizeBytes;
+  return (int)e;
 }
 
 // zws: G_ZERO_WORDS zeroed int32 words; vol: 125 x nblk int32; sad_g:

@@ -27,6 +27,30 @@ import torch
 from av1tpu_torch.kernels.transform_quant import _check
 
 SIZES = (4, 8, 16, 32, 64)
+# csrc/inter_code.cu's launch layout: transform blocks per CTA of
+# CODE_THREADS threads at each size (measured: PERF.md, code_blocks per
+# site)
+CODE_BLOCKS_PER_CTA = {4: 64, 8: 32, 16: 8, 32: 2, 64: 2}
+CODE_THREADS = 256
+SMEM_PER_CTA_MAX = 232_448     # an H100 CTA's shared memory, in bytes
+
+
+def code_layout(n: int, nblocks: int) -> dict:
+    """The launch of code_blocks on nblocks blocks of n x n, as
+    csrc/inter_code.cu's Layout<n> builds it: its CTAs, blocks and threads
+    per CTA, and shared bytes per CTA.  Dynamic: the inverse's buffer (nb
+    blocks of n rows of n + 1 words) and the coefficients' and levels'
+    (nb x cw x cw words).  Static: the reduction scratch (a word per warp
+    and block of a thread where a block spans warps, n >= 8) and five
+    words per block, rounded up to 16 bytes."""
+    nb = CODE_BLOCKS_PER_CTA[n]
+    per_block = min(min(n, 32) ** 2, CODE_THREADS)   # threads per block
+    dynamic = 4 * nb * (n * (n + 1) + min(n, 32) ** 2)
+    red = nb * per_block // 32 if per_block > 32 else 0
+    static = -(-4 * (red + 5 * nb) // 16) * 16     # in 16-byte units
+    return {"ctas": -(-nblocks // nb), "blocks_per_cta": nb,
+            "threads": CODE_THREADS, "dynamic_smem": dynamic,
+            "static_smem": static, "smem": dynamic + static}
 
 
 class CodeTabsC(ctypes.Structure):

@@ -41,6 +41,9 @@ f32 = np.float32
 
 # kernel launches of one call of each wrapper
 COARSE_LAUNCHES, GLOBAL_LAUNCHES, REFINE_LAUNCHES = 3, 3, 2
+# coarse_search's sweep: a CTA per tile of 4 x 8 16x16 blocks, a warp per
+# column of the tile; the pool and the select take 256 threads per CTA
+COARSE_TILE, COARSE_THREADS = (4, 8), 256
 _NGLOBAL = 125     # global candidates: 3 bases x 25, then 2 sweeps x 25
 
 
@@ -87,6 +90,30 @@ def coarse_search_plain(y, ref_y, lam):
     src_q = _block_sad(y, 4) // 16          # 4x4 mean pool (exact ints /16)
     ref_q = _block_sad(ref_y, 4) // 16
     return _coarse_search(src_q, ref_q, *_coarse_lams(lam))
+
+
+def coarse_layout(h: int, w: int) -> dict:
+    """coarse_search's three launches on an h x w frame, as
+    csrc/motion.cu builds them: the CTAs of the pool (a thread per
+    quarter-res pixel of both planes), of the sweep (a tile of blocks
+    each) and of the select (a thread per block), the sweep's threads per
+    CTA and its static shared bytes (the 32 x 48 quarter-res window at row
+    stride 49, the tile's 16 x 32 source, a row of 289 partial totals per
+    warp, the 17 dy biases and the 289 combined ones)."""
+    from av1tpu_torch.models.inter_v import _COARSE_R
+
+    nd = 2 * _COARSE_R + 1
+    nc = nd * nd
+    rows, cols = h // 16, w // 16
+    tr, tc = COARSE_TILE
+    warps = COARSE_THREADS // 32
+    win = (4 * tr + 2 * _COARSE_R) * 49
+    smem = 4 * (win + 16 * tr * tc + warps * nc + nd + nc)
+    return {"pool_ctas": -(-max(2 * (h // 4) * (w // 4), nc)
+                            // COARSE_THREADS),
+            "sweep_ctas": -(-rows // tr) * -(-cols // tc),
+            "select_ctas": -(-rows * cols // COARSE_THREADS),
+            "sweep_threads": COARSE_THREADS, "sweep_smem": smem}
 
 
 @functools.cache

@@ -55,9 +55,11 @@ exits non-zero:
    8 coder batches on identical inputs (levels, recon and SSE exact, rate
    and skip SSE within 1e-4) and cdef_filter on the step's CDEF input
    (every pixel equal); (c) the whole step both ways; (d) device time per
-   launch of each batch and of the CDEF, the plain versions' time, the
-   cuBLAS forward product's time, and the bounds (code_bounds,
-   cdef_bounds);
+   launch of each batch (coder_times) and of the CDEF, the plain
+   versions' time, the cuBLAS forward product's time, each batch's blocks
+   without a level, and the bounds (code_bounds, cdef_bounds).  Where
+   $AV1TPU_SMOKE_OUT is set, the 8 batches go to coder_inputs.pt there,
+   for tools/search_compare.py --coder;
 7d. search and deblock kernels vs plain, on phase 7's first inter frame
    and its temporal filter's first neighbour (search_deblock_vs_plain):
    (a) the motion search (coarse_search, global_search, refine_subpel)
@@ -71,7 +73,8 @@ exits non-zero:
    time per call and per launch, per search and per frame, the plain
    versions' time, and the bounds (search_bounds: the larger of bytes and
    int32 operations at the card's int32 rate, both printed;
-   deblock_bounds: bytes, integer work not counted).  Where
+   deblock_bounds: bytes, integer work not counted); coarse_search's
+   three launches one by one (torch.profiler, kernel_us_by_name).  Where
    $AV1TPU_SMOKE_OUT is set, the inter frame's pair, lambda and peak go to
    search_inputs.pt there, for tools/search_compare.py --inputs;
 7e. probe kernels vs plain, on phase 7's probed frame at its q and on a
@@ -193,6 +196,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import shlex
 import subprocess
 import sys
@@ -926,6 +930,84 @@ def code_bounds(b: int, n: int) -> tuple[float, str]:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def coder_key(src, plane) -> str:
+    """A coder batch's name: n x n / dq_shift / blocks."""
+    return f"{plane.n}x{plane.n}/{plane.dq_shift}/{src.shape[0]}"
+
+
+def coder_times(torch, inter_code, sites, plain: bool = True) -> list:
+    """One timing of code_blocks of the module inter_code (a checkout's
+    kernels/inter_code.py) on each coder batch (coefs, src, pred, plane),
+    in order: (device us per launch, device_us over 100 launches queued
+    behind a sleep; the plain version's median event time in ms where
+    plain, else None).  Phase 7c and tools/search_compare.py --coder time
+    with it."""
+    return [(device_us(torch, lambda: inter_code.code_blocks(
+                coefs, src, pred, plane), 100),
+             _median_ms(torch, lambda: inter_code.code_blocks_plain(
+                 coefs, src, pred, plane), n=5) if plain else None)
+            for coefs, src, pred, plane in sites]
+
+
+CODER_PLANE_ARGS = ("n", "step", "q", "cap", "gains", "tab", "lam", "gate",
+                    "dq_shift", "bit_depth", "skip", "rank", "eob")
+
+
+def save_coder_inputs(torch, sites, path: str) -> None:
+    """Phase 7c's coder batches to path: each batch's coefficients, source
+    and prediction, and its CodePlane's arguments, on the CPU (lam as a
+    Python float)."""
+    def cpu(k, v):
+        if isinstance(v, torch.Tensor):
+            return v.cpu()
+        return float(v) if k == "lam" else v
+
+    torch.save([{"coefs": c.cpu(), "src": s.cpu(), "pred": p.cpu(),
+                 "plane": {k: cpu(k, getattr(pl, k))
+                           for k in CODER_PLANE_ARGS}}
+                for c, s, p, pl in sites], path)
+
+
+def load_coder_inputs(torch, inter_code, path: str, dev) -> list:
+    """save_coder_inputs' batches on dev, each plane built by the module
+    inter_code's CodePlane (a checkout's kernels/inter_code.py)."""
+    sites = []
+    for d in torch.load(path):
+        kw = {k: (v.to(dev) if isinstance(v, torch.Tensor) else v)
+              for k, v in d["plane"].items()}
+        kw["lam"] = np.float32(kw["lam"])
+        sites.append((d["coefs"].to(dev), d["src"].to(dev),
+                      d["pred"].to(dev), inter_code.CodePlane(**kw)))
+    return sites
+
+
+def kernel_us_by_name(torch, fn, n: int = 20) -> dict:
+    """fn() run n times after a warm-up under torch.profiler (CUDA
+    activity): {device kernel name: mean device us per launch}, in the
+    order the kernels first ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    tot, count = {}, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            tot[e.name] = tot.get(e.name, 0.0) + (e.time_range.end
+                                                  - e.time_range.start)
+            count[e.name] = count.get(e.name, 0) + 1
+    return {k: tot[k] / count[k] for k in tot}
+
+
+def _short(kernel_name: str) -> str:
+    """A device kernel's name without its namespace and parameters."""
+    m = re.search(r"::(\w+)[<(]", kernel_name)
+    return m.group(1) if m else kernel_name[:40]
+
+
 def cdef_bounds(h: int, w: int) -> tuple[float, str]:
     """Least time of one cdef_filter launch on an h x w frame, in us: its
     bytes at the memory rate (the three int32 planes read once and written
@@ -1116,27 +1198,30 @@ def inter_vs_plain(torch, gop_args) -> dict:
           flush=True)
 
     # (d) times, per launch and per frame
+    out = os.environ.get("AV1TPU_SMOKE_OUT")
+    if out:          # the batches tools/search_compare.py --coder times
+        os.makedirs(out, exist_ok=True)
+        save_coder_inputs(torch, sites, os.path.join(out, "coder_inputs.pt"))
     T = tables(y.device)
     recs = {"code_blocks": {"per_site": {}}, "cdef_filter": {}}
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "cublas_ms": 0.0}
-    for coefs, src, pred, plane in sites:
+    times = coder_times(torch, inter_code, sites)
+    for (coefs, src, pred, plane), (dev_us, plain) in zip(sites, times):
         b, nn = src.shape[0], plane.n
-        key = f"{nn}x{nn}/{plane.dq_shift}/{b}"
+        key = coder_key(src, plane)
         resid = (src - pred).reshape(b, -1).to(torch.float32)
         fwdt = T.fwd64t() if nn == 64 else T.fwdt(nn, 0)
-        dev_us = device_us(torch, lambda: inter_code.code_blocks(
-            coefs, src, pred, plane), 100)
-        plain = _median_ms(torch, lambda: inter_code.code_blocks_plain(
-            coefs, src, pred, plane), n=5)
         mm_us = device_us(torch, lambda: resid @ fwdt, 100)
         bound, by = code_bounds(b, nn)
-        recs["code_blocks"]["per_site"][key] = {
-            "device_us": dev_us, "plain_ms": plain, "cublas_us": mm_us,
-            "bound_us": bound, "bound_by": by}
+        zero = int((inter_code.code_blocks(coefs, src, pred, plane)[0]
+                    .flatten(1) == 0).all(1).sum())
         print(f"code_blocks {key}: device {dev_us:.3f} us, plain "
               f"{plain:.3f} ms, cuBLAS product {mm_us:.3f} us, bound "
-              f"{bound:.4f} us ({by}, roofline {bound / dev_us:.4f})",
-              flush=True)
+              f"{bound:.4f} us ({by}, roofline {bound / dev_us:.4f}); "
+              f"{zero} of {b} blocks without a level", flush=True)
+        recs["code_blocks"]["per_site"][key] = {
+            "device_us": dev_us, "plain_ms": plain, "cublas_us": mm_us,
+            "bound_us": bound, "bound_by": by, "blocks_without_level": zero}
         tot["ms"] += dev_us / 1e3
         tot["plain_ms"] += plain
         tot["bound_ms"] += bound / 1e3
@@ -1429,6 +1514,13 @@ def search_deblock_vs_plain(torch, gop_args, tf_args) -> dict:
               f"ms, bound {bound:.4f} us ({by}; bytes {bytes_us:.4f} us, "
               f"int32 operations {ops_us:.4f} us; roofline "
               f"{bound / dev_us:.5f})", flush=True)
+    launch_us = kernel_us_by_name(
+        torch, lambda: motion.coarse_search(y, ref_y, lam))
+    recs["coarse_search"]["launch_us"] = {_short(k): v
+                                          for k, v in launch_us.items()}
+    print(f"coarse_search {w}x{h} per launch (torch.profiler, device us): "
+          + ", ".join(f"{_short(k)} {v:.3f}" for k, v in launch_us.items()),
+          flush=True)
     print(f"one search {w}x{h} ({motion.COARSE_LAUNCHES} + "
           f"{motion.GLOBAL_LAUNCHES} + {motion.REFINE_LAUNCHES} launches): "
           f"device {tot['ms']:.4f} ms, plain {tot['plain_ms']:.3f} ms, bound "

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from av1tpu_torch.kernels.inter_code import CODE_BLOCKS_PER_CTA
 from av1tpu_torch.kernels.intra_wave import (
     block_diffs, wave_compare, wave_key, wave_key_plain,
 )
@@ -278,9 +279,16 @@ def test_code_blocks_matches_plain(dev, bd, q, gate):
     for k, (n, pt, qn, sh, g, rate) in enumerate(
             [s + (gate, True) for s in CODER_SITES] + fast):
         plane = inter_v._coder(q, bd, dev, n, pt, qn, sh, lam, g, rate)
-        for amp in (4, 40, (1 << bd) - 1):
-            b = {4: 97, 8: 45, 16: 13}.get(n, 6)
+        nb = CODE_BLOCKS_PER_CTA[n]
+        # a batch of one block, one short of a CTA's and of two CTAs', and
+        # one that is neither, its even blocks without a level (the
+        # kernel skips their inverse)
+        for amp, b in ((4, 1), (40, max(nb - 1, 1)),
+                       ((1 << bd) - 1, 2 * nb - 1),
+                       (20, {4: 97, 8: 45, 16: 13}.get(n, 6))):
             coefs, src, pred = _coder_case(dev, n, bd, b, 10 * k + amp, amp)
+            if amp == 20:
+                coefs[::2] = 0.0
             before = code_blocks.launches
             got = code_blocks(coefs, src, pred, plane)
             torch.cuda.synchronize()
@@ -435,14 +443,21 @@ def _search_pair(dev, bd, h, w, seed, shift, kind="texture"):
 # blocks, 384x640 and 720x1280 (block grids 24x40 and 45x80, which the
 # global sweep's 2x4 tiles do not all divide), a pan near the +-34 clamp
 # and one past it (the descents' candidates clipped), and a flat frame
-# and a periodic texture, where every SAD ties
+# and a periodic texture, where every SAD ties; then block grids that the
+# coarse sweep's 4x8 tiles do not divide (68x121 and 3x5), with a tie in
+# the totals (flat: all 289 equal) and in the top 4 (periodic: equal
+# totals at shifts a period apart)
 SEARCH_FRAMES = (((1088, 1920), (3, -7), 1, "texture"),
                  ((64, 128), (0, 0), 2, "texture"),
                  ((384, 640), (30, -33), 3, "texture"),
                  ((720, 1280), (-5, 9), 4, "texture"),
                  ((384, 640), (36, -37), 7, "smooth"),
                  ((384, 640), (0, 0), 5, "flat"),
-                 ((720, 1280), (2, 1), 6, "periodic"))
+                 ((720, 1280), (2, 1), 6, "periodic"),
+                 ((1088, 1936), (-6, 11), 8, "texture"),
+                 ((48, 80), (2, -3), 9, "texture"),
+                 ((48, 80), (0, 0), 10, "flat"),
+                 ((1088, 1936), (1, 2), 11, "periodic"))
 
 
 @pytest.mark.cuda
@@ -482,6 +497,33 @@ def test_motion_kernels_match_plain(dev, bd, nbases):
             for name, a, b in zip(names, (*c, *g, *got), (*cw, *gw, *want)):
                 assert a.dtype == b.dtype and torch.equal(a, b), (
                     h, w, shift, kind, float(lam), name, int((a != b).sum()))
+
+
+@pytest.mark.cuda
+def test_coder_and_coarse_layouts_match_the_library(dev):
+    """kernels/inter_code.py:code_layout and kernels/motion.py:
+    coarse_layout, the Python mirrors of the two kernels' launches, equal
+    what the built library launches (blocks and threads per CTA, grids,
+    dynamic and static shared bytes, cudaFuncGetAttributes' included)."""
+    import ctypes
+
+    from av1tpu_torch._build import cuda_lib
+    from av1tpu_torch.kernels import inter_code, motion
+
+    lib = cuda_lib()
+    for n in inter_code.SIZES:
+        out = (ctypes.c_int * 4)()
+        assert lib.av1_code_blocks_layout(n, out) == 0
+        want = inter_code.code_layout(n, 1)
+        assert list(out) == [want[k] for k in (
+            "blocks_per_cta", "threads", "dynamic_smem", "static_smem")], n
+    for h, w in ((1088, 1920), (1088, 1936), (48, 80), (64, 128)):
+        out = (ctypes.c_int * 5)()
+        assert lib.av1_coarse_layout(h, w, out) == 0
+        want = motion.coarse_layout(h, w)
+        assert list(out) == [want[k] for k in (
+            "pool_ctas", "sweep_ctas", "select_ctas", "sweep_threads",
+            "sweep_smem")], (h, w)
 
 
 @pytest.mark.cuda

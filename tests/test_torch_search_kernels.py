@@ -306,3 +306,201 @@ def test_subpel_offsets_are_four_shared_phases(bd, monkeypatch):
             motion.check_subpel_phases(d_all, t)
     with pytest.raises(ValueError):
         motion.check_subpel_phases((-6, -4, -2, 0, 2, 4, 5), taps)
+
+
+# ---- the premises of coarse_search's warp argmins ------------------------
+
+def _coarse_sads(src_q, ref_q):
+    """The 289 quarter-res SADs per 4x4 block, [dy, dx, row, col] int64,
+    dy and dx the offset index 0..16 (offset - 8), the reference read
+    with its edges clamped."""
+    r = inter_v._COARSE_R
+    nd = 2 * r + 1
+    hq, wq = src_q.shape
+    pad = np.pad(ref_q, r, mode="edge")
+    sad = np.empty((nd, nd, hq // 4, wq // 4), np.int64)
+    for dy in range(nd):
+        for dx in range(nd):
+            d = np.abs(src_q - pad[dy : dy + hq, dx : dx + wq])
+            sad[dy, dx] = d.reshape(hq // 4, 4, wq // 4, 4).sum((1, 3))
+    return sad
+
+
+def _coarse_by_keys(src_q, ref_q, lam, margin, winner="dx", best="column",
+                    basin="dy"):
+    """coarse_search as its kernel computes it, in numpy: the winner the
+    least (cost, dx, dy), best_sad the least raw SAD of the winner's
+    column, the second basin the least (cost, dy-major index) outside
+    Chebyshev 1, g the first least total, shifts4 four argmins on (total,
+    index) each without the earlier picks.  winner="dy", best="winner" and
+    basin="dx" give the formulations the kernel must not use (the
+    dy-major winner, the SAD at the winner, a dx-major basin)."""
+    r = inter_v._COARSE_R
+    nd = 2 * r + 1
+    offs = np.arange(-r, r + 1, dtype=np.int32)
+    vec = inter_v._mv_bias(offs, lam)
+    sca = np.array([inter_v._mv_bias(np.int32(d), lam) for d in offs],
+                   np.float32)
+    sad = _coarse_sads(src_q, ref_q)
+    sadf = sad.astype(np.float32)
+    cost = sadf + (vec[:, None] + sca[None, :]).astype(np.float32)[
+        ..., None, None]
+    rows, cols = sad.shape[2:]
+    order = cost.transpose(1, 0, 2, 3) if winner == "dx" else cost
+    k = np.argmin(order.reshape(nd * nd, rows, cols), axis=0)
+    bdx, bdy = (k // nd, k % nd) if winner == "dx" else (k % nd, k // nd)
+    rr, cc = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
+    best_sad = (sadf[:, bdx, rr, cc].min(0) if best == "column"
+                else sadf[bdy, bdx, rr, cc])
+    cost2 = (sadf + vec[:, None, None, None]) + vec[None, :, None, None]
+    dyi = np.arange(nd)[:, None, None, None]
+    dxi = np.arange(nd)[None, :, None, None]
+    near = np.maximum(np.abs(dyi - bdy), np.abs(dxi - bdx)) <= 1
+    cost2 = np.where(near, np.float32(np.inf), cost2)
+    if basin == "dx":
+        k2 = np.argmin(cost2.transpose(1, 0, 2, 3).reshape(nd * nd, rows,
+                                                             cols), axis=0)
+        k2 = (k2 % nd) * nd + k2 // nd
+    else:
+        k2 = np.argmin(cost2.reshape(nd * nd, rows, cols), axis=0)
+    totals = sad.sum((2, 3)).reshape(-1).astype(np.float32)
+    g = int(np.argmin(totals))
+    picks = []
+    for _ in range(4):           # the select warp's four argmins
+        v = totals.copy()
+        v[picks] = np.inf
+        picks.append(int(np.argmin(v)))
+    snap = sadf.reshape(nd * nd, rows, cols)[g] <= (best_sad
+                                                  + np.float32(margin))
+    coarse = np.stack([np.where(snap, g // nd, bdy),
+                       np.where(snap, g % nd, bdx)], -1)
+    coarse2 = np.stack([k2 // nd, k2 % nd], -1)
+    shifts4 = np.array([(p // nd, p % nd) for p in picks])
+    return [(a - r) * 4 for a in (coarse, coarse2, shifts4)]
+
+
+def _pooled(kind, seed, hq=16, wq=16):
+    """Quarter-res planes of at most 64x64 frames: binary noise (SADs of
+    0..16, so costs often tie), a flat pair (every SAD ties) or a
+    period-2 texture (the totals tie a period apart)."""
+    rng = np.random.RandomState(seed)
+    if kind == "noise":
+        src = rng.randint(0, 2, (hq, wq))
+        ref = rng.randint(0, 2, (hq, wq))
+    elif kind == "flat":
+        src = np.full((hq, wq), 7)
+        ref = np.full((hq, wq), 7)
+    else:
+        yy, xx = np.mgrid[:hq, :wq]
+        src = (yy % 2) * 3 + (xx % 2) * 5
+        ref = np.roll(src, (1, 0), (0, 1)) + rng.randint(0, 2, (hq, wq))
+    return src.astype(np.int32), ref.astype(np.int32)
+
+
+CASES = [(kind, seed, lam) for kind, seeds in (("noise", range(6)),
+                                              ("flat", [0]),
+                                              ("periodic", [0, 1]))
+         for seed in seeds for lam in (0.0, 3.0)]
+
+
+@pytest.mark.parametrize("kind,seed,lam", CASES)
+def test_coarse_search_is_its_keys(kind, seed, lam):
+    """The plain coarse search (models/inter_v.py:_coarse_search) equals
+    the lexicographic keys coarse_search's kernel takes its argmins on."""
+    src, ref = _pooled(kind, seed)
+    lam, margin = np.float32(lam), np.float32(lam * 2)
+    got = inter_v._coarse_search(torch.from_numpy(src), torch.from_numpy(ref),
+                                 lam, margin)
+    for g, w in zip(got, _coarse_by_keys(src, ref, lam, margin)):
+        assert np.array_equal(g.numpy(), w)
+
+
+def test_coarse_keys_are_the_only_ones():
+    """On the same frames each wrong formulation of a key (the dy-major
+    winner, best_sad at the winner, a dx-major second basin, g or the top
+    4 by the last least total) gives another result somewhere, so
+    test_coarse_search_is_its_keys holds each key."""
+    wrong = {"winner": dict(winner="dy"), "best": dict(best="winner"),
+             "basin": dict(basin="dx")}
+    seen = set()
+    for kind, seed, lam in CASES:
+        src, ref = _pooled(kind, seed)
+        lam, margin = np.float32(lam), np.float32(lam * 2)
+        right = _coarse_by_keys(src, ref, lam, margin)
+        for name, kw in wrong.items():
+            alt = _coarse_by_keys(src, ref, lam, margin, **kw)
+            if any(not np.array_equal(a, b) for a, b in zip(alt, right)):
+                seen.add(name)
+        totals = _coarse_sads(src, ref).sum((2, 3)).reshape(-1)
+        if (totals == totals.min()).sum() > 1:
+            seen.add("g tie")
+        top = np.sort(totals)[:5]
+        if len(set(top[:4])) < 4 or top[3] == top[4]:
+            seen.add("top-4 tie")
+    assert seen == {"winner", "best", "basin", "g tie", "top-4 tie"}, seen
+
+
+def test_shifts4_is_a_stable_sort(monkeypatch):
+    """The select's four argmins on (total, index), each without the
+    earlier picks, are the stable sort's first four on totals with ties."""
+    seen = _spy_totals(monkeypatch)
+    for kind, seed in (("flat", 0), ("periodic", 0), ("periodic", 1)):
+        src, ref = _pooled(kind, seed)
+        shifts4 = inter_v._coarse_search(
+            torch.from_numpy(src), torch.from_numpy(ref), np.float32(1.0),
+            np.float32(2.0))[2].numpy()
+        totals = seen[-1][2].reshape(-1)
+        stable = np.argsort(totals, kind="stable")[:4]
+        assert np.array_equal(shifts4 // 4 + 8, np.stack(
+            [stable // 17, stable % 17], -1))
+        assert len(set(totals[stable].tolist())) < 4 or kind == "periodic"
+
+
+# ---- the launch layouts at the main path's shapes -------------------------
+
+# the quality path's 8 coder batches of a 1088x1920 inter frame
+# (n, blocks) and the search's frame
+CODER_BATCHES = ((16, 8160), (8, 16320), (8, 32640), (4, 65280), (32, 2040),
+                 (16, 4080), (64, 510), (32, 1020))
+
+
+@pytest.mark.parametrize("n,nblocks", CODER_BATCHES)
+def test_code_layout_fits_the_card(n, nblocks):
+    """code_blocks' launch (kernels/inter_code.py:code_layout, which
+    tests/test_torch_cuda.py holds to the library on the card): the CTAs
+    cover the batch with one partial CTA at most; each line of the inverse
+    (TX_64X64: its 32 coded rows) has a thread; a block's coefficients
+    spread over the first version's min(cw^2, 256) threads, so a thread
+    holds a power of two of blocks, at most a warp's lanes; and the shared
+    memory of a CTA is within the H100's 232,448 bytes."""
+    from av1tpu_torch.kernels import inter_code
+
+    lay = inter_code.code_layout(n, nblocks)
+    nb, threads = lay["blocks_per_cta"], lay["threads"]
+    per_block = min(min(n, 32) ** 2, threads)
+    slots = nb * per_block // threads
+    assert (lay["ctas"] - 1) * nb < nblocks <= lay["ctas"] * nb
+    assert nb * n <= threads and nb * per_block % threads == 0
+    assert slots & (slots - 1) == 0 and 1 <= slots <= min(per_block, 32)
+    assert lay["smem"] <= inter_code.SMEM_PER_CTA_MAX
+    assert lay["dynamic_smem"] == 4 * nb * (n * (n + 1) + min(n, 32) ** 2)
+
+
+@pytest.mark.parametrize("h,w", [(1088, 1920), (1088, 1936), (48, 80)])
+def test_coarse_layout_fits_the_card(h, w):
+    """coarse_search's three launches (kernels/motion.py:coarse_layout):
+    the sweep's tiles cover the block grid, the pool a thread per
+    quarter-res pixel of both planes, the select a thread per block, and
+    the sweep's shared memory within a CTA's 232,448 bytes."""
+    from av1tpu_torch.kernels.inter_code import SMEM_PER_CTA_MAX
+
+    lay = motion.coarse_layout(h, w)
+    rows, cols = h // 16, w // 16
+    tr, tc = motion.COARSE_TILE
+    assert lay["sweep_ctas"] * tr * tc >= rows * cols
+    assert (lay["sweep_ctas"] == -(-rows // tr) * -(-cols // tc)
+            < rows * cols)
+    assert lay["pool_ctas"] * motion.COARSE_THREADS >= 2 * (h // 4) * (w // 4)
+    assert lay["select_ctas"] * motion.COARSE_THREADS >= rows * cols
+    assert lay["sweep_threads"] == 32 * tc
+    assert lay["sweep_smem"] <= SMEM_PER_CTA_MAX

@@ -1,20 +1,42 @@
 #!/usr/bin/env python3
-"""Time the motion search's kernels of one checkout of av1tpu_torch on a GPU.
+"""Time the motion search's kernels and the inter coder of one checkout of
+av1tpu_torch on a GPU.
 
-    python3 tools/search_compare.py --inputs FILE [--root DIR]
+    python3 tools/search_compare.py [--inputs FILE] [--coder FILE ...]
+                                    [--root DIR]
+    python3 tools/search_compare.py --coder FILE --make-coder DIR
 
-Imports av1tpu_torch from DIR (default: this checkout), builds its CUDA
-kernels (printing motion.cu's -Xptxas -v lines) and times coarse_search,
-global_search and refine_subpel on the pair that chip_smoke.py's phase 7d
-saved to FILE (its first 1080p inter frame, the keyframe's recon, the
-frame's lambda and peak value; written where $AV1TPU_SMOKE_OUT is set),
-with phase 7d's own timing (chip_smoke.search_times).  Prints one JSON line per wrapper:
-its device time per call, its launches per call and the bound of this
-checkout's chip_smoke.search_bounds.  Whether the outputs equal the plain
-versions' is phase 7d's check, not this script's.  To compare two commits
-on one card, unpack the older one with `git archive` into a directory
-that .gitignore lists and run this script on each, in turns, within one
-command.
+Imports av1tpu_torch from DIR (default: this checkout) and builds its CUDA
+kernels (printing the -Xptxas -v lines of motion.cu and inter_code.cu).
+
+--inputs: times coarse_search, global_search and refine_subpel on the pair
+that chip_smoke.py's phase 7d saved to FILE (its first 1080p inter frame,
+the keyframe's recon, the frame's lambda and peak value), with phase 7d's
+own timing (chip_smoke.search_times), and coarse_search's launches one by
+one (chip_smoke.kernel_us_by_name, torch.profiler).  Prints one JSON line
+per wrapper: its device time per call, its launches per call and the
+bound of this checkout's chip_smoke.search_bounds.
+
+--coder (repeatable): times code_blocks on each FILE's batches (the 8
+that phase 7c saved from its first 1080p inter frame, or those of
+--make-coder), with phase 7c's own timing (chip_smoke.coder_times).
+Prints one JSON line per batch (device us per launch, chip_smoke.
+code_bounds, the blocks without a level, whose inverse the kernel skips)
+and one per file for the frame.
+
+--make-coder DIR writes, with this checkout, coder batches in which most
+or all blocks carry levels, and times nothing: dense8.pt, FILE's batches
+with their source and prediction replaced by random pixels at the full
+amplitude (1 << bit depth) - 1 (the card test's _coder_case), the
+coefficients their forward product; frame10.pt, the 8 batches of a 1080p
+10-bit inter frame at qindex 40 (models/inter_v.encode_inter_part on the
+smoke's synthetic clip at 10 bits); dense10.pt, frame10.pt's at full amplitude.
+
+Both of phase 7d's and 7c's files are written where $AV1TPU_SMOKE_OUT is
+set.  Whether the outputs equal the plain versions' is the smoke's check,
+not this script's.  To compare two commits on one card, unpack the older
+one with `git archive` into a directory that .gitignore lists and run
+this script on each, in turns, within one command, after the smoke.
 """
 
 from __future__ import annotations
@@ -24,49 +46,151 @@ import json
 import os
 import sys
 
+import numpy as np
+
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def dense_batches(torch, sites, seed: int = 0) -> list:
+    """sites (coefs, src, pred, plane) with each batch's source and
+    prediction replaced by random pixels, the prediction the source plus
+    up to the peak value either way and clipped, and the coefficients
+    their forward product, as the coder's caller computes it."""
+    from av1tpu_torch.state import tables
+
+    out = []
+    for k, (coefs, src, pred, plane) in enumerate(sites):
+        b, n, dev = src.shape[0], plane.n, src.device
+        pm = (1 << plane.bit_depth) - 1
+        rng = np.random.RandomState(seed + k)
+        s = rng.randint(0, pm + 1, (b, n, n))
+        p = np.clip(s + rng.randint(-pm, pm + 1, (b, n, n)), 0, pm)
+        s, p = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in (s, p))
+        T = tables(dev)
+        fwdt = T.fwd64t() if n == 64 else T.fwdt(n, 0)
+        c = (s - p).reshape(b, -1).to(torch.float32) @ fwdt
+        out.append((c.contiguous(), s, p, plane))
+    return out
+
+
+def frame_batches(torch, dev, bit_depth: int = 10, qindex: int = 40,
+                  h: int = 1088, w: int = 1920) -> list:
+    """The coder batches (coefs, src, pred, plane) of one h x w inter
+    frame at bit_depth and qindex: frame 1 of the smoke's synthetic clip
+    (seed 11) at that depth, coded against its frame 0 through
+    models/inter_v.encode_inter_part with its code_blocks caught."""
+    from av1tpu_torch.models import inter_v
+    from av1tpu_torch.utils.yuv import synthetic_clip
+
+    clip = synthetic_clip(w, h, 2, bit_depth=bit_depth, seed=11)
+
+    def planes(k):
+        return [torch.from_numpy(a[k].astype(np.int32)).to(dev)
+                for a in (clip.y, clip.u, clip.v)]
+
+    sites = []
+    coder = inter_v.code_blocks
+
+    def catch(coefs, src, pred, plane):
+        sites.append((coefs, src, pred, plane))
+        return coder(coefs, src, pred, plane)
+
+    inter_v.code_blocks = catch
+    try:
+        inter_v.encode_inter_part(*planes(1), *planes(0), qindex,
+                                  bit_depth=bit_depth)
+    finally:
+        inter_v.code_blocks = coder
+    return sites
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--inputs", required=True,
-                    help="phase 7d's saved pair (chip_smoke.py)")
+    ap.add_argument("--inputs", help="phase 7d's saved pair (chip_smoke.py)")
+    ap.add_argument("--coder", action="append", default=[],
+                    help="coder batches: phase 7c's or --make-coder's")
+    ap.add_argument("--make-coder", metavar="DIR",
+                    help="write dense8.pt, frame10.pt and dense10.pt there")
     ap.add_argument("--root", default=HERE,
                     help="checkout whose av1tpu_torch is timed")
     args = ap.parse_args()
+    if not (args.inputs or args.coder):
+        ap.error("give --inputs, --coder or both")
+    if args.make_coder and len(args.coder) != 1:
+        ap.error("--make-coder takes one --coder FILE (phase 7c's)")
     sys.path.insert(0, HERE)
     import chip_smoke
     sys.path.insert(0, os.path.abspath(args.root))
 
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("search_compare: CUDA is not available", file=sys.stderr)
         return 1
     from av1tpu_torch import _build
-    from av1tpu_torch.kernels import motion
+    from av1tpu_torch.kernels import inter_code, motion
 
+    dev = torch.device("cuda")
+    if args.make_coder:
+        os.makedirs(args.make_coder, exist_ok=True)
+        phase7c = chip_smoke.load_coder_inputs(torch, inter_code,
+                                               args.coder[0], dev)
+        frame10 = frame_batches(torch, dev)
+        for name, sites in (("dense8", dense_batches(torch, phase7c)),
+                            ("frame10", frame10),
+                            ("dense10", dense_batches(torch, frame10))):
+            chip_smoke.save_coder_inputs(
+                torch, sites, os.path.join(args.make_coder, name + ".pt"))
+        return 0
     log = _build.build_cuda()[1]
     print("\n".join(ln for ln in log.splitlines()
-                    if "motion" in ln or "refine" in ln or "global" in ln
-                    or "coarse" in ln or "subpel" in ln) or log.strip(),
-          flush=True)
-    d = torch.load(args.inputs)
-    y, ref_y, lam = d["y"].cuda(), d["ref_y"].cuda(), np.float32(d["lam"])
-    pm = int(d["pm"])
-    h, w = y.shape
-    bounds = chip_smoke.search_bounds(h, w)
-    times = chip_smoke.search_times(torch, motion, y, ref_y, lam, pm,
-                                    plain=False)
-    for name, (dev_us, _, n) in times.items():
-        bound, by, bytes_us, ops_us = bounds[name]
+                    if "motion" in ln or "inter_code" in ln
+                    or "spill" in ln) or log.strip(), flush=True)
+    card = chip_smoke.card_name()
+    if args.inputs:
+        d = torch.load(args.inputs)
+        y, ref_y, lam = d["y"].cuda(), d["ref_y"].cuda(), np.float32(d["lam"])
+        pm = int(d["pm"])
+        h, w = y.shape
+        bounds = chip_smoke.search_bounds(h, w)
+        times = chip_smoke.search_times(torch, motion, y, ref_y, lam, pm,
+                                        plain=False)
+        for name, (dev_us, _, n) in times.items():
+            bound, by, bytes_us, ops_us = bounds[name]
+            print(json.dumps({
+                "root": args.root, "kernel": name, "shape": [h, w],
+                "device_us": dev_us, "launches": n, "bound_us": bound,
+                "bound_by": by, "bytes_us": bytes_us, "ops_us": ops_us,
+                "bound_share": bound / dev_us, "card": card}), flush=True)
+        launch_us = chip_smoke.kernel_us_by_name(
+            torch, lambda: motion.coarse_search(y, ref_y, lam))
         print(json.dumps({
-            "root": args.root, "kernel": name, "shape": [h, w],
-            "device_us": dev_us, "launches": n, "bound_us": bound,
-            "bound_by": by, "bytes_us": bytes_us, "ops_us": ops_us,
-            "bound_share": bound / dev_us,
-            "card": chip_smoke.card_name()}), flush=True)
+            "root": args.root, "kernel": "coarse_search", "shape": [h, w],
+            "launch_us": {chip_smoke._short(k): v
+                          for k, v in launch_us.items()}, "card": card}),
+              flush=True)
+    for path in args.coder:
+        sites = chip_smoke.load_coder_inputs(torch, inter_code, path, dev)
+        times = chip_smoke.coder_times(torch, inter_code, sites, plain=False)
+        frame_us = bound_frame = 0.0
+        for (coefs, src, pred, plane), (dev_us, _) in zip(sites, times):
+            key = chip_smoke.coder_key(src, plane)
+            bound, by = chip_smoke.code_bounds(src.shape[0], plane.n)
+            zero = int((inter_code.code_blocks(coefs, src, pred, plane)[0]
+                        .flatten(1) == 0).all(1).sum())
+            frame_us += dev_us
+            bound_frame += bound
+            print(json.dumps({
+                "root": args.root, "kernel": "code_blocks", "file": path,
+                "site": key, "bit_depth": plane.bit_depth,
+                "device_us": dev_us, "bound_us": bound, "bound_by": by,
+                "bound_share": bound / dev_us,
+                "blocks_without_level": zero, "card": card}), flush=True)
+        print(json.dumps({
+            "root": args.root, "kernel": "code_blocks", "file": path,
+            "site": "frame", "launches": len(sites),
+            "device_ms": frame_us / 1e3, "bound_ms": bound_frame / 1e3,
+            "card": card}), flush=True)
     return 0
 
 

@@ -153,10 +153,13 @@ def cuda_lib() -> ctypes.CDLL:
         # damping, coeff_shift, out y, u, v, stream
         "av1_cdef_filter": [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
                             ci, vp, vp, vp, vp],
-        # in, out, h, w, luma, vertical, edge_on, split16, limit, blimit,
-        # thresh, bit_depth, stream
-        "av1_deblock_edges": [vp, vp, ci, ci, ci, ci, vp, vp, ci, ci, ci, ci,
+        # in, out, h, w, luma, v_on, h_on, split16, limit, blimit, thresh,
+        # bit_depth, stream
+        "av1_deblock_edges": [vp, vp, ci, ci, ci, vp, vp, vp, ci, ci, ci, ci,
                               vp],
+        # luma, out (7 ints: the tile's rows, columns, taps, halo columns,
+        # row stride, dynamic shared bytes, threads)
+        "av1_deblock_layout": [ci, vp],
         # kind, h, w (returns int32 words)
         "av1_motion_ws_words": [ci, ci, ci],
         # y, ref, h, w, bias (host), margin, ws, coarse, coarse2, shifts4,
@@ -174,6 +177,8 @@ def cuda_lib() -> ctypes.CDLL:
         # jobs (an array of the kernel's job structs), count, stream
         **{f"av1_part_{k}": [vp, ci, vp]
            for k in ("chain", "pred", "code", "merge")},
+        # jobs, count, out (3 ints: CTAs, dynamic and static shared bytes)
+        "av1_part_code_layout": [vp, ci, vp],
         # out (text), cap (bytes; returns the text's length)
         "av1_part_layout": [vp, ci],
     }

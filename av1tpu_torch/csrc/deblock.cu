@@ -1,4 +1,4 @@
-// One direction of the in-loop deblocking filter on one plane, as one
+// The in-loop deblocking filter of one plane, both directions, as one
 // kernel for Hopper: deblock_edges.
 //
 // Replaces the jitted loop filter of av1tpu/models/deblock_tpu.py:
@@ -13,7 +13,8 @@
 // on the fast keyframe and wherever a keyframe's levels are not 0.
 //
 // What it computes, per line across the edges of one direction (vertical
-// edges: each pixel row; horizontal edges: each pixel column):
+// edges: each pixel row; horizontal edges: each pixel column), first the
+// vertical edges of the whole plane, then the horizontal ones:
 //
 // - every block edge (16 px luma, 8 px chroma) that edge_on enables: the
 //   14/8/4-tap chain (luma) or the 6/4-tap chain (chroma), capped at 8 or
@@ -21,36 +22,71 @@
 // - where split16 marks a block, its interior edge at the 8 px (luma) or
 //   4 px (chroma) offset: the 8/4-tap chain (luma) or the 4-tap chain.
 //
-// Why one pass in any order is exact: the plain version filters the
-// interior edges first and then the block edges, each from the plane as
-// the earlier pass left it.  A capped block edge reads p3..q3 and writes
-// p2..q2, which no interior edge touches; its wider taps p6..p4 and q4..q6,
-// which an interior edge may have changed, feed only the 14-tap mask,
-// which the cap turns off.  A chroma block edge's p2/q2 likewise feed only
-// the 6-tap terms, which the cap turns off.  So every edge can be filtered
-// from the direction's input, and a pixel takes the value of the edge that
-// actually modifies it.
+// Why one pass per direction in any order is exact: the plain version
+// filters the interior edges first and then the block edges, each from the
+// plane as the earlier pass left it.  A capped block edge reads p3..q3 and
+// writes p2..q2, which no interior edge touches; its wider taps p6..p4 and
+// q4..q6, which an interior edge may have changed, feed only the 14-tap
+// mask, which the cap turns off.  A chroma block edge's p2/q2 likewise
+// feed only the 6-tap terms, which the cap turns off.  So every edge can
+// be filtered from the direction's input, and a pixel takes the value of
+// the edge that actually modifies it.
+//
+// Why a tile with a halo is exact: the horizontal edges of a column of
+// 16-px (8-px) blocks read that column's samples from TAPS rows above the
+// block to TAPS rows below it (7 luma, 3 chroma), as the vertical pass
+// left them, and nothing else.  Filtering a row's vertical edges reads
+// only that row, from TAPS columns left of a block to TAPS right of it.
+// So a CTA that owns the rows [r0, r0 + TH) and columns [c0, c0 + TW) of
+// the output (TH, TW multiples of the block size) loads the input rows
+// [r0 - TAPS, r0 + TH + TAPS) and columns [c0 - HL, c0 + TW + HL) (HL:
+// TAPS rounded up to whole 16-byte loads), filters the vertical edges of
+// every loaded row at its own columns (the halo rows come out exactly as
+// the plane-wide pass leaves them), then the horizontal edges of its
+// columns, and writes its own rows and columns: every output pixel is
+// written by one CTA, from the same values the two plane-wide passes
+// would give it.  Rows and columns outside the plane are loaded clamped
+// and never read by a filter: the edges at the plane's borders are not
+// filtered.
 //
 // What bounds it on an H100.  All integer work on 4 bytes per pixel: a
-// 1088x1920 luma plane is read once and written once per direction,
-// 16.7 MB, about 5 us at 3.35 TB/s; the filters are a few hundred integer
-// operations per edge and line, a small share of the card's integer rate.
-// So it is bound by bytes.
+// 1088x1920 luma plane read once and written once is 16.7 MB, about 5 us
+// at 3.35 TB/s; the filters are a few hundred integer operations per edge
+// and line, a small share of the card's integer rate.  So it is bound by
+// bytes.  The first version of this kernel took one launch per direction,
+// the plane through memory twice each way, and on vertical edges put a
+// warp's 32 lanes on 32 blocks of a row, 64 bytes apart: every load and
+// store touched 32 sectors (34.8 us against 7.3 us for the horizontal
+// pass, each with a 5.0 us bound).
 //
-// What the design does about it.  One thread per (line, block): it loads
-// the block's samples and the taps of both its edges (30 samples luma, 14
-// chroma) into registers, applies the interior edge, then the q side of
-// the block's first edge and the p side of its last, and writes the block
-// once.  Each edge is computed by the two threads that share it (twice the
-// integer work, none of it in memory).  On horizontal edges neighbouring
-// threads take neighbouring columns, so every load and store is coalesced.
+// What the design does about it.  One launch per plane (deblock_planes calls
+// it once per plane whose level is above 0): a CTA of 288 threads per TH x
+// TW tile (luma 48 x 128, chroma 24 x 64), a warp per block boundary of its
+// columns (9 of them, its two borders included).  The load is coalesced: a
+// warp takes 4 rows of 8 int4s, 128 bytes of each row; the tile sits in
+// shared memory at an odd row stride (LW + 1 words), so the 4 x 8 lanes'
+// stores, the vertical pass's lanes (32 rows of one edge column) and the
+// horizontal pass's lanes (32 neighbouring columns of one row) all fall on
+// 32 different banks.  Each edge is filtered once, by one thread, in place:
+// the vertical pass takes an item per (row, block boundary k of the tile,
+// its borders included), the block edge there and the interior edge of block
+// k, a warp per k and 32 rows (two passes of the CTA over luma's 62 loaded
+// rows, one over chroma's 30); the horizontal pass an item per (column,
+// block-row boundary).  In place needs no barrier within a pass: by the
+// exactness argument above every edge's effective inputs are samples that no
+// other edge writes, and the samples two edges write are disjoint (a capped
+// edge writes p2..q2 only).  A first fused version gave a thread a whole
+// block and both its edges, so every block edge was computed twice; the luma
+// plane then took 16.7 us, about the two one-direction passes' integer work.
+// Even now that work, not the bytes, is what luma's time follows (PERF.md).
+// Last, the tile's own pixels go out as int4 stores, a warp's 4 rows of 128
+// bytes each.  The edge and split maps (one byte per 16-grid edge or block)
+// go through the read-only cache.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
-
-constexpr int NT = 128;
 
 struct Thr {
   int limit, blimit, thresh, F, mx;
@@ -207,114 +243,203 @@ __device__ __forceinline__ void chroma4(const int* x, const Thr& t, int* o) {
   }
 }
 
-// NB: block size along the line (16 luma, 8 chroma); TAPS: samples read on
-// each side of a block edge (7 luma, 3 chroma).
-template <int NB, int TAPS>
-__global__ void __launch_bounds__(NT) deblock_kernel(
+// One block edge of a line, in place: its samples p(TAPS-1)..q(TAPS-1)
+// at x[k * step], k < 2 TAPS.  Luma: the 14/8/4-tap chain, capped at 8
+// taps unless allow; it writes p5..q5 (capped: p2..q2, the samples a capped
+// edge may change).  Chroma: the 6/4-tap chain, p1..q1.
+template <int TAPS>
+__device__ __forceinline__ void block_edge(int* x, int step, bool allow,
+                                           const Thr& t) {
+  int v[2 * TAPS];
+#pragma unroll
+  for (int k = 0; k < 2 * TAPS; ++k) v[k] = x[k * step];
+  if constexpr (TAPS == 7) {
+    int e[12];
+    luma14(v, allow, t, e);
+    const int m = allow ? 6 : 3;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      if (k >= m) continue;
+      x[(TAPS - 1 - k) * step] = e[5 - k];      // p_k
+      x[(TAPS + k) * step] = e[6 + k];          // q_k
+    }
+  } else {
+    int e[4];
+    chroma6(v, allow, t, e);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) x[(TAPS - 2 + k) * step] = e[k];
+  }
+}
+
+// The interior edge of a split block, in place; x: its q0 at x[0].  Luma
+// the 8/4-tap chain on p3..q3, writing p2..q2; chroma the 4-tap chain on
+// p1..q1.
+template <int TAPS>
+__device__ __forceinline__ void interior_edge(int* x, int step,
+                                              const Thr& t) {
+  if constexpr (TAPS == 7) {
+    int v[8], e[6];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = x[(k - 4) * step];
+    luma8(v, t, e);
+#pragma unroll
+    for (int k = 0; k < 6; ++k) x[(k - 3) * step] = e[k];
+  } else {
+    int v[4], e[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = x[(k - 2) * step];
+    chroma4(v, t, e);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) x[(k - 2) * step] = e[k];
+  }
+}
+
+// The tile of one CTA: TH_ x TW_ output pixels, NB_ the block size along
+// a line, TAPS_ the samples read on each side of a block edge.
+// kernels/deblock.py:deblock_layout mirrors these numbers.
+template <int NB_, int TAPS_, int TH_, int TW_>
+struct Tile {
+  static constexpr int NB = NB_, TAPS = TAPS_, TH = TH_, TW = TW_;
+  // a warp per block boundary of the tile's columns, its borders included
+  static constexpr int NT = 32 * (TW / NB + 1);
+  static constexpr int HL = (TAPS + 3) / 4 * 4;  // halo columns: whole int4s
+  static constexpr int RH = TH + 2 * TAPS;       // rows with the halo
+  static constexpr int RHP = (RH + 31) / 32 * 32;  // a warp's 32 rows
+  static constexpr int LW = TW + 2 * HL;         // loaded columns
+  static constexpr int S = LW + 1;               // row stride, odd (words)
+  static constexpr int G = LW / 4;               // int4s per loaded row
+  static constexpr int GC = (G + 7) / 8;         // a warp's 8 int4s a row
+  static constexpr size_t SMEM = (size_t)RH * S * sizeof(int);
+  static_assert(TH % NB == 0 && TW % 32 == 0 && S % 2 == 1, "deblock tile");
+};
+
+// luma: 16-px blocks, 7 taps, 48 x 128 tiles; chroma: 8, 3, 24 x 64
+using LumaTile = Tile<16, 7, 48, 128>;
+using ChromaTile = Tile<8, 3, 24, 64>;
+
+template <class L>
+__global__ void __launch_bounds__(L::NT) deblock_kernel(
     const int* __restrict__ in, int* __restrict__ out, int h, int w,
-    const unsigned char* __restrict__ edge_on,
-    const unsigned char* __restrict__ split16, int vertical, Thr t) {
-  constexpr int WL = NB + 2 * TAPS;
-  const bool luma = NB == 16;
-  // lines and blocks along a line; the block grid has `cols` columns
-  const int cols = w / NB;
-  const int nlines = vertical ? h : w, len = vertical ? w : h;
-  const int nb = len / NB;
-  const int idx = blockIdx.x * NT + threadIdx.x;
-  if (idx >= nlines * nb) return;
-  int L, b;
-  if (vertical) {            // neighbouring threads: neighbouring blocks
-    b = idx % nb;
-    L = idx / nb;
-  } else {                   // neighbouring threads: neighbouring columns
-    L = idx % nlines;
-    b = idx / nlines;
-  }
-  const int R = vertical ? L / NB : b, C = vertical ? b : L / NB;
-  const size_t lstride = vertical ? 1 : (size_t)w;
-  const size_t lbase = vertical ? (size_t)L * w : (size_t)L;
-  const int base = b * NB;
+    const unsigned char* __restrict__ v_on,
+    const unsigned char* __restrict__ h_on,
+    const unsigned char* __restrict__ split16, Thr t) {
+  constexpr int NB = L::NB, TAPS = L::TAPS, TH = L::TH, TW = L::TW,
+                NT = L::NT;
+  extern __shared__ int s_tile[];              // RH rows of S words
+  const int r0 = blockIdx.y * TH, c0 = blockIdx.x * TW;
+  const int thi = min(TH, h - r0), twi = min(TW, w - c0);
+  const int rows = h / NB, cols = w / NB;
+  const int tid = threadIdx.x;
 
-  int x[WL];
-#pragma unroll
-  for (int k = 0; k < WL; ++k) {
-    const int p = clampi(base - TAPS + k, 0, len - 1);
-    x[k] = in[lbase + (size_t)p * lstride];
+  // the tile with its halo, clamped to the plane: a warp per 4 rows of 8
+  // int4s (4 x 128 contiguous bytes)
+  for (int i = tid; i < (L::RH + 3) / 4 * L::GC * 32; i += NT) {
+    const int ch = i >> 5, l = i & 31;
+    const int rr = ch / L::GC * 4 + (l >> 3), g = ch % L::GC * 8 + (l & 7);
+    if (rr >= L::RH || g >= L::G) continue;
+    const int y = clampi(r0 - TAPS + rr, 0, h - 1);
+    const int x = clampi(c0 - L::HL + 4 * g, 0, w - 4);
+    const int4 v = __ldg(reinterpret_cast<const int4*>(in + (size_t)y * w
+                                                       + x));
+    int* d = s_tile + rr * L::S + 4 * g;
+    d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
   }
-  int o[NB];
-#pragma unroll
-  for (int k = 0; k < NB; ++k) o[k] = x[TAPS + k];
+  __syncthreads();
 
-  // the 16-grid cell before and after each block edge of this block
-  auto cell = [&](int bb) { return vertical ? R * cols + bb : bb * cols + C; };
-  auto edge = [&](int bb) {   // the edge between blocks bb - 1 and bb
-    return vertical ? edge_on[R * (cols - 1) + bb - 1]
-                    : edge_on[(bb - 1) * cols + C];
+  auto split = [&](int R, int C) {
+    return split16 != nullptr && split16[(size_t)R * cols + C] != 0;
   };
-  const bool split = split16 != nullptr && split16[cell(b)];
-  if (split) {                // the interior edge at NB / 2
-    if (luma) {
-      int e[6];
-      luma8(x + TAPS + 4, t, e);
-#pragma unroll
-      for (int k = 0; k < 6; ++k) o[5 + k] = e[k];
-    } else {
-      int e[4];
-      chroma4(x + TAPS + 2, t, e);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) o[2 + k] = e[k];
-    }
+  // the vertical edges of every loaded row in the plane, in place: item
+  // (k, rr) filters row rr's block edge at column k NB of the tile (k = 0
+  // and TW / NB on its borders) and the interior edge of block k; a warp
+  // takes 32 rows of one k
+#pragma unroll 1
+  for (int i = tid; i < (TW / NB + 1) * L::RHP; i += NT) {
+    const int k = i / L::RHP, rr = i % L::RHP, y = r0 - TAPS + rr;
+    if (rr >= L::RH || y < 0 || y >= h || k * NB > twi) continue;
+    const int R = y / NB, C = c0 / NB + k;
+    int* q0 = s_tile + rr * L::S + L::HL + k * NB;
+    if (C > 0 && C < cols && v_on[(size_t)R * (cols - 1) + C - 1])
+      block_edge<TAPS>(q0 - TAPS, 1, !(split(R, C - 1) || split(R, C)), t);
+    if (k * NB < twi && split(R, C)) interior_edge<TAPS>(q0 + NB / 2, 1, t);
   }
-  // the block edge before this block (its q side) and after it (p side)
-#pragma unroll
-  for (int side = 0; side < 2; ++side) {
-    const int bb = b + side;
-    if (bb == 0 || bb == nb || !edge(bb)) continue;
-    const bool allow = split16 == nullptr ||
-                       !(split16[cell(bb - 1)] || split16[cell(bb)]);
-    const int* win = x + side * NB;   // p(TAPS-1)..q(TAPS-1) of that edge
-    if (luma) {
-      int e[12];
-      luma14(win, allow, t, e);
-      const int m = allow ? 6 : 3;   // capped: p2..q2 only
-#pragma unroll
-      for (int k = 0; k < 6; ++k) {
-        if (k >= m) continue;
-        if (side == 0) o[k] = e[6 + k];          // q0..q5
-        else o[NB - 1 - k] = e[5 - k];           // p0..p5
-      }
-    } else {
-      int e[4];
-      chroma6(win, allow, t, e);
-      if (side == 0) { o[0] = e[2]; o[1] = e[3]; }
-      else { o[NB - 2] = e[0]; o[NB - 1] = e[1]; }
-    }
+  __syncthreads();
+
+  // the horizontal edges of the tile's columns, in place: item (k, xc)
+  // filters column xc's block edge at the top of block row k (k = 0 and
+  // TH / NB on the tile's borders) and the interior edge of block row k
+#pragma unroll 1
+  for (int i = tid; i < (TH / NB + 1) * TW; i += NT) {
+    const int k = i / TW, xc = i % TW;
+    if (xc >= twi || k * NB > thi) continue;
+    const int R = r0 / NB + k, C = (c0 + xc) / NB;
+    int* q0 = s_tile + (TAPS + k * NB) * L::S + L::HL + xc;
+    if (R > 0 && R < rows && h_on[(size_t)(R - 1) * cols + C])
+      block_edge<TAPS>(q0 - TAPS * L::S, L::S,
+                       !(split(R - 1, C) || split(R, C)), t);
+    if (k * NB < thi && split(R, C))
+      interior_edge<TAPS>(q0 + NB / 2 * L::S, L::S, t);
   }
-#pragma unroll
-  for (int k = 0; k < NB; ++k)
-    out[lbase + (size_t)(base + k) * lstride] = o[k];
+  __syncthreads();
+
+  // the tile's own pixels out: a warp per 4 rows of 8 int4s
+  for (int i = tid; i < TH / 4 * (TW / 32) * 32; i += NT) {
+    const int ch = i >> 5, l = i & 31;
+    const int rr = ch / (TW / 32) * 4 + (l >> 3);
+    const int g = ch % (TW / 32) * 8 + (l & 7);
+    if (rr >= thi || 4 * g >= twi) continue;
+    const int* src = s_tile + (TAPS + rr) * L::S + L::HL + 4 * g;
+    *reinterpret_cast<int4*>(out + (size_t)(r0 + rr) * w + c0 + 4 * g) =
+        make_int4(src[0], src[1], src[2], src[3]);
+  }
+}
+
+template <class L>
+int launch(const int* in, int* out, int h, int w, const unsigned char* v_on,
+           const unsigned char* h_on, const unsigned char* split16,
+           const Thr& t, cudaStream_t stream) {
+  auto kernel = deblock_kernel<L>;
+  if (L::SMEM > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::SMEM);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((w + L::TW - 1) / L::TW, (h + L::TH - 1) / L::TH);
+  kernel<<<grid, L::NT, L::SMEM, stream>>>(in, out, h, w, v_on, h_on,
+                                           split16, t);
+  return (int)cudaGetLastError();
+}
+
+template <class L>
+void layout(int* out) {
+  out[0] = L::TH; out[1] = L::TW; out[2] = L::TAPS; out[3] = L::HL;
+  out[4] = L::S; out[5] = (int)L::SMEM; out[6] = L::NT;
 }
 
 }  // namespace
 
-// plane (h, w) int32 -> out; edge_on: (rows, cols - 1) for vertical edges,
-// (rows - 1, cols) for horizontal ones; split16 (rows, cols) or null.
+// plane (h, w) int32 -> out (not the same memory, 16-byte aligned);
+// v_on: (rows, cols - 1), h_on: (rows - 1, cols) edges of the block grid;
+// split16 (rows, cols) or null.
 extern "C" int av1_deblock_edges(const int* in, int* out, int h, int w,
-                                 int luma, int vertical,
-                                 const unsigned char* edge_on,
+                                 int luma, const unsigned char* v_on,
+                                 const unsigned char* h_on,
                                  const unsigned char* split16, int limit,
                                  int blimit, int thresh, int bit_depth,
                                  cudaStream_t stream) {
   const Thr t{limit, blimit, thresh, 1 << (bit_depth - 8),
               (1 << bit_depth) - 1};
-  const int nb = luma ? 16 : 8;
-  const int threads = (vertical ? h * (w / nb) : w * (h / nb));
-  const int grid = (threads + NT - 1) / NT;
-  if (luma)
-    deblock_kernel<16, 7><<<grid, NT, 0, stream>>>(in, out, h, w, edge_on,
-                                                   split16, vertical, t);
-  else
-    deblock_kernel<8, 3><<<grid, NT, 0, stream>>>(in, out, h, w, edge_on,
-                                                  split16, vertical, t);
-  return (int)cudaGetLastError();
+  return luma ? launch<LumaTile>(in, out, h, w, v_on, h_on, split16, t,
+                                 stream)
+              : launch<ChromaTile>(in, out, h, w, v_on, h_on, split16, t,
+                                   stream);
+}
+
+// The tile geometry of luma (1) or chroma (0), for
+// kernels/deblock.py:deblock_layout to check its mirror against: out = {TH,
+// TW, TAPS, HL, row stride S (words), dynamic shared bytes, threads}.
+extern "C" int av1_deblock_layout(int luma, int* out) {
+  if (luma) layout<LumaTile>(out);
+  else layout<ChromaTile>(out);
+  return 0;
 }

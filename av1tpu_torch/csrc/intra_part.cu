@@ -51,14 +51,48 @@
 // parameters; the outputs go straight into the frame's level, mode, split
 // and recon grids, so the row above a stage is a row of the recon plane
 // and nothing is copied between stages.  One block of 256 threads per
-// column of a site (per superblock column in part_merge); the levels of
-// every candidate of a column stay in registers (at most 12 a thread), the
-// chosen one's dequantized levels go to shared memory on a padded stride
-// (n + 1) for the inverse (itx.cuh:inverse_2d).  part_chain keeps its
-// column's residual in shared memory and reads the forward matrix through
-// the read-only cache.
+// column of a site in part_pred (per superblock column in part_merge);
+// part_chain keeps its column's residual in shared memory and reads the
+// forward matrix through the read-only cache.
 //
-// Bits.  Every float expression of a decision is written with __fmul_rn,
+// part_code.  A launch fills 30 to 420 CTAs, so it costs as long as its
+// slowest CTA's chain of dependent steps, not its bytes.  Its first
+// version gave every column a CTA on a (max columns x jobs) grid: the
+// 64-point inverse (64 lines of a serial idct64 each holding 128 words)
+// set 105 registers for every site, two CTAs per SM, so a launch of more
+// than 264 CTAs ran in two waves, the 64 and 32 columns last; an 8x8
+// column waited on five round trips to memory in turn (coefficients, the
+// rate table, the dequantizer, the prediction, the source).  Per 1088x1920
+// probed frame 1.53 ms, against 5.9 us for a launch of trivial 8x8
+// columns and 23.2 us for the 16+32+64 launch (PERF.md, part_code per
+// launch kind).  Now:
+// - a flat grid of exactly the jobs' CTAs, the 64 columns first, then the
+//   32, 16 and 8, so the longest chains start first and no CTA is empty;
+//   four 8x8 columns share a CTA (two warps each), so no launch overfills
+//   the card's resident CTAs;
+// - each column sends its candidates' coefficients to shared memory by
+//   cp.async, all in flight at once, then their predictions (and at the
+//   64 its source band), which arrive while it quantizes; the site's
+//   table entries at its positions go to registers in one burst and the
+//   rate table's first entries (the only ones rd_zero reads) to shared
+//   memory: the quantize and the recon wait on no load in turn;
+// - a column whose chosen candidate has no level skips its inverse (its
+//   residual is 0; most 16x16 and 8x8 columns of the main path: PERF.md),
+//   and TX_64X64 no longer zeroes its block: the inverse reads only the
+//   coded 32 x 32;
+// - the 32- and 64-point lines run as two halves on two warps each
+//   (itx.cuh's idct16 / idct32 of the even inputs, idct32_odd /
+//   idct64_odd of the odd ones), meeting in shared memory, where every
+//   thread adds them: no thread holds a 64-point line, and a 64 column's
+//   passes run on 64 and 128 threads instead of 32 and 64;
+// - the 8x8 and 16x16 inverses stay inverse_2d (a thread per line).
+//
+// Bits.  part_code's sums keep the first version's order: element
+// e = m * nc + j of a column on thread e mod 256 as its (e div 256)-th
+// addend, the warps' butterflies, then the warps in order (at 8x8 a
+// column's two warps: the other six added +0.0 to sums that are not
+// negative); its outputs are the first version's bit for bit.
+// Every float expression of a decision is written with __fmul_rn,
 // __fadd_rn, __fsub_rn and IEEE division (nvcc would contract a*b + c into
 // an FMA); log2f is the library's (no fast math), as torch.log2 on the
 // card.  The SSEs are integer sums.  What cannot match: the per-candidate
@@ -140,12 +174,13 @@ namespace {
 constexpr int NT = 256;          // threads per block
 constexpr int NW = NT / 32;
 constexpr int MAXJ = 6;          // jobs per launch: U and V, 3 sites each
-constexpr int MAXE = 12;         // levels per thread: 3 candidates x 1024
 constexpr int KEEP_ALWAYS = 8;   // rdoq._KEEP_ALWAYS
 
 struct ChainJobs { ChainJob j[3]; };
 struct PredJobs { PredJob j[MAXJ]; };
-struct CodeJobs { CodeJob j[MAXJ]; };
+// part_code's jobs, heaviest size first, and each job's first CTA of the
+// flat grid (first[count] .. first[MAXJ]: the grid's end)
+struct CodeJobs { CodeJob j[MAXJ]; int first[MAXJ + 1]; };
 struct MergeJobs { MergeJob j[2]; };
 
 // the candidates' mode values and mode bits (intra_part._mode_rdo: V, then
@@ -155,20 +190,23 @@ __constant__ float kModeBits[3] = {0.f, 4.f, 4.f};
 __constant__ int kModeDx[3] = {0, 64, 27};
 
 // The deadzone quantize of one coefficient (intra_v.quantize_with_offsets),
-// then rdoq.rd_zero's keep test where the site has a rate table.
-__device__ int quant_rdz(float coef, const PartSite& S, int j) {
+// then rdoq.rd_zero's keep test where the site has a rate table (tab: at
+// least its first KEEP_ALWAYS entries; null: no rd_zero), from the table
+// entries of its position: step, off, cap and gain.
+__device__ __forceinline__ int quant_rdz_at(float coef, float step, float off,
+                                            int cap, float gain,
+                                            const float* tab, float lam) {
   const float ca = fabsf(coef);
-  const int mag = (int)floorf(__fadd_rn(__fdiv_rn(ca, S.step[j]), S.off[j]));
+  const int mag = (int)floorf(__fadd_rn(__fdiv_rn(ca, step), off));
   const int sgn = coef > 0.f ? 1 : (coef < 0.f ? -1 : 0);
-  const int cap = S.cap[j];
   const int lv = min(max(sgn * mag, -cap), cap);
   const int a = abs(lv);
-  if (S.tab == nullptr || a == 0 || a >= KEEP_ALWAYS) return lv;
-  const float t = __fsub_rn(ca, __fmul_rn((float)a, S.step[j]));
-  const float save = __fmul_rn(S.gain[j], __fsub_rn(__fmul_rn(ca, ca),
-                                                    __fmul_rn(t, t)));
-  const float bits = __fsub_rn(S.tab[a], S.tab[0]);
-  return save > __fmul_rn(S.lam, bits) ? lv : 0;
+  if (tab == nullptr || a == 0 || a >= KEEP_ALWAYS) return lv;
+  const float t = __fsub_rn(ca, __fmul_rn((float)a, step));
+  const float save = __fmul_rn(gain, __fsub_rn(__fmul_rn(ca, ca),
+                                               __fmul_rn(t, t)));
+  const float bits = __fsub_rn(tab[a], tab[0]);
+  return save > __fmul_rn(lam, bits) ? lv : 0;
 }
 
 // intra_v.log2_rate of one level: 2 + log2(1 + |l|) where l != 0
@@ -183,48 +221,131 @@ __device__ __forceinline__ u32 dequant(int lv, int q, int shift) {
   return lv < 0 ? 0u - d : d;
 }
 
-// Sums of K values over the block, in a fixed order (warp butterflies,
-// then the warps in order); every thread gets every sum.  red: K * NW.
-template <int K>
-__device__ void block_sum(float* v, float* red) {
+__device__ __forceinline__ float sum2(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ long long sum2(long long a, long long b) {
+  return a + b;
+}
+
+// Sums of K values over the W * 32 threads of a column group (W warps from
+// warp (warp / W) * W; W = NW: the whole block), in a fixed order: warp
+// butterflies, then the group's warps in order.  For float sums that are
+// not negative a group of fewer warps gives the same bits as the whole
+// block would with +0.0 in its other warps; integer sums are exact in any
+// order.  Every thread of the block calls it and gets its group's sums;
+// red: K * NW.
+template <int K, class T>
+__device__ void group_sum(T* v, T* red, int W) {
   for (int k = 0; k < K; ++k)
     for (int o = 16; o; o >>= 1)
-      v[k] = __fadd_rn(v[k], __shfl_xor_sync(~0u, v[k], o));
-  __syncthreads();                 // red may still be read by a last call
+      v[k] = sum2(v[k], __shfl_xor_sync(~0u, v[k], o));
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, g0 = warp / W * W;
   if ((threadIdx.x & 31) == 0)
-    for (int k = 0; k < K; ++k) red[k * NW + (threadIdx.x >> 5)] = v[k];
+    for (int k = 0; k < K; ++k) red[k * NW + warp] = v[k];
   __syncthreads();
   for (int k = 0; k < K; ++k) {
-    float s = red[k * NW];
-    for (int w = 1; w < NW; ++w) s = __fadd_rn(s, red[k * NW + w]);
+    T s = red[k * NW + g0];
+    for (int w = 1; w < W; ++w) s = sum2(s, red[k * NW + g0 + w]);
     v[k] = s;
   }
 }
 
-template <int K>
-__device__ void block_sum(long long* v, long long* red) {
-  for (int k = 0; k < K; ++k)
-    for (int o = 16; o; o >>= 1) v[k] += __shfl_xor_sync(~0u, v[k], o);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0)
-    for (int k = 0; k < K; ++k) red[k * NW + (threadIdx.x >> 5)] = v[k];
-  __syncthreads();
-  for (int k = 0; k < K; ++k) {
-    long long s = 0;
-    for (int w = 0; w < NW; ++w) s += red[k * NW + w];
-    v[k] = s;
-  }
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
 }
 
-// The 2-D inverse of one n x n block in shared memory (stride n + 1).
-__device__ void inverse_n(int n, int tx, int rows, u32* dq, u32* tmp) {
-  switch (n) {
-    case 8: inverse_2d<8>(tx, 1, dq, tmp, 0, 9); break;
-    case 16: inverse_2d<16>(tx, 1, dq, tmp, 0, 17); break;
-    case 32: inverse_2d<32>(tx, 1, dq, tmp, 0, 33); break;
-    default: inverse_2d<64>(tx, 1, dq, tmp, 0, 65, rows); break;
-  }
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
 }
+
+// wait until at most PENDING of the thread's committed groups are in flight
+template <int PENDING>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// One half of a 1-D inverse DCT of N points (N = 32, 64) on a line of
+// shared memory, inputs src[k * step] for k < K (the rest zero): the even
+// half, idct{N/2} of the even inputs, into dst[0 .. N/2), or (ODD) the odd
+// half, idct{N}_odd of the odd inputs, into dst[N/2 .. N).
+template <int N, int K, bool ODD>
+__device__ __forceinline__ void half_line(const u32* src, int step,
+                                          u32* dst) {
+  constexpr int H = N / 2;
+  u32 in[H], out[H];
+#pragma unroll
+  for (int k = 0; k < H; ++k)
+    in[k] = 2 * k + ODD < K ? src[(2 * k + ODD) * step] : 0u;
+  if constexpr (ODD) {
+    if constexpr (N == 32) idct32_odd(in, out);
+    else idct64_odd(in, out);
+  } else {
+    if constexpr (N == 32) idct16(in, out);
+    else idct32(in, out);
+  }
+#pragma unroll
+  for (int k = 0; k < H; ++k) dst[ODD * H + k] = out[k];
+}
+
+// The 2-D inverse DCT of one N x N block (N = 32, 64) in shared memory at
+// row stride LD = N + 1: the top-left 32 x 32 holds the dequantized levels
+// (the rest is never read: TX_64X64 codes 32 x 32) and is replaced by the
+// residual.  Each line's two halves run on two warps (even and odd halves
+// on different warps, so no warp diverges) into `half` (lines at stride
+// LD), and then every thread adds them: idct32's and idct64's butterflies
+// and roundings, and _ROW_SHIFT 2 and 4, as inverse_2d applies them.
+template <int N>
+__device__ void inverse_split(u32* buf, u32* half) {
+  constexpr int K = 32, H = N / 2, LD = N + 1;
+  const int t = threadIdx.x;
+  if (t < K) half_line<N, K, false>(buf + t * LD, 1, half + t * LD);
+  else if (t < 2 * K)
+    half_line<N, K, true>(buf + (t - K) * LD, 1, half + (t - K) * LD);
+  __syncthreads();
+  for (int p = t; p < K * H; p += NT) {      // the coded rows
+    const int r = p / H, i = p % H;
+    const u32* hr = half + r * LD;
+    buf[r * LD + i] = rs(hr[i] + hr[2 * H - 1 - i], 2);
+    buf[r * LD + H + i] = rs(hr[H - 1 - i] - hr[H + i], 2);
+  }
+  __syncthreads();
+  if (t < N) half_line<N, K, false>(buf + t, LD, half + t * LD);
+  else if (t < 2 * N)
+    half_line<N, K, true>(buf + t - N, LD, half + (t - N) * LD);
+  __syncthreads();
+  for (int p = t; p < N * H; p += NT) {      // every column
+    const int col = p / H, i = p % H;
+    const u32* hc = half + col * LD;
+    buf[i * LD + col] = rs(hc[i] + hc[2 * H - 1 - i], 4);
+    buf[(H + i) * LD + col] = rs(hc[H - 1 - i] - hc[H + i], 4);
+  }
+  __syncthreads();
+}
+
+// part_code's layout at size N: COLS columns per CTA (four 8x8 columns
+// share one, each on two warps), VT threads per column, MAXK coefficients
+// per thread, and the dynamic shared memory of a CTA: per column the block
+// and its scratch (N x (N + 1) words each), the candidates' predictions
+// and, for the pixel cost, the source, and the candidates' coefficients.
+// kernels/intra_part.py:code_ctas and code_smem mirror it.
+template <int N>
+struct CodeLayout {
+  static constexpr int COLS = N == 8 ? 4 : 1, VT = NT / COLS;
+  static constexpr int CW = N < 32 ? N : 32, NC = CW * CW, NP = N * N;
+  static constexpr int LD = N + 1, BUF = N * LD;
+  // the candidates' coefficients per thread: nm is 1 at 8 and 64
+  static constexpr int MAXK = ((N == 8 || N == 64 ? 1 : 3) * NC + VT - 1)
+                              / VT;
+  // a thread's coefficient positions: j = tl + q VT, q < JQ
+  static constexpr int JQ = NC >= VT ? NC / VT : 1;
+  static constexpr int smem(int nm, int cost) {
+    return 4 * COLS * (2 * BUF + nm * NP + (cost == 2 ? NP : 0) + nm * NC);
+  }
+};
 
 // ---- part_chain: one block per plane walks the first block row ----
 
@@ -248,7 +369,9 @@ __global__ void __launch_bounds__(NT) part_chain_kernel(ChainJobs J) {
       float acc = 0.f;
       for (int k = 0; k < nn; ++k)
         acc = fmaf(s_res[k], __ldg(C.fwdt + (size_t)k * nn + t), acc);
-      const int lv = quant_rdz(acc, S, t);
+      const int lv = quant_rdz_at(acc, S.step[t], S.off[t], S.cap[t],
+                                  S.tab != nullptr ? S.gain[t] : 0.f, S.tab,
+                                  S.lam);
       C.lv[(size_t)c * nn + t] = (int16_t)lv;
       s_dq[i * ld + j] = (u32)lv * (u32)S.q[t];
     }
@@ -301,39 +424,94 @@ __global__ void __launch_bounds__(NT) part_pred_kernel(PredJobs J) {
   }
 }
 
-// ---- part_code: one block per column of a site ----
+// ---- part_code: a CTA per column of a site (per four at 8x8) ----
 
-__global__ void __launch_bounds__(NT) part_code_kernel(CodeJobs J) {
-  const CodeJob& C = J.j[blockIdx.y];
+// One CTA's columns of one job: COLS columns from c0, column g on threads
+// [g VT, (g + 1) VT).
+template <int N>
+__device__ void code_columns(const CodeJob& C, int c0, float* s_tab,
+                             float* s_red, long long* s_lred) {
+  using L = CodeLayout<N>;
+  constexpr int CW = L::CW, NC = L::NC, NP = L::NP, LD = L::LD,
+                BUF = L::BUF, VT = L::VT;
   const PartSite& S = C.s;
-  const int c = blockIdx.x, t = threadIdx.x;
-  if (c >= C.cols) return;
-  const int n = S.n, nm = S.nm, cw = n < 32 ? n : 32, nc = cw * cw;
-  const int np = n * n, ld = n + 1;
-  __shared__ u32 s_dq[64 * 65], s_tmp[64 * 65];
-  __shared__ float s_red[6 * NW];
-  __shared__ long long s_lred[NW];
+  const int t = threadIdx.x, g = t / VT, tl = t % VT, nm = S.nm;
+  const int c = c0 + g;
+  const bool live = c < C.cols;
+  extern __shared__ __align__(16) u32 s_dyn[];
+  u32* s_buf = s_dyn + g * BUF;                      // COLS blocks, then
+  u32* s_half = s_dyn + L::COLS * BUF;               // their scratch,
+  int* s_pred = reinterpret_cast<int*>(s_dyn + 2 * L::COLS * BUF)
+                + g * nm * NP;                       // the candidates,
+  int* s_src = reinterpret_cast<int*>(s_dyn + 2 * L::COLS * BUF)
+               + L::COLS * nm * NP + g * NP;         // the source,
+  float* s_coef = reinterpret_cast<float*>(s_dyn + 2 * L::COLS * BUF)
+                  + L::COLS * (nm + (S.cost == 2)) * NP
+                  + g * nm * NC;                     // the coefficients
 
-  // every candidate's levels; element e = m * nc + j of the column
-  int lvr[MAXE];
+  // every candidate's coefficients, all in flight at once; then, on their
+  // way while the column quantizes, its predictions and, for the pixel
+  // cost, the source band
+  if (live)
+    for (int i = tl; i < nm * NC / 4; i += VT) {
+      const int m = i / (NC / 4), q = 4 * (i % (NC / 4));
+      copy16(s_coef + m * NC + q,
+             C.coefs + ((size_t)m * C.cols + c) * NC + q);
+    }
+  copy_commit();
+  if (live) {
+    for (int i = tl; i < nm * NP / 4; i += VT) {
+      const int m = i / (NP / 4), q = 4 * (i % (NP / 4));
+      copy16(s_pred + m * NP + q, C.pred + ((size_t)m * C.cols + c) * NP + q);
+    }
+    if (S.cost == 2)
+      for (int i = tl; i < NP / 4; i += VT) {
+        const int p = 4 * i;
+        copy16(s_src + p, C.src + (size_t)(p / N) * C.width + c * N + p % N);
+      }
+  }
+  copy_commit();
+  if (S.tab != nullptr && t < KEEP_ALWAYS) s_tab[t] = S.tab[t];
+  // the site's tables at the thread's positions, all loads in flight
+  float stp[L::JQ], off[L::JQ], gn[L::JQ];
+  int cap[L::JQ], qv[L::JQ];
+#pragma unroll
+  for (int q = 0; q < L::JQ; ++q) {
+    const int j = tl + q * VT;
+    stp[q] = S.step[j];
+    off[q] = S.off[j];
+    cap[q] = S.cap[j];
+    qv[q] = S.q[j];
+    gn[q] = S.gain != nullptr ? S.gain[j] : 0.f;
+  }
+  copy_wait<1>();                // the coefficients
+  __syncthreads();
+  const float* tab = S.tab != nullptr ? s_tab : nullptr;
+
+  // every candidate's levels; element e = m * NC + j of the column on its
+  // thread tl = e mod VT, as its (e div VT)-th addend
+  int lvr[L::MAXK];
   float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};   // dist, then rate
-  for (int k = 0; k < MAXE; ++k) {
-    const int e = t + k * NT;
+#pragma unroll
+  for (int k = 0; k < L::MAXK; ++k) {
+    const int e = tl + k * VT, q = k % L::JQ;
     lvr[k] = 0;
-    if (e >= nm * nc) continue;
-    const int m = e / nc, j = e % nc;
-    const float coef = C.coefs[((size_t)m * C.cols + c) * nc + j];
-    const int lv = quant_rdz(coef, S, j);
+    if (!live || e >= nm * NC) continue;
+    const int m = e / NC;
+    const float coef = s_coef[e];
+    const int lv = quant_rdz_at(coef, stp[q], off[q], cap[q], gn[q], tab,
+                                S.lam);
     lvr[k] = lv;
-    const float d = __fsub_rn(coef, __fmul_rn((float)lv, S.step[j]));
+    const float d = __fsub_rn(coef, __fmul_rn((float)lv, stp[q]));
     const float rt = level_rate(lv);
+#pragma unroll
     for (int mm = 0; mm < 3; ++mm) {    // m in registers: no local memory
       if (mm != m) continue;
       acc[mm] = __fadd_rn(acc[mm], __fmul_rn(d, d));
       acc[3 + mm] = __fadd_rn(acc[3 + mm], rt);
     }
   }
-  block_sum<6>(acc, s_red);
+  if (S.cost != 0 || C.rate != nullptr) group_sum<6>(acc, s_red, VT / 32);
 
   // the argmin over the candidates, strict < (the first on a tie)
   int best = 0;
@@ -352,45 +530,74 @@ __global__ void __launch_bounds__(NT) part_code_kernel(CodeJobs J) {
   }
 
   // the chosen candidate's levels out, dequantized into shared memory
-  if (cw < n)
-    for (int p = t; p < n * ld; p += NT) s_dq[p] = 0u;
-  __syncthreads();
-  for (int k = 0; k < MAXE; ++k) {
-    const int e = t + k * NT;
-    if (e >= nm * nc || e / nc != best) continue;
-    const int j = e % nc;
-    C.lv[(size_t)c * nc + j] = (int16_t)lvr[k];
-    s_dq[(j / cw) * ld + j % cw] = dequant(lvr[k], S.q[j], S.dq_shift);
+  int nz = 0;
+#pragma unroll
+  for (int k = 0; k < L::MAXK; ++k) {
+    const int e = tl + k * VT;
+    if (e >= nm * NC || e / NC != best) continue;
+    const int j = e % NC;
+    if (live) C.lv[(size_t)c * NC + j] = (int16_t)lvr[k];
+    s_buf[(j / CW) * LD + j % CW] = dequant(lvr[k], qv[k % L::JQ],
+                                            S.dq_shift);
+    nz |= lvr[k];
   }
+  // no level in any column of the CTA: every residual is 0, no inverse
+  if (__syncthreads_or(nz)) {
+    if constexpr (N <= 16)
+      inverse_2d<N>(S.tx, L::COLS, s_dyn, s_half, BUF, LD);
+    else
+      inverse_split<N>(s_buf, s_half);
+    nz = 1;
+  }
+  copy_wait<0>();                // the predictions and the source
   __syncthreads();
-  inverse_n(n, S.tx, cw, s_dq, s_tmp);
 
   // recon; the pixel SSE where the site's cost is pixel-domain
-  const int* pred = C.pred + ((size_t)best * C.cols + c) * np;
+  const int* pred = s_pred + best * NP;
   long long sse[1] = {0};
-  for (int p = t; p < np; p += NT) {
-    const int i = p / n, j = p % n;
-    const size_t g = (size_t)i * C.width + c * n + j;
-    const int rec = min(max(pred[p] + (int)s_dq[i * ld + j], 0), S.pix_max);
-    C.rec[g] = rec;
-    if (S.cost == 2) {
-      const int e = rec - C.src[g];
-      sse[0] += e * e;
+  if (live)
+    for (int p = tl; p < NP; p += VT) {
+      const int i = p / N, j = p % N;
+      const int r = nz ? (int)s_buf[i * LD + j] : 0;
+      const int rec = min(max(pred[p] + r, 0), S.pix_max);
+      C.rec[(size_t)i * C.width + c * N + j] = rec;
+      if (S.cost == 2) {
+        const int e = rec - s_src[p];
+        sse[0] += e * e;
+      }
     }
-  }
   if (S.cost == 2) {
-    block_sum<1>(sse, s_lred);
+    group_sum<1>(sse, s_lred, VT / 32);
     // summed in int32, wrapping, as the reference's jnp.sum
     best_cost = __fadd_rn(__int2float_rn((int)(u32)sse[0]),
                           __fmul_rn(S.lam, acc[3]));
   }
-  if (t == 0) {
+  if (!live) return;
+  if (tl == 0) {
     if (C.modes != nullptr) C.modes[c] = kModeVals[best];
     if (C.cost != nullptr) C.cost[c] = best_cost;
   }
   if (C.rate != nullptr)
     for (int m = 0; m < 3; ++m)
-      if (m < nm && t == m) C.rate[(size_t)m * C.cols + c] = acc[3 + m];
+      if (m < nm && tl == m) C.rate[(size_t)m * C.cols + c] = acc[3 + m];
+}
+
+__global__ void __launch_bounds__(NT) part_code_kernel(CodeJobs J) {
+  int k = 0;
+  while (k + 1 < MAXJ && (int)blockIdx.x >= J.first[k + 1]) ++k;
+  const CodeJob& C = J.j[k];
+  __shared__ float s_tab[KEEP_ALWAYS];
+  __shared__ float s_red[6 * NW];
+  __shared__ long long s_lred[NW];
+  const int b = blockIdx.x - J.first[k];
+  switch (C.s.n) {
+    case 8:
+      code_columns<8>(C, CodeLayout<8>::COLS * b, s_tab, s_red, s_lred);
+      break;
+    case 16: code_columns<16>(C, b, s_tab, s_red, s_lred); break;
+    case 32: code_columns<32>(C, b, s_tab, s_red, s_lred); break;
+    default: code_columns<64>(C, b, s_tab, s_red, s_lred); break;
+  }
 }
 
 // ---- part_merge: one block per superblock column of a plane ----
@@ -469,8 +676,8 @@ __global__ void __launch_bounds__(NT) part_merge_kernel(MergeJobs J) {
     for (int p = t; p < ncm; p += NT)
       rt[2] = __fadd_rn(rt[2], level_rate(
           M.lv_m[((size_t)R * cols_m + cm) * ncm + p]));
-    block_sum<2>(sse, s_lred);
-    block_sum<3>(rt, s_red);
+    group_sum<2>(sse, s_lred, NW);
+    group_sum<3>(rt, s_red, NW);
     if (t == 0) {
       const float d = __fadd_rn(__ll2float_rn(sse[0]), __ll2float_rn(sse[1]));
       M.cost_region[(size_t)M.half * cols_m + cm] = __fadd_rn(
@@ -506,6 +713,41 @@ __global__ void __launch_bounds__(NT) part_merge_kernel(MergeJobs J) {
 
 int err() { return (int)cudaGetLastError(); }
 
+// A site's CTAs and dynamic shared bytes (CodeLayout)
+int code_ctas(const CodeJob& j) {
+  const int cols = j.s.n == 8 ? CodeLayout<8>::COLS : 1;
+  return (j.cols + cols - 1) / cols;
+}
+
+int code_smem(const CodeJob& j) {
+  switch (j.s.n) {
+    case 8: return CodeLayout<8>::smem(j.s.nm, j.s.cost);
+    case 16: return CodeLayout<16>::smem(j.s.nm, j.s.cost);
+    case 32: return CodeLayout<32>::smem(j.s.nm, j.s.cost);
+    default: return CodeLayout<64>::smem(j.s.nm, j.s.cost);
+  }
+}
+
+// The jobs heaviest size first (stable), so that the CTAs of the slowest
+// columns start first; the flat grid covers exactly the jobs' CTAs.
+// Returns the grid's CTAs; *smem gets the launch's dynamic shared bytes.
+int code_plan(const CodeJob* jobs, int count, CodeJobs& J, int* smem) {
+  int order[MAXJ], n = 0;
+  for (int size = 64; size >= 8; size /= 2)
+    for (int k = 0; k < count; ++k)
+      if (jobs[k].s.n == size) order[n++] = k;
+  int total = 0;
+  *smem = 0;
+  for (int k = 0; k < n; ++k) {
+    J.j[k] = jobs[order[k]];
+    J.first[k] = total;
+    total += code_ctas(J.j[k]);
+    *smem = max(*smem, code_smem(J.j[k]));
+  }
+  for (int k = n; k <= MAXJ; ++k) J.first[k] = total;
+  return n == count ? total : -1;
+}
+
 }  // namespace
 
 extern "C" int av1_part_chain(const ChainJob* jobs, int count,
@@ -534,13 +776,29 @@ extern "C" int av1_part_code(const CodeJob* jobs, int count,
                              cudaStream_t stream) {
   if (count < 1 || count > MAXJ) return (int)cudaErrorInvalidValue;
   CodeJobs J;
-  int gx = 1;
-  for (int k = 0; k < count; ++k) {
-    J.j[k] = jobs[k];
-    gx = max(gx, jobs[k].cols);
-  }
-  part_code_kernel<<<dim3(gx, count), NT, 0, stream>>>(J);
+  int smem;
+  const int total = code_plan(jobs, count, J, &smem);
+  if (total < 1) return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      part_code_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      CodeLayout<64>::smem(1, 2));
+  if (attr != cudaSuccess) return (int)attr;
+  part_code_kernel<<<total, NT, smem, stream>>>(J);
   return err();
+}
+
+// part_code's launch of these jobs, for kernels/intra_part.py:code_ctas
+// and code_smem to check their mirrors against: out = {CTAs, dynamic
+// shared bytes, static shared bytes (cudaFuncGetAttributes)}.
+extern "C" int av1_part_code_layout(const CodeJob* jobs, int count,
+                                    int* out) {
+  if (count < 1 || count > MAXJ) return (int)cudaErrorInvalidValue;
+  CodeJobs J;
+  out[0] = code_plan(jobs, count, J, &out[1]);
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, part_code_kernel);
+  out[2] = (int)a.sharedSizeBytes;
+  return (int)e;
 }
 
 extern "C" int av1_part_merge(const MergeJob* jobs, int count,

@@ -81,18 +81,16 @@ __device__ void idct16(const u32* x, u32* o) {
   }
 }
 
-// ops/transforms.py:idct32
-__device__ void idct32(const u32* x, u32* o) {
-  u32 ev[16], e[16];
-  for (int i = 0; i < 16; ++i) ev[i] = x[2 * i];
-  idct16(ev, e);
-  const int oi[16] = {1, 17, 9, 25, 5, 21, 13, 29,
-                      3, 19, 11, 27, 7, 23, 15, 31};
+// The odd half of ops/transforms.py:idct32: z from the odd inputs
+// xo[j] = x[2 j + 1]; idct32 adds it to idct16 of the even inputs.
+__device__ void idct32_odd(const u32* xo, u32* z) {
+  const int oi[16] = {0, 8, 4, 12, 2, 10, 6, 14,
+                      1, 9, 5, 13, 3, 11, 7, 15};
   const int ang[8][2] = {{62, 2}, {30, 34}, {46, 18}, {14, 50},
                          {54, 10}, {22, 42}, {38, 26}, {6, 58}};
   u32 s[16];
   for (int k = 0; k < 8; ++k) {
-    const u32 lo = x[oi[k]], hi = x[oi[15 - k]];
+    const u32 lo = xo[oi[k]], hi = xo[oi[15 - k]];
     s[k] = btf(C(ang[k][0]), lo, -C(ang[k][1]), hi);
     s[15 - k] = btf(C(ang[k][1]), lo, C(ang[k][0]), hi);
   }
@@ -133,12 +131,22 @@ __device__ void idct32(const u32* x, u32* o) {
                      w[15] - w[8], w[14] - w[9], w[13] - w[10],
                      w[12] - w[11], w[11] + w[12], w[10] + w[13],
                      w[9] + w[14], w[8] + w[15]};
-  u32 z[16];
   for (int i = 0; i < 16; ++i) z[i] = y[i];
   for (int i = 4; i < 8; ++i) {
     z[i] = btf(-C(32), y[i], C(32), y[15 - i]);
     z[15 - i] = btf(C(32), y[i], C(32), y[15 - i]);
   }
+}
+
+// ops/transforms.py:idct32
+__device__ void idct32(const u32* x, u32* o) {
+  u32 ev[16], e[16], od[16], z[16];
+  for (int i = 0; i < 16; ++i) {
+    ev[i] = x[2 * i];
+    od[i] = x[2 * i + 1];
+  }
+  idct16(ev, e);
+  idct32_odd(od, z);
   for (int i = 0; i < 16; ++i) {
     o[i] = e[i] + z[15 - i];
     o[16 + i] = e[15 - i] - z[i];
@@ -154,14 +162,13 @@ __device__ __forceinline__ int brev(int v, int bits) {
   return out;
 }
 
-// ops/transforms.py:idct64, the generic odd-half recursion (every angle
-// it reads lies in [0, 64], where cos128 is the table itself)
-__device__ void idct64(const u32* x, u32* o) {
-  u32 ev[32], e[32];
-  for (int i = 0; i < 32; ++i) ev[i] = x[2 * i];
-  idct32(ev, e);
-  u32 a[32], b[32];
-  for (int k = 0; k < 32; ++k) b[k] = x[2 * brev(k, 5) + 1];
+// The odd half of ops/transforms.py:idct64 (the generic odd-half
+// recursion; every angle it reads lies in [0, 64], where cos128 is the
+// table itself): a from the odd inputs xo[j] = x[2 j + 1]; idct64 adds it
+// to idct32 of the even inputs.
+__device__ void idct64_odd(const u32* xo, u32* a) {
+  u32 b[32];
+  for (int k = 0; k < 32; ++k) b[k] = xo[brev(k, 5)];
   for (int k = 0; k < 16; ++k) {
     const int a2 = 2 * brev(k, 5) + 1;
     const u32 lo = b[k], hi = b[31 - k];
@@ -202,6 +209,17 @@ __device__ void idct64(const u32* x, u32* o) {
       }
     }
   }
+}
+
+// ops/transforms.py:idct64
+__device__ void idct64(const u32* x, u32* o) {
+  u32 ev[32], e[32], od[32], a[32];
+  for (int i = 0; i < 32; ++i) {
+    ev[i] = x[2 * i];
+    od[i] = x[2 * i + 1];
+  }
+  idct32(ev, e);
+  idct64_odd(od, a);
   for (int i = 0; i < 32; ++i) {
     o[i] = e[i] + a[31 - i];
     o[32 + i] = e[31 - i] - a[i];

@@ -447,6 +447,9 @@ part_pred.launches = 0
 def _code_shape(j: CodeJob):
     s = j.site
     n, nm, nc, dev = s.n, s.nm, s.nc, s.device
+    if nm != 1 and n in (8, 64):
+        raise ValueError(f"part_code: a {n}x{n} site codes V_PRED alone "
+                         f"(nm 1), got nm {nm}")
     if j.src.dim() != 2 or j.src.shape[0] != n or j.src.shape[1] % n:
         raise ValueError(f"src: expected ({n}, width), width a multiple "
                          f"of {n}, got {tuple(j.src.shape)}")
@@ -553,8 +556,32 @@ def _code_group_plain(group) -> None:
                 lv[0].reshape(cols, -1), 1))
 
 
+# part_code's kernel: 8x8 columns per CTA (each on two warps); one column
+# a CTA at the other sizes (csrc/intra_part.cu:CodeLayout)
+CODE_COLS = {8: 4, 16: 1, 32: 1, 64: 1}
+
+
+def code_ctas(jobs) -> int:
+    """The CTAs of part_code's launch on these jobs (its flat grid)."""
+    return sum(-(-j.lv.shape[0] // CODE_COLS[j.site.n]) for j in jobs)
+
+
+def code_smem(jobs) -> int:
+    """The launch's dynamic shared bytes per CTA: the most any job's size
+    needs, per column the block and its scratch (n x (n + 1) words each),
+    the candidates' predictions and, for the pixel cost, the source, and
+    the candidates' coefficients."""
+    def column(s):
+        return (2 * s.n * (s.n + 1) + (s.nm + (s.cost == COST_PIXEL))
+                * s.n ** 2 + s.nm * min(s.n, 32) ** 2)
+
+    return max(4 * CODE_COLS[j.site.n] * column(j.site) for j in jobs)
+
+
 def part_code(jobs) -> None:
-    """jobs: 1 to 6 CodeJobs on one device, written in place."""
+    """jobs: 1 to 6 CodeJobs on one device, written in place.  On the card
+    the predictions and the source are read in 16-byte pieces: each must
+    start 16-byte aligned."""
     if not 1 <= len(jobs) <= 6:
         raise ValueError(f"part_code: 1 to 6 jobs, got {len(jobs)}")
     shapes = [_code_shape(j) for j in jobs]
@@ -563,6 +590,11 @@ def part_code(jobs) -> None:
         raise ValueError(f"part_code: jobs on several devices {devs}")
     if not _on_card(devs.pop()):
         return part_code_plain(jobs)
+    for j in jobs:
+        for name in ("pred", "src"):
+            if getattr(j, name).data_ptr() % 16:
+                raise ValueError(f"part_code: {name} is not 16-byte "
+                                 "aligned")
     _launch(_lib().av1_part_code, CodeJobC, [
         CodeJobC(s=j.site.c, coefs=_ptr(j.coefs), pred=_ptr(j.pred),
                  src=_ptr(j.src), lv=_ptr(j.lv), rec=_ptr(j.rec),

@@ -296,17 +296,13 @@ def deblock_planes(y, u, v, v_on16, h_on16, lvl_y: int, lvl_u: int,
     every edge's read/modify region is disjoint from the outer passes'
     regions, so this equals the sequential in-place edge walk.
 
-    Each direction of each plane whose level is above 0 is one call of
-    kernels/deblock.py:deblock_edges (on the card, one kernel launch)."""
+    Each plane whose level is above 0 is one call of
+    kernels/deblock.py:deblock_edges, both directions (on the card, one
+    kernel launch)."""
     s = split16.to(torch.bool) if split16 is not None else None
     out = []
     for plane, lvl, luma in ((y, lvl_y, True), (u, lvl_u, False),
                              (v, lvl_v, False)):
-        if lvl <= 0:
-            out.append(plane)
-            continue
-        p = deblock_edges(plane, v_on16, lvl, sharpness,
-                          bit_depth, luma, True, s)
-        out.append(deblock_edges(p, h_on16, lvl, sharpness, bit_depth, luma,
-                                 False, s))
+        out.append(deblock_edges(plane, v_on16, h_on16, lvl, sharpness,
+                                 bit_depth, luma, s) if lvl > 0 else plane)
     return tuple(out)

@@ -67,16 +67,19 @@ exits non-zero:
    with a temporal base and at the temporal filter's lambda: every output
    equal (mv8, mv_px, pred_y, p40, coarse, coarse2, shifts4, c0, g_full,
    sad_g), any differing block printed with both values; (b)
-   deblock_planes through deblock_edges and through its plain version on
-   the quality step's recon (edge gates and split16), the fast step's
-   recon and a 10-bit frame: every pixel equal; (c) each wrapper's device
-   time per call and per launch, per search and per frame, the plain
-   versions' time, and the bounds (search_bounds: the larger of bytes and
-   int32 operations at the card's int32 rate, both printed;
+   deblock_planes through deblock_edges (one launch per plane, both
+   directions) and through its plain version on the quality step's recon
+   (edge gates and split16), the fast step's recon and a 10-bit frame:
+   every pixel equal; (c) each wrapper's device time per call and per
+   launch, per search and per frame (deblock per plane, deblock_times),
+   the plain versions' time, and the bounds (search_bounds: the larger of
+   bytes and int32 operations at the card's int32 rate, both printed;
    deblock_bounds: bytes, integer work not counted); coarse_search's
-   three launches one by one (torch.profiler, kernel_us_by_name).  Where
-   $AV1TPU_SMOKE_OUT is set, the inter frame's pair, lambda and peak go to
-   search_inputs.pt there, for tools/search_compare.py --inputs;
+   three launches one by one (torch.profiler, kernel_us_by_name); the
+   -Xptxas -v lines of deblock_kernel.  Where $AV1TPU_SMOKE_OUT is set,
+   the inter frame's pair, lambda and peak go to search_inputs.pt there,
+   for tools/search_compare.py --inputs, and the quality step's deblock
+   planes, maps and levels to deblock_inputs.pt, for --deblock;
 7e. probe kernels vs plain, on phase 7's probed frame at its q and on a
    10-bit frame made from it (probe_vs_plain): (a) every call of the four
    probe kernels (part_chain, part_pred, part_code, part_merge) beside its
@@ -87,10 +90,16 @@ exits non-zero:
    pixels (at most 0.1% of the decisions); (c) per kernel, the 8-bit
    frame's calls replayed: device time per probed frame (queued behind a
    sleep kernel), launches per frame, the plain version's time and the
-   bound (part_bounds), part_chain's serial depth; (d) the probe's host
+   bound (part_bounds), part_chain's serial depth; part_code per launch
+   kind (code_kinds: device time per launch and per frame, launches,
+   columns, CTAs with work, each site's jobs alone, the columns per site
+   whose chosen candidate has no level) and the -Xptxas -v lines of
+   part_code_kernel; (d) the probe's host
    time with the kernels and with the plain versions, and its device busy
    time with the kernels (torch.profiler: its launches overfill the launch
-   queue, so it cannot wait behind a sleep kernel);
+   queue, so it cannot wait behind a sleep kernel).  Where
+   $AV1TPU_SMOKE_OUT is set, the 8-bit frame's planes and q go to
+   probe_inputs.pt there, for tools/search_compare.py --probe;
 8. modes parity: phase 4 again (quality preset) in the command's other
    modes: the default metric, tpu_vmaf (its score within 1e-3, and once
    more under torch.backends.cudnn.flags(allow_tf32=True): the metric
@@ -167,7 +176,7 @@ all-intra paths.  Those of the motion search's three kernels and of
 deblock_edges likewise (search_deblock_want): 3 + 3 + 2 launches per
 search, one search per inter frame and one per temporal filter neighbour
 (7 per scene of more than one frame, in the process that plans the
-scenes: the scene batch's parent); 2 deblock_edges launches per plane
+scenes: the scene batch's parent); one deblock_edges launch per plane
 whose level is not 0, on the fast keyframe and every reference inter
 frame; none on the all-intra paths.  Those of the probe's four kernels
 equal models/intra_part.part_launches at the coded size times the path's
@@ -322,7 +331,7 @@ def search_deblock_want(scenes, preset: str, layered: bool = False,
     temporal filter (7 per scene of more than one frame, in the process
     that plans the scenes) and, with inter, one per inter frame; each
     search launches COARSE_LAUNCHES + GLOBAL_LAUNCHES + REFINE_LAUNCHES
-    kernels.  One deblock_edges launch per direction of each plane whose
+    kernels.  One deblock_edges launch (both directions) per plane whose
     level (models/deblock.py:lf_levels) is not 0, on the fast preset's
     keyframe (the wavefront keyframe signals its loop filter off) and on
     every reference inter frame.  The all-intra chunks run neither."""
@@ -346,7 +355,7 @@ def search_deblock_want(scenes, preset: str, layered: bool = False,
     return {"coarse_search": motion.COARSE_LAUNCHES * searches,
             "global_search": motion.GLOBAL_LAUNCHES * searches,
             "refine_subpel": motion.REFINE_LAUNCHES * searches,
-            "deblock_edges": 2 * filtered}
+            "deblock_edges": filtered}
 
 
 def inter_want(scenes, preset: str, layered: bool = False,
@@ -1311,15 +1320,19 @@ def search_bounds(h: int, w: int, nbases: int = 2) -> dict:
     return out
 
 
-def deblock_bounds(h: int, w: int, split: bool) -> tuple[float, str]:
+def deblock_bounds(h: int, w: int, luma: bool, split: bool,
+                   directions: int = 2) -> tuple[float, str]:
     """Least time of one deblock_edges launch on an h x w int32 plane, in
     us: its bytes at the memory rate (the plane read once and written
-    once, the edge map and the split map read once, one byte per 16-grid
-    edge or block).  All of its work is integer, which no fp32 or tensor
-    peak counts, so bytes bound it; the integer operations are not
-    counted."""
-    nblk = (h // 16) * (w // 16)
-    nbytes = 2 * 4 * h * w + nblk + (nblk if split else 0)
+    once, each direction's edge map and the split map read once, one byte
+    per edge or block of the block grid).  All of its work is integer,
+    which no fp32 or tensor peak counts, so bytes bound it; the integer
+    operations are not counted.  directions 1: a launch of one direction
+    (an older checkout's kernel, timed by tools/search_compare.py
+    --root)."""
+    nb = 16 if luma else 8
+    nblk = (h // nb) * (w // nb)
+    nbytes = 2 * 4 * h * w + directions * nblk + (nblk if split else 0)
     return nbytes / PEAK_BYTES * 1e6, "bytes"
 
 
@@ -1337,13 +1350,76 @@ def plain_search_deblock():
     saved = [getattr(inter_v, n) for n in names] + [mdeblock.deblock_edges]
     for n in names:
         setattr(inter_v, n, getattr(motion, n + "_plain"))
-    mdeblock.deblock_edges = kdeblock.deblock_edges_plain
+    mdeblock.deblock_edges = kdeblock.deblock_plane_plain
     try:
         yield
     finally:
         for n, f in zip(names, saved):
             setattr(inter_v, n, f)
         mdeblock.deblock_edges = saved[-1]
+
+
+def deblock_times(torch, kdeblock, planes, v_on, h_on, levels, bd: int,
+                  split16, plain: bool = True) -> list:
+    """One timing of deblock_edges of the module kdeblock (a checkout's
+    kernels/deblock.py) on one frame's planes (y, u, v) with their levels:
+    a dict per launch (plane, direction: "both", or "vertical" and
+    "horizontal" for an older checkout's one-direction kernel, device us
+    queued behind a sleep, the plain version's median event ms where
+    plain, the bound).  Phase 7d and tools/search_compare.py --deblock
+    time with it."""
+    import inspect
+
+    both = "h_on16" in inspect.signature(kdeblock.deblock_edges).parameters
+    out = []
+    for name, plane, lvl, luma in zip("yuv", planes, levels,
+                                      (True, False, False)):
+        if lvl <= 0:
+            continue
+        plane = plane.contiguous()
+        if both:
+            runs = [("both", (plane, v_on, h_on, lvl, 0, bd, luma, split16),
+                     kdeblock.deblock_plane_plain if plain else None)]
+        else:
+            runs = [(d, (plane, on, lvl, 0, bd, luma, d == "vertical",
+                         split16), kdeblock.deblock_edges_plain if plain
+                     else None)
+                    for d, on in (("vertical", v_on), ("horizontal", h_on))]
+        for direction, args, slow in runs:
+            dev_us = device_us(torch, lambda: kdeblock.deblock_edges(*args),
+                               200)
+            bound, by = deblock_bounds(*plane.shape, luma,
+                                       split16 is not None,
+                                       2 if both else 1)
+            out.append(dict(
+                plane=name, shape=list(plane.shape), direction=direction,
+                device_us=dev_us, bound_us=bound, bound_by=by,
+                plain_ms=(_median_ms(torch, lambda: slow(*args), n=5)
+                          if slow is not None else None)))
+    return out
+
+
+def ptxas_report(log: str, names) -> list:
+    """The -Xptxas -v lines of the kernels whose (mangled) names contain
+    one of `names`: one line per kernel with its registers, stack frame,
+    spill stores and loads and shared memory, from nvcc's build log."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)'?", line)
+        if m:
+            cur = m.group(1) if any(n in m.group(1) for n in names) else None
+            if cur and "Compiling" in line:
+                out.append([cur, []])
+            continue
+        if cur and out and out[-1][0] == cur and re.search(
+                r"stack frame|spill|Used \d+ registers", line):
+            out[-1][1].append(line.split(":", 1)[-1].strip()
+                              if "ptxas" in line else line.strip())
+    return [f"{k}: {'; '.join(v)}" for k, v in out]
+
+
+BUILD_LOG = ""          # nvcc's output of this run's build (main)
 
 
 def search_times(torch, motion, y, ref_y, lam, pm,
@@ -1526,35 +1602,33 @@ def search_deblock_vs_plain(torch, gop_args, tf_args) -> dict:
           f"device {tot['ms']:.4f} ms, plain {tot['plain_ms']:.3f} ms, bound "
           f"{tot['bound_ms']:.5f} ms", flush=True)
     a, k = db_cases["quality"]
-    per_frame = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
-    launch = []
     s16 = k["split16"].to(torch.bool).contiguous()
-    for plane, lvl, luma in zip(a[:3], a[5:8], (True, False, False)):
-        for vertical, on in ((True, a[3]), (False, a[4])):
-            args = (plane.contiguous(), on.contiguous(), lvl, 0, bd, luma,
-                    vertical, s16)
-            dev_us = device_us(torch, lambda: kdeblock.deblock_edges(*args),
-                               200)
-            plain_ms = _median_ms(torch, lambda: kdeblock.deblock_edges_plain(
-                *args), n=5)
-            bound, by = deblock_bounds(*plane.shape, True)
-            launch.append((plane.shape, vertical, dev_us, plain_ms, bound))
-            per_frame["ms"] += dev_us / 1e3
-            per_frame["plain_ms"] += plain_ms
-            per_frame["bound_ms"] += bound / 1e3
-    for shape, vertical, dev_us, plain_ms, bound in launch:
-        print(f"deblock_edges {shape[1]}x{shape[0]} "
-              f"{'vertical' if vertical else 'horizontal'}: device "
-              f"{dev_us:.3f} us, plain {plain_ms:.3f} ms, bound {bound:.4f} "
-              f"us (bytes; integer work not counted; roofline "
-              f"{bound / dev_us:.4f})", flush=True)
+    if out:          # the planes tools/search_compare.py --deblock times
+        torch.save({"planes": [p.cpu() for p in a[:3]], "v_on": a[3].cpu(),
+                    "h_on": a[4].cpu(), "levels": [int(x) for x in a[5:8]],
+                    "bit_depth": bd, "split16": s16.cpu()},
+                   os.path.join(out, "deblock_inputs.pt"))
+    launch = deblock_times(torch, kdeblock, a[:3], a[3].contiguous(),
+                           a[4].contiguous(), a[5:8], bd, s16)
+    per_frame = {"ms": sum(r["device_us"] for r in launch) / 1e3,
+                 "plain_ms": sum(r["plain_ms"] for r in launch),
+                 "bound_ms": sum(r["bound_us"] for r in launch) / 1e3}
+    for r in launch:
+        print(f"deblock_edges {r['plane']} {r['shape'][1]}x{r['shape'][0]} "
+              f"({r['direction']}): device {r['device_us']:.3f} us, plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_us']:.4f} us "
+              f"(bytes; integer work not counted; roofline "
+              f"{r['bound_us'] / r['device_us']:.4f})", flush=True)
     print(f"deblock_planes per quality frame ({len(launch)} launches): "
           f"device {per_frame['ms']:.4f} ms, plain "
           f"{per_frame['plain_ms']:.3f} ms, bound "
           f"{per_frame['bound_ms']:.5f} ms", flush=True)
+    for line in ptxas_report(BUILD_LOG, ("deblock_kernel",)):
+        print(f"-Xptxas -v {line}", flush=True)
     recs["deblock_edges"] = dict(
-        ms=launch[0][2] / 1e3, plain_ms=launch[0][3],
-        bound_ms=launch[0][4] / 1e3, bound_by="bytes",
+        ms=launch[0]["device_us"] / 1e3, plain_ms=launch[0]["plain_ms"],
+        bound_ms=launch[0]["bound_us"] / 1e3, bound_by="bytes",
+        per_plane_us={r["plane"]: r["device_us"] for r in launch},
         frame_ms=per_frame["ms"], plain_frame_ms=per_frame["plain_ms"],
         bound_frame_ms=per_frame["bound_ms"], max_abs_err=0,
         pixels_differ=db_px)
@@ -1856,6 +1930,74 @@ def part_bounds(calls: dict) -> dict:
     return out
 
 
+def site_label(site) -> str:
+    """A probe site's short name: y16, y32, y64 (luma, with a cost) or
+    c8, c16, c32 (chroma)."""
+    return ("y" if site.cost else "c") + str(site.n)
+
+
+def capture_code_calls(torch, planes, q: int, bd: int) -> list:
+    """The probe of one frame (models/intra_part.encode_intra_part of the
+    checkout on sys.path) with part_code's calls caught: each call's jobs,
+    their inputs (coefs, pred, src) copied as the call saw them, in
+    order."""
+    from av1tpu_torch.models import intra_part
+
+    calls, code = [], intra_part.part_code
+
+    def catch(jobs):
+        calls.append([j._replace(coefs=j.coefs.clone(), pred=j.pred.clone(),
+                                 src=j.src.clone()) for j in jobs])
+        return code(jobs)
+
+    intra_part.part_code = catch
+    try:
+        intra_part.encode_intra_part(*planes, q, bit_depth=bd)
+    finally:
+        intra_part.part_code = code
+    torch.cuda.synchronize()
+    return calls
+
+
+def code_kinds(torch, kpart, calls, reps: int = 5) -> list:
+    """part_code's calls of one probed frame grouped by launch kind (the
+    sites one launch codes, such as y16+y32+y64), each kind timed with
+    device_us (its calls of the frame queued behind a sleep kernel):
+    launches, device us per launch and per frame, the columns and the
+    CTAs with work (kpart.code_ctas where the checkout has it, else an
+    older checkout's one CTA per column), each site's jobs alone (us
+    per launch), and per site the columns whose chosen candidate has no
+    nonzero level (the kernel skips their inverse).  Phase 7e and
+    tools/search_compare.py --probe time with it."""
+    kinds: dict = {}
+    for jobs in calls:
+        key = "+".join(dict.fromkeys(site_label(j.site) for j in jobs))
+        kinds.setdefault(key, []).append(jobs)
+    ctas = getattr(kpart, "code_ctas",
+                   lambda jobs: sum(j.lv.shape[0] for j in jobs))
+    out = []
+    for key, group in kinds.items():
+        us = device_us(torch, lambda: [kpart.part_code(j) for j in group],
+                       reps, 4 * SLEEP_CYCLES)
+        rec = dict(kind=key, launches=len(group), device_us=us / len(group),
+                   frame_us=us, columns=sum(j.lv.shape[0] for jobs in group
+                                            for j in jobs),
+                   ctas=sum(ctas(jobs) for jobs in group), alone_us={},
+                   no_level={})
+        for label in key.split("+"):
+            sub = [[j for j in jobs if site_label(j.site) == label]
+                   for jobs in group]
+            rec["alone_us"][label] = device_us(
+                torch, lambda: [kpart.part_code(j) for j in sub], reps,
+                4 * SLEEP_CYCLES) / len(group)
+            rec["no_level"][label] = [
+                sum(int((j.lv.flatten(1) == 0).all(1).sum())
+                    for jobs in sub for j in jobs),
+                sum(j.lv.shape[0] for jobs in sub for j in jobs)]
+        out.append(rec)
+    return out
+
+
 def device_busy_ms(torch, fn) -> tuple[float, int, float]:
     """One fn() after a warm-up under torch.profiler (CUDA activity): the
     device's busy time in ms (the union of its kernels' intervals), the
@@ -2015,6 +2157,32 @@ def probe_vs_plain(torch, probe_args) -> dict:
                   "bound_ms": bound_us / 1e3, "bound_by": by,
                   "launches_per_frame": per_frame[n],
                   "decisions_differ": recs[n]["decisions"]}
+
+    # part_code per launch kind, on the 8-bit frame's calls
+    out_dir = os.environ.get("AV1TPU_SMOKE_OUT")
+    if out_dir:      # the frame tools/search_compare.py --probe times
+        os.makedirs(out_dir, exist_ok=True)
+        from av1tpu_torch.ops.transforms import built_forward_matrices
+
+        torch.save({"planes": [p.cpu() for p in (y, u, v)], "q": int(q),
+                    "bit_depth": bd}, os.path.join(out_dir,
+                                                   "probe_inputs.pt"))
+        # this process's forward matrices, which --probe then adopts
+        np.savez(os.path.join(out_dir, "probe_inputs_forward.npz"), **{
+            k if k == "fwd64" else "_".join(map(str, k)): m
+            for k, m in built_forward_matrices().items()})
+    kinds = code_kinds(torch, kpart, capture_code_calls(torch, (y, u, v), q,
+                                                        bd))
+    for r in kinds:
+        print(f"part_code {r['kind']}: {r['launches']} launches, device "
+              f"{r['device_us']:.3f} us a launch ({r['frame_us']:.3f} us per "
+              f"frame), {r['columns']} columns, {r['ctas']} CTAs with work; "
+              f"alone {r['alone_us']}; columns without a level "
+              f"{r['no_level']}", flush=True)
+    out["part_code"]["per_kind_us"] = {r["kind"]: r["device_us"]
+                                       for r in kinds}
+    for line in ptxas_report(BUILD_LOG, ("part_code_kernel",)):
+        print(f"-Xptxas -v {line}", flush=True)
 
     # (d) the probe's host and device time, kernels and plain versions
     def probe():
@@ -2694,6 +2862,7 @@ def container_1080p(torch, tmp: str, out_dir: str, tool,
 
 
 def main() -> int:
+    global BUILD_LOG
     import torch
 
     if not torch.cuda.is_available():
@@ -2716,6 +2885,7 @@ def main() -> int:
             *((_build.av1_tool_path, _build.daemon_path) if libav else ()))]
         _, log = _build.build_cuda()
         print(log.strip(), flush=True)
+        BUILD_LOG = log
         built = [f.result() for f in builds]
     tool, daemon = built[1:] if libav else (None, None)
     _phase("build", t)

@@ -557,9 +557,10 @@ def test_motion_kernels_reject_bad_inputs(dev):
         motion.refine_subpel(y, r, [c1, c2], c0, g, sg, lam, 511)
 
 
-def _deblock_planes_case(dev, bd, h, w, seed):
+def _deblock_planes_case(dev, bd, h, w, seed, p_on=0.8, p_split=0.3):
     """Blocky planes (4x4 cells on a coarse grid, small noise: every filter
-    branch fires), random edge gates and a random split map."""
+    branch fires), random edge gates and a random split map (all on and
+    all split at p_on = p_split = 1)."""
     rng = np.random.RandomState(seed)
     pm = (1 << bd) - 1
 
@@ -572,46 +573,54 @@ def _deblock_planes_case(dev, bd, h, w, seed):
     planes = [torch.from_numpy(p.astype(np.int32)).to(dev) for p in (
         plane(h, w), plane(h // 2, w // 2), plane(h // 2, w // 2))]
     maps = [torch.from_numpy(m).to(dev) for m in (
-        rng.rand(rows, cols - 1) < 0.8, rng.rand(rows - 1, cols) < 0.8,
-        rng.rand(rows, cols) < 0.3)]
+        rng.rand(rows, cols - 1) < p_on, rng.rand(rows - 1, cols) < p_on,
+        rng.rand(rows, cols) < p_split)]
     return planes, maps
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bd", [8, 10])
 def test_deblock_edges_matches_plain(dev, bd):
-    """deblock_edges against its plain version on the card, bit for bit
-    (all integer): luma and chroma, both directions, with and without the
-    split map, levels from 1 to 63, sharpness 0 and 5, at 1088x1920 and a
-    frame of 2x3 blocks; and deblock_planes through the kernel against
+    """deblock_edges (both directions of a plane, one launch) against its
+    plain version on the card, bit for bit (all integer): luma and chroma,
+    with and without the split map, levels from 1 to 63, sharpness 0 and
+    5, at 1088x1920, at sizes that are no multiple of the kernel's tiles
+    (1088x1936 with 544x968 chroma, 48x80), a frame of 2x3 blocks and one
+    of two blocks each way; every edge on and every block split at levels
+    1, 32 and 63; and deblock_planes through the kernel against
     deblock_planes through the plain version."""
     from av1tpu_torch.kernels import deblock as kdeblock
     from av1tpu_torch.models import deblock as mdeblock
 
-    for (h, w), seed in (((1088, 1920), 1), ((32, 48), 2)):
-        (y, u, v), (von, hon, s16) = _deblock_planes_case(dev, bd, h, w,
-                                                          seed)
+    levels = ((1, 0), (12, 0), (32, 0), (40, 5), (63, 0))
+    for (h, w), seed, p_on, p_split, lv in (
+            ((1088, 1920), 1, 0.8, 0.3, levels),
+            ((1088, 1936), 3, 0.8, 0.3, levels),
+            ((48, 80), 4, 0.8, 0.3, levels),
+            ((32, 48), 2, 0.8, 0.3, levels),
+            ((32, 32), 5, 0.8, 0.3, levels),
+            ((1088, 1936), 6, 1.0, 1.0, ((1, 0), (32, 0), (63, 0))),
+            ((64, 96), 7, 1.0, 1.0, ((1, 0), (32, 0), (63, 0)))):
+        (y, u, v), (von, hon, s16) = _deblock_planes_case(
+            dev, bd, h, w, seed, p_on, p_split)
         for plane, luma in ((y, True), (u, False)):
-            for vertical in (True, False):
-                on = von if vertical else hon
-                for split in (None, s16):
-                    for lvl, sharp in ((1, 0), (12, 0), (40, 5), (63, 0)):
-                        before = kdeblock.deblock_edges.launches
-                        got = kdeblock.deblock_edges(plane, on, lvl, sharp,
-                                                     bd, luma, vertical,
-                                                     split)
-                        torch.cuda.synchronize()
-                        assert kdeblock.deblock_edges.launches == before + 1
-                        want = kdeblock.deblock_edges_plain(
-                            plane, on, lvl, sharp, bd, luma, vertical, split)
-                        assert torch.equal(got, want), (
-                            h, w, luma, vertical, split is None, lvl, sharp,
-                            int((got != want).sum()))
+            for split in (None, s16):
+                for lvl, sharp in lv:
+                    before = kdeblock.deblock_edges.launches
+                    got = kdeblock.deblock_edges(plane, von, hon, lvl, sharp,
+                                                 bd, luma, split)
+                    torch.cuda.synchronize()
+                    assert kdeblock.deblock_edges.launches == before + 1
+                    want = kdeblock.deblock_plane_plain(
+                        plane, von, hon, lvl, sharp, bd, luma, split)
+                    assert torch.equal(got, want), (
+                        h, w, luma, split is None, lvl, sharp,
+                        int((got != want).sum()))
         for split in (None, s16):
             got = mdeblock.deblock_planes(y, u, v, von, hon, 20, 20, 10, 0,
                                           bd, split16=split)
             saved = mdeblock.deblock_edges
-            mdeblock.deblock_edges = kdeblock.deblock_edges_plain
+            mdeblock.deblock_edges = kdeblock.deblock_plane_plain
             try:
                 want = mdeblock.deblock_planes(y, u, v, von, hon, 20, 20, 10,
                                                0, bd, split16=split)
@@ -626,21 +635,39 @@ def test_deblock_edges_rejects_bad_inputs(dev):
     from av1tpu_torch.kernels.deblock import deblock_edges
 
     (y, _, _), (von, hon, s16) = _deblock_planes_case(dev, 8, 64, 96, 0)
-    deblock_edges(y, von, 12, 0, 8, True, True, s16)
+    deblock_edges(y, von, hon, 12, 0, 8, True, s16)
     with pytest.raises(ValueError):                 # level 0: no call
-        deblock_edges(y, von, 0, 0, 8, True, True, s16)
+        deblock_edges(y, von, hon, 0, 0, 8, True, s16)
     with pytest.raises(TypeError):                  # int16 plane
-        deblock_edges(y.short(), von, 12, 0, 8, True, True, s16)
-    with pytest.raises(ValueError):                 # the edge map's shape
-        deblock_edges(y, hon, 12, 0, 8, True, True, s16)
+        deblock_edges(y.short(), von, hon, 12, 0, 8, True, s16)
+    with pytest.raises(ValueError):                 # the edge maps swapped
+        deblock_edges(y, hon, von, 12, 0, 8, True, s16)
     with pytest.raises(TypeError):                  # an int split map
-        deblock_edges(y, von, 12, 0, 8, True, True, s16.int())
+        deblock_edges(y, von, hon, 12, 0, 8, True, s16.int())
     with pytest.raises(ValueError):                 # mixed devices
-        deblock_edges(y, von.cpu(), 12, 0, 8, True, True, s16)
+        deblock_edges(y, von.cpu(), hon, 12, 0, 8, True, s16)
     with pytest.raises(ValueError):                 # not contiguous
-        deblock_edges(y.t().contiguous().t(), von, 12, 0, 8, True, True, s16)
+        deblock_edges(y.t().contiguous().t(), von, hon, 12, 0, 8, True, s16)
     with pytest.raises(ValueError):                 # not a multiple of 16
-        deblock_edges(y[:, :88].contiguous(), von, 12, 0, 8, True, True, s16)
+        deblock_edges(y[:, :88].contiguous(), von, hon, 12, 0, 8, True, s16)
+    with pytest.raises(ValueError):                 # not 16-byte aligned
+        deblock_edges(torch.cat([y.flatten()[:1], y.flatten()])[1:].view(
+            64, 96), von, hon, 12, 0, 8, True, s16)
+
+
+@pytest.mark.cuda
+def test_deblock_layout_matches_the_library(dev):
+    """kernels/deblock.py:deblock_layout, the Python mirror of the
+    kernel's tiles, equals csrc/deblock.cu's (av1_deblock_layout)."""
+    import ctypes
+
+    from av1tpu_torch._build import cuda_lib
+    from av1tpu_torch.kernels.deblock import deblock_layout
+
+    for luma in (True, False):
+        out = (ctypes.c_int * 7)()
+        assert cuda_lib().av1_deblock_layout(int(luma), out) == 0
+        assert tuple(out) == tuple(deblock_layout(luma))
 
 
 PARTS = ("part_chain", "part_pred", "part_code", "part_merge")
@@ -676,6 +703,107 @@ def test_probe_kernels_match_plain(dev, bd, q):
         assert got[k].dtype == want[k].dtype, k
         assert torch.equal(got[k], want[k]), (k, int((got[k] != want[k])
                                                      .sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bd", [8, 10])
+def test_probe_flat_and_narrow_frames_match_plain(dev, bd):
+    """part_code beside part_code_plain on every call of the probe, on a
+    flat frame (the prediction is the source: every column of every site,
+    the 64 and 32 ones included, has no level and skips its inverse) and
+    on a frame one superblock wide (64 px, three superblock rows): the
+    levels, recon, modes and rates of every call equal (==), and every
+    output of encode_intra_part equal to the probe through the plain
+    versions."""
+    from av1tpu_torch.kernels import intra_part as kpart
+    from av1tpu_torch.models import intra_part
+
+    # the first row's prediction, (1 << (bd - 1)) - 1, everywhere
+    flat = [torch.full((h, w), (1 << (bd - 1)) - 1, dtype=torch.int32,
+                       device=dev) for h, w in ((256, 384), (128, 192),
+                                                (128, 192))]
+    for planes, q in ((flat, 72), (_wave_planes(bd, dev, w=64, h=192,
+                                                seed=9), 40)):
+        seen = {"columns": 0, "skipped": 0}
+        code = intra_part.part_code
+
+        def both(jobs):
+            copies = [j._replace(**{k: v.clone() for k, v in
+                                    j._asdict().items()
+                                    if isinstance(v, torch.Tensor)})
+                      for j in jobs]
+            kpart.part_code_plain(copies)
+            code(jobs)
+            torch.cuda.synchronize()
+            # before a later merge rewrites the recon bands
+            for j, p in zip(jobs, copies):
+                for k in ("lv", "rec", "modes", "rate"):
+                    a = getattr(j, k)
+                    if a is not None:
+                        assert torch.equal(a, getattr(p, k)), (
+                            k, j.site.n, int((a != getattr(p, k)).sum()))
+                seen["columns"] += j.lv.shape[0]
+                seen["skipped"] += int((j.lv.flatten(1) == 0).all(1).sum())
+
+        intra_part.part_code = both
+        try:
+            got = intra_part.encode_intra_part(*planes, q, bit_depth=bd)
+        finally:
+            intra_part.part_code = code
+        torch.cuda.synchronize()
+        if planes is flat:      # every column of every site skips
+            assert seen["skipped"] == seen["columns"] > 0, seen
+        saved = {n: getattr(intra_part, n) for n in PARTS}
+        try:
+            for n in PARTS:
+                setattr(intra_part, n, getattr(kpart, n + "_plain"))
+            want = intra_part.encode_intra_part(*planes, q, bit_depth=bd)
+        finally:
+            for n, f in saved.items():
+                setattr(intra_part, n, f)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (k, int((got[k] != want[k])
+                                                        .sum()))
+
+
+@pytest.mark.cuda
+def test_part_code_layout_matches_the_library(dev):
+    """kernels/intra_part.py:code_ctas and code_smem, the Python mirrors
+    of part_code's launch, equal the library's (av1_part_code_layout) on
+    every launch kind of the probe at 1088x1920 (U and V together), and the
+    shared memory per CTA stays within the card's 232,448 bytes."""
+    import ctypes
+
+    from av1tpu_torch.kernels import intra_part as kpart
+    from av1tpu_torch.models import intra_part
+
+    calls = []
+    code = intra_part.part_code
+
+    def catch(jobs):
+        calls.append(list(jobs))
+        return code(jobs)
+
+    intra_part.part_code = catch
+    try:
+        intra_part.encode_intra_part(*_wave_planes(8, dev, w=1920, h=1088,
+                                                   seed=3), 72)
+    finally:
+        intra_part.part_code = code
+    kinds = {}
+    for jobs in calls:
+        kinds.setdefault(tuple(j.site.n for j in jobs), jobs)
+    assert len(kinds) == 6
+    for jobs in kinds.values():
+        arr = (kpart.CodeJobC * len(jobs))(*[kpart.CodeJobC(
+            s=j.site.c, coefs=j.coefs.data_ptr(), pred=j.pred.data_ptr(),
+            src=j.src.data_ptr(), lv=j.lv.data_ptr(), rec=j.rec.data_ptr(),
+            cols=j.lv.shape[0], width=j.src.shape[1]) for j in jobs])
+        out = (ctypes.c_int * 3)()
+        assert kpart._lib().av1_part_code_layout(arr, len(jobs), out) == 0
+        assert (out[0], out[1]) == (kpart.code_ctas(jobs),
+                                    kpart.code_smem(jobs))
+        assert out[1] + out[2] <= 232_448
 
 
 @pytest.mark.cuda

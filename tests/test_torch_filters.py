@@ -234,3 +234,98 @@ def test_median_averages_the_middle_pair():
     x = torch.tensor([4.0, 1.0, 3.0, 2.0])
     assert float(tfilter._median(x)) == 2.5
     assert float(tfilter._median(x[:3])) == 3.0
+
+
+# ---- deblock_edges' launch geometry (kernels/deblock.py mirrors
+# csrc/deblock.cu's tiles; tests/test_torch_cuda.py holds the mirror to the
+# library) ----
+
+@pytest.mark.parametrize("h,w,luma", [
+    (1088, 1920, True), (544, 960, False), (1088, 1936, True),
+    (544, 968, False), (48, 80, True), (48, 80, False), (32, 32, True),
+    (16, 16, False)])
+def test_deblock_tiles_cover_every_pixel_once(h, w, luma):
+    """At the main path's shapes and ragged ones: the tiles' outputs cover
+    every pixel exactly once, each tile loads TAPS rows and at least TAPS
+    columns (whole 16-byte loads) beyond its output on every side, its
+    columns are whole warps of 32 (the copy-out's int4s), a warp per block
+    boundary of its columns, the row stride is odd, and a CTA's shared
+    memory is within the card's 232,448 bytes."""
+    from av1tpu_torch.kernels.deblock import deblock_layout, deblock_tiles
+
+    L = deblock_layout(luma)
+    nb, taps = (16, 7) if luma else (8, 3)
+    assert L.taps == taps and L.hl >= taps and L.hl % 4 == 0
+    assert L.th % nb == 0 and L.tw % 32 == 0
+    assert L.threads == 32 * (L.tw // nb + 1)     # a warp per boundary
+    assert L.stride % 2 == 1 and L.stride >= L.tw + 2 * L.hl
+    assert L.smem == 4 * L.stride * (L.th + 2 * taps) <= 232_448
+    cover = np.zeros((h, w), np.int32)
+    for (r0, c0, th, tw), (y0, y1, x0, x1) in deblock_tiles(h, w, luma):
+        assert th % nb == 0 and tw % nb == 0 and th > 0 and tw > 0
+        assert (y0, y1, x0, x1) == (r0 - taps, r0 + L.th + taps,
+                                    c0 - L.hl, c0 + L.tw + L.hl)
+        cover[r0:r0 + th, c0:c0 + tw] += 1
+    assert (cover == 1).all()
+
+
+def _tiled_plain(plane, v_on, h_on, lvl, bd, luma, s16, th, tw):
+    """deblock_plane_plain run tile by tile on windows one block beyond
+    each th x tw tile (more than the TAPS rows and columns the kernel's
+    tiles load), each tile's output kept: the halo argument of
+    csrc/deblock.cu, with the plain arithmetic."""
+    from av1tpu_torch.kernels.deblock import deblock_plane_plain
+
+    nb = 16 if luma else 8
+    h, w = plane.shape
+    out = torch.empty_like(plane)
+    for r0 in range(0, h, th):
+        for c0 in range(0, w, tw):
+            R0, C0 = max(r0 // nb - 1, 0), max(c0 // nb - 1, 0)
+            R1, C1 = min((r0 + th) // nb + 1, h // nb), min(
+                (c0 + tw) // nb + 1, w // nb)
+            win = deblock_plane_plain(
+                plane[R0 * nb:R1 * nb, C0 * nb:C1 * nb].contiguous(),
+                v_on[R0:R1, C0:C1 - 1].contiguous(),
+                h_on[R0:R1 - 1, C0:C1].contiguous(), lvl, 0, bd, luma,
+                None if s16 is None else s16[R0:R1, C0:C1].contiguous())
+            oy, ox = r0 - R0 * nb, c0 - C0 * nb
+            out[r0:r0 + th, c0:c0 + tw] = win[oy:oy + th, ox:ox + tw]
+    return out
+
+
+@pytest.mark.parametrize("luma,split,bd", [
+    (True, False, 8), (True, True, 10), (False, True, 8),
+    (False, False, 10)])
+def test_deblock_edges_on_cpu_is_both_plain_passes(luma, split, bd):
+    """deblock_edges on the CPU (deblock_plane_plain) equals deblock_planes'
+    two plain passes, the vertical edges and then the horizontal ones, with
+    every edge on across the tiles' borders; and a plane cut into tiles
+    with a one-block halo gives the same pixels tile by tile (the kernel's
+    halo argument, at 32 x 64 luma and 24 x 32 chroma tiles)."""
+    from av1tpu_torch.kernels.deblock import (
+        deblock_edges, deblock_edges_plain,
+    )
+
+    nb = 16 if luma else 8
+    h, w = (64, 128) if luma else (48, 64)
+    rng = np.random.RandomState(11 + bd)
+    pm = (1 << bd) - 1
+    base = np.repeat(np.repeat(rng.randint(0, pm + 1, (h // 4, w // 4)), 4,
+                               0), 4, 1)
+    plane = torch.from_numpy(np.clip(base // 8 * 8 + rng.randint(
+        -2, 3, (h, w)), 0, pm).astype(np.int32))
+    rows, cols = h // nb, w // nb
+    v_on = torch.from_numpy(rng.rand(rows, cols - 1) < 0.7)
+    h_on = torch.from_numpy(rng.rand(rows - 1, cols) < 0.7)
+    th, tw = (32, 64) if luma else (24, 32)
+    v_on[:, tw // nb - 1::tw // nb] = True       # the tiles' borders
+    h_on[th // nb - 1::th // nb] = True
+    s16 = torch.from_numpy(rng.rand(rows, cols) < 0.4) if split else None
+    got = deblock_edges(plane, v_on, h_on, 24, 0, bd, luma, s16)
+    want = deblock_edges_plain(
+        deblock_edges_plain(plane, v_on, 24, 0, bd, luma, True, s16), h_on,
+        24, 0, bd, luma, False, s16)
+    assert torch.equal(got, want) and not torch.equal(got, plane)
+    assert torch.equal(_tiled_plain(plane, v_on, h_on, 24, bd, luma, s16,
+                                    th, tw), want)

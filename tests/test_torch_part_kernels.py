@@ -554,6 +554,16 @@ def test_wrappers_reject_bad_calls(T):
         K.PartSite(n=32, tx=0, nm=1, step=step, q=q, cap=cap, tab=None,
                    gains=None, lam=1.0, dq_shift=1, cost=K.COST_NONE,
                    bit_depth=8)                      # lam not float32
+    step8, q8, cap8 = _plane_params(72, 8, 8, "cpu")
+    site8 = K.PartSite(n=8, tx=1, nm=3, step=step8, q=q8, cap=cap8,
+                       tab=None, gains=None, lam=f32(1), dq_shift=0,
+                       cost=K.COST_COEF, bit_depth=8, inv_ratio=f32(1))
+    with pytest.raises(ValueError):                  # 8x8 codes V_PRED alone
+        part_code([CodeJob(site8, torch.empty((48, 64)),
+                           torch.empty((48, 64), dtype=torch.int32),
+                           torch.empty((8, 128), dtype=torch.int32),
+                           torch.empty((16, 8, 8), dtype=torch.int16),
+                           torch.empty((8, 128), dtype=torch.int32))])
 
 
 def test_job_struct_mirrors_match_the_source(tmp_path, monkeypatch):
@@ -593,3 +603,92 @@ def test_job_struct_mirrors_match_the_source(tmp_path, monkeypatch):
             K._lib()
     finally:
         K._lib.cache_clear()
+
+
+# ---- part_code's launch (kernels/intra_part.py:code_ctas and code_smem
+# mirror csrc/intra_part.cu's CodeLayout and flat grid; the card test holds
+# them to the library) ----
+
+def _code_jobs(sizes, width):
+    """Stand-ins of one launch's CodeJobs: (n, nm, cost) per site, U and V
+    for chroma, at a frame `width` luma pixels wide."""
+    from types import SimpleNamespace
+
+    jobs = []
+    for n, nm, cost, planes in sizes:
+        cols = (width if cost else width // 2) // n
+        site = SimpleNamespace(n=n, nm=nm, cost=cost)
+        jobs += [SimpleNamespace(site=site, lv=torch.empty((cols, 1)))
+                 for _ in range(planes)]
+    return jobs
+
+
+_Y16, _Y32, _Y64 = (16, 3, 1, 1), (32, 3, 1, 1), (64, 1, 2, 1)
+_C8, _C16, _C32 = (8, 1, 0, 2), (16, 1, 0, 2), (32, 1, 0, 2)
+_KINDS = [[_Y16], [_Y16, _Y32], [_Y16, _Y32, _Y64], [_C8], [_C8, _C16],
+          [_C8, _C16, _C32]]
+
+
+@pytest.mark.parametrize("width", [1920, 1936, 64, 192])
+@pytest.mark.parametrize("kind", range(6), ids=[
+    "+".join(("y" if s[2] else "c") + str(s[0]) for s in k) for k in _KINDS])
+def test_part_code_grid_takes_every_column_once(kind, width):
+    """Every launch kind of the probe at 1920 (the main path) and ragged
+    widths: the flat grid, jobs by size from 64 down, covers each job's
+    columns exactly once (four 8x8 columns a CTA, one elsewhere), with no
+    CTA left without a column, and a CTA's dynamic shared memory within
+    the card's 232,448 bytes (at most 70,144: the 64 site's block, scratch,
+    prediction, source and coefficients)."""
+    jobs = _code_jobs(_KINDS[kind], width)
+    order = sorted(range(len(jobs)), key=lambda k: -jobs[k].site.n)
+    first, total = [], 0
+    for k in order:
+        first.append(total)
+        total += -(-jobs[k].lv.shape[0] // K.CODE_COLS[jobs[k].site.n])
+    assert K.code_ctas(jobs) == total
+    seen = [np.zeros(j.lv.shape[0], np.int32) for j in jobs]
+    for b in range(total):
+        i = max(i for i in range(len(first)) if first[i] <= b)
+        j = jobs[order[i]]
+        cols = K.CODE_COLS[j.site.n]
+        c0 = cols * (b - first[i])
+        assert c0 < j.lv.shape[0]
+        seen[order[i]][c0:c0 + cols] += 1
+    assert all((s == 1).all() for s in seen)
+    smem = K.code_smem(jobs)
+    assert smem == max(4 * K.CODE_COLS[s.n] * (2 * s.n * (s.n + 1) + (
+        s.nm + (s.cost == 2)) * s.n * s.n + s.nm * min(s.n, 32) ** 2)
+        for s in (j.site for j in jobs))
+    assert smem <= 70_144 <= 232_448
+
+
+def _warp_sums(v):
+    """(warps,) float32: each warp's xor butterfly of its 32 lanes, as
+    __shfl_xor_sync leaves it in lane 0 (partners add in either order:
+    float addition commutes)."""
+    v = v.reshape(-1, 32).copy()
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[:, np.arange(32) ^ o]
+    return v[:, 0]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_part_code_8x8_sums_keep_the_block_order(seed):
+    """The premise of part_code's packed 8x8 columns: a column's sum over
+    its two warps (64 threads, one element each) equals, bit for bit in
+    float32, the first version's sum over the whole CTA's eight warps,
+    whose six other warps hold +0.0, for non-negative addends (squared
+    distortions, log2 rates) of every scale, zeros included."""
+    rng = np.random.RandomState(seed)
+    x = (rng.rand(64) * 10.0 ** rng.randint(-6, 8, 64)).astype(f32)
+    x[rng.rand(64) < 0.3] = 0
+    block = np.zeros(256, f32)
+    block[:64] = x
+    red = _warp_sums(block)
+    first = red[0]
+    for w in range(1, 8):
+        first = f32(first + red[w])
+    red2 = _warp_sums(x)
+    assert first.tobytes() == f32(red2[0] + red2[1]).tobytes()
+    # and a column whose elements are all +0.0 sums to +0.0
+    assert _warp_sums(np.zeros(64, f32))[0].tobytes() == f32(0).tobytes()

@@ -131,14 +131,13 @@ def _deblock_case(bd, seed, nblk):
 
 @pytest.mark.parametrize("bd", [8, 10])
 def test_deblock_edges_on_cpu_is_plain(bd):
-    for luma, vertical, split in ((True, True, False), (True, False, True),
-                                  (False, True, True), (False, False, False)):
+    for luma, split in ((True, False), (True, True), (False, True),
+                        (False, False)):
         plane, von, hon, s16 = _deblock_case(bd, 4, 16 if luma else 8)
-        on = von if vertical else hon
         s = s16 if split else None
-        got = kdeblock.deblock_edges(plane, on, 20, 0, bd, luma, vertical, s)
-        want = kdeblock.deblock_edges_plain(plane, on, 20, 0, bd, luma,
-                                            vertical, s)
+        got = kdeblock.deblock_edges(plane, von, hon, 20, 0, bd, luma, s)
+        want = kdeblock.deblock_plane_plain(plane, von, hon, 20, 0, bd, luma,
+                                            s)
         assert torch.equal(got, want)
         assert not torch.equal(got, plane)
     # a level of 0 passes its plane through with no call
@@ -150,22 +149,22 @@ def test_deblock_edges_on_cpu_is_plain(bd):
 
 def test_deblock_edges_rejects_bad_inputs():
     plane, von, hon, s16 = _deblock_case(8, 1, 16)
-    ok = (plane, von, 12, 0, 8, True, True, s16)
+    ok = (plane, von, hon, 12, 0, 8, True, s16)
     kdeblock.deblock_edges(*ok)
     bad = [
-        ((plane, von, 0, 0, 8, True, True, s16), ValueError),    # level 0
-        ((plane, von, 12, 8, 8, True, True, s16), ValueError),   # sharpness
-        ((plane, von, 12, 0, 9, True, True, s16), ValueError),   # bit depth
-        ((plane.short(), von, 12, 0, 8, True, True, s16), TypeError),
-        ((plane, hon, 12, 0, 8, True, True, s16), ValueError),   # edge shape
-        ((plane, von, 12, 0, 8, True, True, s16.int()), TypeError),
-        ((plane[:, :88].contiguous(), von, 12, 0, 8, True, True, s16),
-         ValueError),                                             # not 16
-        ((plane.t().contiguous().t(), von, 12, 0, 8, True, True, s16),
-         ValueError),                                             # strided
-        ((plane, von.to("meta"), 12, 0, 8, True, True, s16), ValueError),
-        ((plane.to("meta"), von.to("meta"), 12, 0, 8, True, True,
-          s16.to("meta")), ValueError),                           # device
+        ((plane, von, hon, 0, 0, 8, True, s16), ValueError),    # level 0
+        ((plane, von, hon, 12, 8, 8, True, s16), ValueError),   # sharpness
+        ((plane, von, hon, 12, 0, 9, True, s16), ValueError),   # bit depth
+        ((plane.short(), von, hon, 12, 0, 8, True, s16), TypeError),
+        ((plane, hon, von, 12, 0, 8, True, s16), ValueError),   # swapped
+        ((plane, von, hon, 12, 0, 8, True, s16.int()), TypeError),
+        ((plane[:, :88].contiguous(), von, hon, 12, 0, 8, True, s16),
+         ValueError),                                            # not 16
+        ((plane.t().contiguous().t(), von, hon, 12, 0, 8, True, s16),
+         ValueError),                                            # strided
+        ((plane, von.to("meta"), hon, 12, 0, 8, True, s16), ValueError),
+        ((plane.to("meta"), von.to("meta"), hon.to("meta"), 12, 0, 8, True,
+          s16.to("meta")), ValueError),                          # device
     ]
     for args, err in bad:
         with pytest.raises(err):

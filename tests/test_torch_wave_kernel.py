@@ -388,7 +388,7 @@ def test_scene_worker_reports_its_launches(monkeypatch):
             (KM, "coarse_search_plain", KM.coarse_search, 3),
             (KM, "global_search_plain", KM.global_search, 6),
             (KM, "refine_subpel_plain", KM.refine_subpel, 2),
-            (KD, "deblock_edges_plain", KD.deblock_edges, 1)):
+            (KD, "deblock_plane_plain", KD.deblock_edges, 1)):
         fn = getattr(mod, name)
 
         def counted(*a, _fn=fn, _w=wrapper, _n=n, **k):

@@ -49,7 +49,7 @@ KERNEL_PLAINS = (
     ("av1tpu_torch.kernels.inter_code", "code_blocks_plain", "code_blocks",
      1),
     ("av1tpu_torch.kernels.cdef", "cdef_filter_plain", "cdef_filter", 1),
-    ("av1tpu_torch.kernels.deblock", "deblock_edges_plain", "deblock_edges",
+    ("av1tpu_torch.kernels.deblock", "deblock_plane_plain", "deblock_edges",
      1),
     ("av1tpu_torch.kernels.motion", "coarse_search_plain", "coarse_search",
      3),

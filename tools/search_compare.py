@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Time the motion search's kernels and the inter coder of one checkout of
-av1tpu_torch on a GPU.
+"""Time the motion search's kernels, the inter coder, the loop filter and
+the probe's coder of one checkout of av1tpu_torch on a GPU.
 
     python3 tools/search_compare.py [--inputs FILE] [--coder FILE ...]
+                                    [--deblock FILE] [--probe FILE]
                                     [--root DIR]
     python3 tools/search_compare.py --coder FILE --make-coder DIR
 
 Imports av1tpu_torch from DIR (default: this checkout) and builds its CUDA
-kernels (printing the -Xptxas -v lines of motion.cu and inter_code.cu).
+kernels (printing the -Xptxas -v lines of motion.cu, inter_code.cu,
+deblock.cu and intra_part.cu's part_code).
 
 --inputs: times coarse_search, global_search and refine_subpel on the pair
 that chip_smoke.py's phase 7d saved to FILE (its first 1080p inter frame,
@@ -23,6 +25,20 @@ that phase 7c saved from its first 1080p inter frame, or those of
 Prints one JSON line per batch (device us per launch, chip_smoke.
 code_bounds, the blocks without a level, whose inverse the kernel skips)
 and one per file for the frame.
+
+--deblock: times deblock_edges on the planes that phase 7d saved to FILE
+(its quality inter frame's recon, edge maps, levels and split map), with
+phase 7d's own timing (chip_smoke.deblock_times): one JSON line per
+launch (per plane; per plane and direction for an older checkout whose
+kernel filters one direction a launch) and one for the frame.
+
+--probe: times part_code on the probed frame that phase 7e saved to FILE
+(its planes, q and bit depth): the probe runs once with part_code's calls
+caught (chip_smoke.capture_code_calls), then each launch kind is timed
+with phase 7e's own timing (chip_smoke.code_kinds).  One JSON line per
+kind (device us per launch and per frame, launches, columns, CTAs with
+work, each site alone, the columns without a level per site) and one for
+the frame.
 
 --make-coder DIR writes, with this checkout, coder batches in which most
 or all blocks carry levels, and times nothing: dense8.pt, FILE's batches
@@ -109,13 +125,15 @@ def main() -> int:
     ap.add_argument("--inputs", help="phase 7d's saved pair (chip_smoke.py)")
     ap.add_argument("--coder", action="append", default=[],
                     help="coder batches: phase 7c's or --make-coder's")
+    ap.add_argument("--deblock", help="phase 7d's saved planes")
+    ap.add_argument("--probe", help="phase 7e's saved probed frame")
     ap.add_argument("--make-coder", metavar="DIR",
                     help="write dense8.pt, frame10.pt and dense10.pt there")
     ap.add_argument("--root", default=HERE,
                     help="checkout whose av1tpu_torch is timed")
     args = ap.parse_args()
-    if not (args.inputs or args.coder):
-        ap.error("give --inputs, --coder or both")
+    if not (args.inputs or args.coder or args.deblock or args.probe):
+        ap.error("give --inputs, --coder, --deblock or --probe")
     if args.make_coder and len(args.coder) != 1:
         ap.error("--make-coder takes one --coder FILE (phase 7c's)")
     sys.path.insert(0, HERE)
@@ -128,7 +146,7 @@ def main() -> int:
         print("search_compare: CUDA is not available", file=sys.stderr)
         return 1
     from av1tpu_torch import _build
-    from av1tpu_torch.kernels import inter_code, motion
+    from av1tpu_torch.kernels import deblock, inter_code, intra_part, motion
 
     dev = torch.device("cuda")
     if args.make_coder:
@@ -146,6 +164,9 @@ def main() -> int:
     print("\n".join(ln for ln in log.splitlines()
                     if "motion" in ln or "inter_code" in ln
                     or "spill" in ln) or log.strip(), flush=True)
+    for line in chip_smoke.ptxas_report(log, ("deblock_kernel",
+                                              "part_code")):
+        print(f"-Xptxas -v {line}", flush=True)
     card = chip_smoke.card_name()
     if args.inputs:
         d = torch.load(args.inputs)
@@ -168,6 +189,52 @@ def main() -> int:
             "root": args.root, "kernel": "coarse_search", "shape": [h, w],
             "launch_us": {chip_smoke._short(k): v
                           for k, v in launch_us.items()}, "card": card}),
+              flush=True)
+    if args.deblock:
+        d = torch.load(args.deblock)
+        planes = [p.to(dev) for p in d["planes"]]
+        runs = chip_smoke.deblock_times(
+            torch, deblock, planes, d["v_on"].to(dev), d["h_on"].to(dev),
+            d["levels"], d["bit_depth"], d["split16"].to(dev), plain=False)
+        for r in runs:
+            print(json.dumps({"root": args.root, "kernel": "deblock_edges",
+                              **{k: v for k, v in r.items()
+                                 if k != "plain_ms"},
+                              "bound_share": r["bound_us"] / r["device_us"],
+                              "card": card}), flush=True)
+        print(json.dumps({
+            "root": args.root, "kernel": "deblock_edges", "plane": "frame",
+            "launches": len(runs),
+            "device_us": sum(r["device_us"] for r in runs),
+            "bound_us": sum(r["bound_us"] for r in runs), "card": card}),
+              flush=True)
+    if args.probe:
+        from av1tpu_torch.ops import transforms
+
+        # the forward matrices beside FILE: each run builds them otherwise
+        # (tens of seconds of np.linalg.pinv); they are the same in every
+        # checkout
+        fwd = os.path.splitext(args.probe)[0] + "_forward.npz"
+        if os.path.exists(fwd):
+            with np.load(fwd) as z:
+                transforms.adopt_forward_matrices(
+                    {("fwd64" if k == "fwd64" else tuple(
+                        int(x) for x in k.split("_"))): z[k] for k in z})
+        d = torch.load(args.probe)
+        calls = chip_smoke.capture_code_calls(
+            torch, [p.to(dev) for p in d["planes"]], d["q"], d["bit_depth"])
+        if not os.path.exists(fwd):
+            np.savez(fwd, **{"_".join(map(str, k)) if k != "fwd64" else k: m
+                             for k, m in
+                             transforms.built_forward_matrices().items()})
+        kinds = chip_smoke.code_kinds(torch, intra_part, calls)
+        for r in kinds:
+            print(json.dumps({"root": args.root, "kernel": "part_code", **r,
+                              "card": card}), flush=True)
+        print(json.dumps({
+            "root": args.root, "kernel": "part_code", "kind": "frame",
+            "launches": sum(r["launches"] for r in kinds),
+            "frame_us": sum(r["frame_us"] for r in kinds), "card": card}),
               flush=True)
     for path in args.coder:
         sites = chip_smoke.load_coder_inputs(torch, inter_code, path, dev)

@@ -153,6 +153,9 @@ def cuda_lib() -> ctypes.CDLL:
         # damping, coeff_shift, out y, u, v, stream
         "av1_cdef_filter": [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
                             ci, vp, vp, vp, vp],
+        # out (7 ints: units per tile in rows and columns, apron rows and
+        # columns, luma and chroma stage strides, threads)
+        "av1_cdef_layout": [vp],
         # in, out, h, w, luma, v_on, h_on, split16, limit, blimit, thresh,
         # bit_depth, stream
         "av1_deblock_edges": [vp, vp, ci, ci, ci, vp, vp, vp, ci, ci, ci, ci,
@@ -179,6 +182,9 @@ def cuda_lib() -> ctypes.CDLL:
            for k in ("chain", "pred", "code", "merge")},
         # jobs, count, out (3 ints: CTAs, dynamic and static shared bytes)
         "av1_part_code_layout": [vp, ci, vp],
+        # jobs, count, out (4 ints: CTAs, CTAs per cluster, threads,
+        # dynamic shared bytes)
+        "av1_part_chain_layout": [vp, ci, vp],
         # out (text), cap (bytes; returns the text's length)
         "av1_part_layout": [vp, ci],
     }

@@ -10,7 +10,7 @@
 // transforms).  kernels/intra_part.py holds the wrappers and the plain
 // PyTorch versions, whose arithmetic these kernels repeat:
 //
-// - part_chain: the first block row's serial chains, one block per plane
+// - part_chain: the first block row's serial chains, a cluster per plane
 //   (luma 16x16 DCT_DCT without rd_zero, :167-176; U and V 8x8 ADST_DCT
 //   with rd_zero, :397-403): per column the flat prediction from the
 //   carried pixel, the forward product, the quantize, the dequantize, the
@@ -40,7 +40,8 @@
 // candidate residuals and coefficients through device memory, and some
 // 30 M integer butterfly operations: tens of microseconds at the card's
 // rates.  The floor is the dependency chain: the first row's 120 serial
-// columns (each a 256-deep product per thread, then four barriers), and
+// columns (each a 256-deep chain of dependent FMAs per coefficient, the
+// quantize, an exchange and the 2-D inverse), and
 // per superblock row eight dependent stages per plane (pred, product,
 // code at the top 16-row with the 32 and 64, then at the bottom 16-row,
 // the merge, and again for the second 32-row), about 20 launches of a few
@@ -51,9 +52,28 @@
 // parameters; the outputs go straight into the frame's level, mode, split
 // and recon grids, so the row above a stage is a row of the recon plane
 // and nothing is copied between stages.  One block of 256 threads per
-// column of a site in part_pred (per superblock column in part_merge);
-// part_chain keeps its column's residual in shared memory and reads the
-// forward matrix through the read-only cache.
+// column of a site in part_pred (per superblock column in part_merge).
+//
+// part_chain.  A plane's 120 columns are a chain through one carried
+// pixel.  Read through the cache by one CTA, the luma forward matrix (256
+// KB) would cross one SM from L2 every column, a dependent 1 KB row at a
+// time: about 9.9 us a column, 1.19 ms a probed 1088x1920 frame.  So each
+// plane is a cluster of CHAIN_CL CTAs, each holding a quarter of the
+// forward matrix (64 KB for luma) in shared memory, loaded once; per
+// column only the chain is on the critical path: the residual from the
+// carried edge (the source is in registers two columns ahead), each
+// CTA's slice of coefficients from shared memory (the product fully
+// unrolled, so its loads run ahead of the FMAs), the quantize with the
+// position's table entries held in registers, the dequantized slice sent
+// into every CTA of the cluster (st.async into the block of the column's
+// parity, completing on that block's mbarrier: no cluster barrier, whose
+// release would wait for the column's global stores and prefetches),
+// then in every CTA the 2-D inverse and the next edge; each CTA writes
+// its positions' levels and recon.  About 1.9 us a luma column against
+// 0.52 us of dependent FMAs (PERF.md): the inverse, the quantize and the
+// exchange's round trip take the rest.  Each coefficient keeps the first
+// version's sum, fmaf over k = 0..nn-1 in order from 0 on one thread, so
+// every level and pixel is the first version's bit for bit.
 //
 // part_code.  A launch fills 30 to 420 CTAs, so it costs as long as its
 // slowest CTA's chain of dependent steps, not its bytes.  Its first
@@ -107,7 +127,11 @@
 #include <stdint.h>
 #include <stdio.h>
 
+#include <cooperative_groups.h>
+
 #include "itx.cuh"
+
+namespace cg = cooperative_groups;
 
 // kernels/intra_part.py:PartSiteC, field for field, as each job struct
 // below (av1_part_layout lets the wrapper check that; outside the anonymous
@@ -175,6 +199,10 @@ constexpr int NT = 256;          // threads per block
 constexpr int NW = NT / 32;
 constexpr int MAXJ = 6;          // jobs per launch: U and V, 3 sites each
 constexpr int KEEP_ALWAYS = 8;   // rdoq._KEEP_ALWAYS
+// part_chain: CTAs per plane (a cluster), each holding a quarter of the
+// forward matrix, and threads per CTA (a luma coefficient each)
+constexpr int CHAIN_CL = 4;
+constexpr int CHAIN_NT = 256 / CHAIN_CL;
 
 struct ChainJobs { ChainJob j[3]; };
 struct PredJobs { PredJob j[MAXJ]; };
@@ -347,44 +375,192 @@ struct CodeLayout {
   }
 };
 
-// ---- part_chain: one block per plane walks the first block row ----
+// ---- part_chain: a cluster of CHAIN_CL CTAs per plane walks its first
+// block row ----
 
-__global__ void __launch_bounds__(NT) part_chain_kernel(ChainJobs J) {
-  const ChainJob& C = J.j[blockIdx.x];
+// part_chain's dynamic shared memory for a plane of n x n blocks, in
+// words: this CTA's slice of the forward matrix (every row, n*n / CHAIN_CL
+// columns), the residual, the dequantized block of each column parity,
+// the inverse's scratch and rd_zero's first table entries.
+__host__ __device__ constexpr int chain_words(int n) {
+  return n * n * (n * n / CHAIN_CL) + n * n + 3 * n * (n + 1) + KEEP_ALWAYS;
+}
+
+// part_chain's exchange.  Each column's dequantized slices go to every CTA
+// of the cluster by st.async, each word completing (4 bytes) on the
+// receiving CTA's mbarrier of the column's parity, which expects the whole
+// block: a CTA waits on its own mbarrier for the block, and on no
+// barrier of the cluster.  A cluster barrier would release every memory
+// access before it, so each column would wait for its own global stores
+// and prefetches; an mbarrier's wait waits only for the block.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void bars_visible() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// this CTA's arrival on its mbarrier with the phase's bytes to come
+__device__ __forceinline__ void bar_expect(unsigned long long* bar,
+                                           int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(unsigned long long* bar,
+                                         int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "WAIT_BLOCK:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%0], "
+      "%1;\n"
+      "@P1 bra DONE_BLOCK;\n"
+      "bra WAIT_BLOCK;\n"
+      "DONE_BLOCK:\n"
+      "}\n" ::"r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// *dst = v in CTA `rank` of the cluster, completing on its *bar
+__device__ __forceinline__ void send_word(u32* dst, u32 v,
+                                          unsigned long long* bar, int rank) {
+  uint32_t d, b;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(d) : "r"(smem_u32(dst)), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(b) : "r"(smem_u32(bar)), "r"(rank));
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.u32 [%0], %1, "
+      "[%2];\n" ::"r"(d), "r"(v), "r"(b) : "memory");
+}
+
+// this thread's reads of a block done before a peer's next st.async to it
+__device__ __forceinline__ void reads_before_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One plane's chain on the cluster: CTA `rank` codes the positions
+// [rank * SL, (rank + 1) * SL), a thread each, from its slice of the
+// forward matrix in shared memory; each column's dequantized slices meet
+// in every CTA's block of that column's parity, where every CTA runs the
+// 2-D inverse and takes the next edge.  A CTA sends column c + 2 into a
+// peer's block of parity c only after that peer's slice of column c + 1
+// has reached it, which the peer sent after its last read of the block:
+// two blocks and their mbarriers suffice.
+template <int N>
+__device__ void chain_plane(const ChainJob& C, float* smem,
+                            unsigned long long* bars) {
+  constexpr int NN = N * N, SL = NN / CHAIN_CL, LD = N + 1, BUF = N * LD;
+  constexpr int PER = (NN + CHAIN_NT - 1) / CHAIN_NT;   // sources a thread
+  static_assert(SL <= CHAIN_NT && SL % 4 == 0, "a coefficient a thread");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), t = threadIdx.x;
   const PartSite& S = C.s;
-  const int n = S.n, nn = n * n, ld = n + 1, t = threadIdx.x;
-  __shared__ float s_res[256];
-  __shared__ u32 s_dq[16 * 17], s_tmp[16 * 17];
-  __shared__ int s_edge;
-  if (t == 0) s_edge = C.edge0;
-  __syncthreads();
-  const int i = t / n, j = t % n;
-  for (int c = 0; c < C.cols; ++c) {
-    const int edge = s_edge;
-    if (t < nn)
-      s_res[t] = (float)(C.src[(size_t)i * C.width + c * n + j] - edge);
-    __syncthreads();
-    if (t < nn) {
-      // coefficient t: column t of the forward matrix, in order
-      float acc = 0.f;
-      for (int k = 0; k < nn; ++k)
-        acc = fmaf(s_res[k], __ldg(C.fwdt + (size_t)k * nn + t), acc);
-      const int lv = quant_rdz_at(acc, S.step[t], S.off[t], S.cap[t],
-                                  S.tab != nullptr ? S.gain[t] : 0.f, S.tab,
-                                  S.lam);
-      C.lv[(size_t)c * nn + t] = (int16_t)lv;
-      s_dq[i * ld + j] = (u32)lv * (u32)S.q[t];
-    }
-    __syncthreads();
-    if (n == 16) inverse_2d<16>(S.tx, 1, s_dq, s_tmp, 0, 17);
-    else inverse_2d<8>(S.tx, 1, s_dq, s_tmp, 0, 9);
-    if (t < nn) {
-      const int rec = min(max(edge + (int)s_dq[i * ld + j], 0), S.pix_max);
-      C.rec[(size_t)i * C.width + c * n + j] = rec;
-      if (i == 0 && j == n - 1) s_edge = rec;   // the next column's edge
-    }
-    __syncthreads();
+  float* s_fwd = smem;                  // NN rows x SL columns
+  float* s_res = s_fwd + NN * SL;
+  u32* s_dq = reinterpret_cast<u32*>(s_res + NN);   // two blocks
+  u32* s_tmp = s_dq + 2 * BUF;
+  float* s_tab = reinterpret_cast<float*>(s_tmp + BUF);
+  for (int e = t; e < NN * SL / 4; e += CHAIN_NT) {
+    const int k = e / (SL / 4), q4 = e % (SL / 4);
+    reinterpret_cast<float4*>(s_fwd)[e] = __ldg(
+        reinterpret_cast<const float4*>(C.fwdt + (size_t)k * NN + rank * SL)
+        + q4);
   }
+  const bool rdz = S.tab != nullptr;
+  if (rdz && t < KEEP_ALWAYS) s_tab[t] = S.tab[t];
+  if (t == 0) {
+    bar_init(bars);
+    bar_init(bars + 1);
+    bars_visible();
+  }
+  // the position this thread codes and its table entries, in registers
+  const bool coder = t < SL;
+  const int pos = rank * SL + t, at = (pos / N) * LD + pos % N;
+  float step = 0.f, off = 0.f, gain = 0.f;
+  int cap = 0, q = 0;
+  if (coder) {
+    step = S.step[pos];
+    off = S.off[pos];
+    cap = S.cap[pos];
+    q = S.q[pos];
+    if (rdz) gain = S.gain[pos];
+  }
+  // the source of a column: element e = t + r CHAIN_NT (row e / N, column
+  // e % N of the block), two columns ahead in registers
+  const int cols = C.cols;
+  auto fetch = [&](int col, int* x) {
+#pragma unroll
+    for (int r = 0; r < PER; ++r) {
+      const int e = t + r * CHAIN_NT;
+      if (e < NN && col < cols)
+        x[r] = __ldg(C.src + (size_t)(e / N) * C.width + col * N + e % N);
+    }
+  };
+  int edge = C.edge0;
+  auto column = [&](int c, int* x) {
+#pragma unroll
+    for (int r = 0; r < PER; ++r) {
+      const int e = t + r * CHAIN_NT;
+      if (e < NN) s_res[e] = (float)(x[r] - edge);
+    }
+    __syncthreads();
+    const int b = c & 1;
+    u32* buf = s_dq + b * BUF;
+    if (t == 0) bar_expect(bars + b, 4 * NN);
+    int lv = 0;
+    if (coder) {
+      // coefficient pos: column pos of the forward matrix, in order
+      float acc = 0.f;
+      const float* f = s_fwd + t;
+#pragma unroll      // the loads run ahead of the chain
+      for (int k = 0; k < NN; k += 4) {
+        const float4 r4 = *reinterpret_cast<const float4*>(s_res + k);
+        acc = fmaf(r4.x, f[(k + 0) * SL], acc);
+        acc = fmaf(r4.y, f[(k + 1) * SL], acc);
+        acc = fmaf(r4.z, f[(k + 2) * SL], acc);
+        acc = fmaf(r4.w, f[(k + 3) * SL], acc);
+      }
+      lv = quant_rdz_at(acc, step, off, cap, gain, rdz ? s_tab : nullptr,
+                        S.lam);
+      const u32 dq = (u32)lv * (u32)q;
+#pragma unroll
+      for (int r = 0; r < CHAIN_CL; ++r) send_word(buf + at, dq, bars + b, r);
+    }
+    // off the chain: the level out, the source of column c + 2
+    if (coder) C.lv[(size_t)c * NN + pos] = (int16_t)lv;
+    fetch(c + 2, x);
+    bar_wait(bars + b, (c >> 1) & 1);
+    inverse_2d<N>(S.tx, 1, buf, s_tmp, 0, LD);
+    if (coder)
+      C.rec[(size_t)(pos / N) * C.width + c * N + pos % N] =
+          min(max(edge + (int)buf[at], 0), S.pix_max);
+    edge = min(max(edge + (int)buf[N - 1], 0), S.pix_max);  // rec[0, N-1]
+    reads_before_async();
+  };
+  int xa[PER], xb[PER];
+  fetch(0, xa);
+  fetch(1, xb);
+  cluster.sync();   // the slices, tables and mbarriers in place everywhere
+  for (int c = 0; c < cols; c += 2) {
+    column(c, xa);
+    if (c + 1 < cols) column(c + 1, xb);
+  }
+  cluster.sync();   // no CTA leaves while a peer may still send to it
+}
+
+__global__ void __launch_bounds__(CHAIN_NT) part_chain_kernel(ChainJobs J) {
+  extern __shared__ __align__(16) float s_chain[];
+  __shared__ unsigned long long s_bars[2];    // the blocks' mbarriers
+  const ChainJob& C = J.j[blockIdx.x / CHAIN_CL];
+  if (C.s.n == 16) chain_plane<16>(C, s_chain, s_bars);
+  else chain_plane<8>(C, s_chain, s_bars);
 }
 
 // ---- part_pred: one block per (candidate, column) of a site ----
@@ -713,6 +889,33 @@ __global__ void __launch_bounds__(NT) part_merge_kernel(MergeJobs J) {
 
 int err() { return (int)cudaGetLastError(); }
 
+// part_chain's launch of 1 to 3 jobs (8x8 or 16x16 sites): a cluster of
+// CHAIN_CL CTAs per job, the most dynamic shared memory any job needs.
+// False for jobs the kernel does not take.
+bool chain_config(const ChainJob* jobs, int count, ChainJobs& J,
+                  cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg,
+                  cudaStream_t stream) {
+  if (count < 1 || count > 3) return false;
+  int words = 0;
+  for (int k = 0; k < count; ++k) {
+    if (jobs[k].s.n != 8 && jobs[k].s.n != 16) return false;
+    J.j[k] = jobs[k];
+    words = max(words, chain_words(jobs[k].s.n));
+  }
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = CHAIN_CL;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(CHAIN_CL * count);
+  cfg->blockDim = dim3(CHAIN_NT);
+  cfg->dynamicSmemBytes = 4 * words;
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return true;
+}
+
 // A site's CTAs and dynamic shared bytes (CodeLayout)
 int code_ctas(const CodeJob& j) {
   const int cols = j.s.n == 8 ? CodeLayout<8>::COLS : 1;
@@ -752,11 +955,35 @@ int code_plan(const CodeJob* jobs, int count, CodeJobs& J, int* smem) {
 
 extern "C" int av1_part_chain(const ChainJob* jobs, int count,
                               cudaStream_t stream) {
-  if (count < 1 || count > 3) return (int)cudaErrorInvalidValue;
   ChainJobs J;
-  for (int k = 0; k < count; ++k) J.j[k] = jobs[k];
-  part_chain_kernel<<<count, NT, 0, stream>>>(J);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  if (!chain_config(jobs, count, J, &attr, &cfg, stream))
+    return (int)cudaErrorInvalidValue;
+  static const cudaError_t smem = cudaFuncSetAttribute(
+      part_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      4 * chain_words(16));
+  if (smem != cudaSuccess) return (int)smem;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, part_chain_kernel, J);
+  if (e != cudaSuccess) return (int)e;
   return err();
+}
+
+// part_chain's launch of these jobs, for kernels/intra_part.py:chain_layout
+// to check its mirror against: out = {CTAs, CTAs per cluster, threads per
+// CTA, dynamic shared bytes}.
+extern "C" int av1_part_chain_layout(const ChainJob* jobs, int count,
+                                     int* out) {
+  ChainJobs J;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  if (!chain_config(jobs, count, J, &attr, &cfg, nullptr))
+    return (int)cudaErrorInvalidValue;
+  out[0] = (int)cfg.gridDim.x;
+  out[1] = CHAIN_CL;
+  out[2] = (int)cfg.blockDim.x;
+  out[3] = (int)cfg.dynamicSmemBytes;
+  return 0;
 }
 
 extern "C" int av1_part_pred(const PredJob* jobs, int count,

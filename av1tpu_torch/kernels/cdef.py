@@ -2,7 +2,7 @@
 version.
 
 Port of the jitted CDEF of av1tpu/models/cdef_tpu.py (`cdef_dirs`, :73,
-and `_filter_plane`, :116, as `cdef_tpu`, :173, runs them on the three
+and `_filter_plane`, :116, as `cdef_planes`, :173, runs them on the three
 planes; not a `pallas_call`).  `cdef_filter` is what models/cdef.py's
 `cdef_planes` computes once a preset has a nonzero strength: the per-8x8
 direction search and variance, the luma primary strength adjusted by the
@@ -14,14 +14,38 @@ av1tpu_torch._build); the note at its top states its design and what
 bounds it.  It is all integer, so it is bit-exact with the plain version.
 The wrapper takes the plain version only for tensors on the CPU.  A CUDA
 tensor always launches the kernel, and anything the kernel does not take
-raises: there is no fallback.
+raises: there is no fallback.  `cdef_layout` mirrors the kernel's tile
+geometry for the CPU tests; the card test holds it to the library
+(av1_cdef_layout).
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from av1tpu_torch.kernels.transform_quant import _check
+
+
+class CdefLayout(NamedTuple):
+    """csrc/cdef.cu's tiles: a CTA of `threads` per tr x tc 8x8 units,
+    which stages the luma rows from ar above to ar below the tile and the
+    columns from ac left to ac right of it at a row stride of ls words (the
+    chroma planes' halves at cs), CDEF_VERY_LARGE outside the plane."""
+    tr: int
+    tc: int
+    ar: int
+    ac: int
+    ls: int
+    cs: int
+    threads: int
+
+
+def cdef_layout() -> CdefLayout:
+    """The kernel's tile geometry, mirrored (av1_cdef_layout)."""
+    tr, tc, ar, ac = 2, 16, 2, 4
+    return CdefLayout(tr, tc, ar, ac, 8 * tc + 2 * ac, 4 * tc + 2 * ac, 256)
 
 
 def cdef_filter_plain(y, u, v, skip8, pri_y: int, sec_y: int, pri_uv: int,
@@ -80,10 +104,11 @@ def cdef_filter_plain(y, u, v, skip8, pri_y: int, sec_y: int, pri_uv: int,
 def cdef_filter(y, u, v, skip8, pri_y: int, sec_y: int, pri_uv: int,
                 sec_uv: int, damping: int = 3, bit_depth: int = 8):
     """y: (H, W) int32, u, v: (H/2, W/2) int32 deblocked planes, H and W
-    multiples of 8; skip8: (H/8, W/8) bool, True = unit unfiltered; all
-    contiguous on one device.  pri/sec: the CODED strengths as host ints
-    (sec 3 means 4), not all zero (cdef_planes passes an all-zero preset
-    through without a call).  Returns the filtered (y, u, v), int32."""
+    multiples of 8, 16-byte aligned on the card; skip8: (H/8, W/8) bool,
+    True = unit unfiltered; all contiguous on one device.  pri/sec: the
+    CODED strengths as host ints (sec 3 means 4), not all zero
+    (cdef_planes passes an all-zero preset through without a call).
+    Returns the filtered (y, u, v), int32."""
     for name, x in (("pri_y", pri_y), ("pri_uv", pri_uv)):
         if not 0 <= x <= 15:
             raise ValueError(f"{name} must be in [0, 15], got {x}")
@@ -113,6 +138,10 @@ def cdef_filter(y, u, v, skip8, pri_y: int, sec_y: int, pri_uv: int,
     if dev.index != torch.cuda.current_device():
         raise ValueError(f"planes on {dev}, current device is "
                          f"cuda:{torch.cuda.current_device()}")
+    for name, p in (("y", y), ("u", u), ("v", v)):
+        if p.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel reads 16-byte pieces, "
+                             "the plane must start 16-byte aligned")
     from av1tpu_torch._build import cuda_lib
     from av1tpu_torch.state import tables
 

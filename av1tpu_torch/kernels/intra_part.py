@@ -7,7 +7,7 @@ stage is one call of these wrappers, with a list of jobs (every site the
 stage codes, U and V together):
 
 - `part_chain`: the first block row's serial chains (luma 16x16, U and V
-  8x8 ADST_DCT), one block per plane;
+  8x8 ADST_DCT), a cluster of CHAIN_CL CTAs per plane;
 - `part_pred`: a stage's candidate predictions and residuals from the row
   above (V, D45, D67 at the luma 16 and 32 sites; V_PRED elsewhere);
 - `part_code`: after the forward product (a matmul in the caller, as the
@@ -345,8 +345,41 @@ def part_chain_plain(jobs) -> None:
                 j.rec[:, cut] = rec[i]
 
 
+# part_chain's launch (csrc/intra_part.cu: CHAIN_CL, CHAIN_NT,
+# chain_words); the card test holds chain_layout to av1_part_chain_layout
+CHAIN_CL = 4
+CHAIN_NT = 256 // CHAIN_CL
+KEEP_ALWAYS = 8
+
+
+class ChainLayout(NamedTuple):
+    """part_chain's launch: CTAs, CTAs per cluster (a plane each), threads
+    per CTA, dynamic shared bytes per CTA."""
+    ctas: int
+    cluster: int
+    threads: int
+    smem: int
+
+
+def chain_words(n: int) -> int:
+    """A CTA's shared words for an n x n plane: its slice of the forward
+    matrix (every row, n*n / CHAIN_CL columns), the residual, the two
+    dequantized blocks (the columns' parity), the inverse's scratch and
+    rd_zero's first table entries."""
+    nn = n * n
+    return nn * (nn // CHAIN_CL) + nn + 3 * n * (n + 1) + KEEP_ALWAYS
+
+
+def chain_layout(sizes) -> ChainLayout:
+    """The launch of part_chain on jobs of these block sizes (8 or 16)."""
+    return ChainLayout(CHAIN_CL * len(sizes), CHAIN_CL, CHAIN_NT,
+                       4 * max(chain_words(n) for n in sizes))
+
+
 def part_chain(jobs) -> None:
-    """jobs: 1 to 3 ChainJobs (a plane each), written in place."""
+    """jobs: 1 to 3 ChainJobs (a plane each), written in place.  On the
+    card each forward matrix is read in 16-byte pieces: it must start
+    16-byte aligned."""
     if not 1 <= len(jobs) <= 3:
         raise ValueError(f"part_chain: 1 to 3 jobs, got {len(jobs)}")
     devs = {_check_chain(j) for j in jobs}
@@ -354,6 +387,9 @@ def part_chain(jobs) -> None:
         raise ValueError(f"part_chain: jobs on several devices {devs}")
     if not _on_card(devs.pop()):
         return part_chain_plain(jobs)
+    if any(j.fwdt.data_ptr() % 16 for j in jobs):
+        raise ValueError("fwdt: the forward matrix must start 16-byte "
+                         "aligned")
     _launch(_lib().av1_part_chain, ChainJobC, [
         ChainJobC(s=j.site.c, fwdt=_ptr(j.fwdt), src=_ptr(j.src),
                   lv=_ptr(j.lv), rec=_ptr(j.rec),

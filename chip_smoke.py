@@ -34,7 +34,10 @@ exits non-zero:
    caught for phase 7e.  Spies
    assert that the keyframe recon, the inter carry (recon and MV field)
    and GOLDEN live on the card, and the bytes must come out below the fast
-   preset's.
+   preset's.  Each cdef_filter launch of the run is timed on its own
+   input, caught in the warm-up, and the live share and time of the
+   keyframe's (its strength search and filter) and of the inter frames'
+   are printed (cdef_path).
 7b. wave_key vs plain, on phase 7's keyframe with the CLI's arguments
    (wave_vs_plain): (a) the plain keyframe on the card with wave_key run
    over each diagonal [d, d + 1) from its carried state: recon identical
@@ -55,11 +58,15 @@ exits non-zero:
    8 coder batches on identical inputs (levels, recon and SSE exact, rate
    and skip SSE within 1e-4) and cdef_filter on the step's CDEF input
    (every pixel equal); (c) the whole step both ways; (d) device time per
-   launch of each batch (coder_times) and of the CDEF, the plain
-   versions' time, the cuBLAS forward product's time, each batch's blocks
-   without a level, and the bounds (code_bounds, cdef_bounds).  Where
-   $AV1TPU_SMOKE_OUT is set, the 8 batches go to coder_inputs.pt there,
-   for tools/search_compare.py --coder;
+   launch of each batch (coder_times) and of the CDEF (cdef_times: the
+   step's input, its share of live units, and the frame with no unit
+   skipped at the strongest preset at 8 and 10 bits), the plain versions'
+   time, the cuBLAS forward product's time, each batch's blocks without a
+   level, the bounds (code_bounds; cdef_bounds: the larger of bytes and
+   the live units' int32 operations, both printed) and the -Xptxas -v
+   lines of cdef_kernel.  Where $AV1TPU_SMOKE_OUT is set, the 8 batches go
+   to coder_inputs.pt there, for tools/search_compare.py --coder, and the
+   CDEF input to cdef_inputs.pt, for --cdef;
 7d. search and deblock kernels vs plain, on phase 7's first inter frame
    and its temporal filter's first neighbour (search_deblock_vs_plain):
    (a) the motion search (coarse_search, global_search, refine_subpel)
@@ -90,11 +97,13 @@ exits non-zero:
    pixels (at most 0.1% of the decisions); (c) per kernel, the 8-bit
    frame's calls replayed: device time per probed frame (queued behind a
    sleep kernel), launches per frame, the plain version's time and the
-   bound (part_bounds), part_chain's serial depth; part_code per launch
-   kind (code_kinds: device time per launch and per frame, launches,
-   columns, CTAs with work, each site's jobs alone, the columns per site
-   whose chosen candidate has no level) and the -Xptxas -v lines of
-   part_code_kernel; (d) the probe's host
+   bound (part_bounds), part_chain's serial floor (chain_floor_us);
+   part_chain per job on both frames (chain_times: all three planes, luma,
+   U and V alone, the sha256 of each plane's levels and recon); part_code
+   per launch kind (code_kinds: device time per launch and per frame,
+   launches, columns, CTAs with work, each site's jobs alone, the columns
+   per site whose chosen candidate has no level) and the -Xptxas -v lines
+   of part_code_kernel and part_chain_kernel; (d) the probe's host
    time with the kernels and with the plain versions, and its device busy
    time with the kernels (torch.profiler: its launches overfill the launch
    queue, so it cannot wait behind a sleep kernel).  Where
@@ -619,10 +628,12 @@ def modes_parity(torch) -> None:
     parity(torch, "all-intra fast parity", partitions=False, gop=False)
 
 
-def _timed_slice(torch, clip, name: str, partitions: bool):
+def _timed_slice(torch, clip, name: str, partitions: bool,
+                 after_warm_up=None):
     """One warm-up and one timed 1080p encode with the kernels' launch
-    counts set to 0 just before the timed run and read just after.
-    Returns (streams, stats, launches by kernel)."""
+    counts set to 0 just before the timed run and read just after;
+    after_warm_up, where given, is called between the two.  Returns
+    (streams, stats, launches by kernel)."""
     from av1tpu_torch.cli import encode_clip
 
     kw = dict(chunk=CHUNK, metric="psnr", gop=True, partitions=partitions,
@@ -631,6 +642,8 @@ def _timed_slice(torch, clip, name: str, partitions: bool):
     encode_clip(clip, QINDEX, **kw)                      # warm-up
     torch.cuda.synchronize()
     print(f"{name} warm-up: {time.perf_counter() - t:.3f} s", flush=True)
+    if after_warm_up:
+        after_warm_up()
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     with ScenePlan() as plan:
@@ -699,6 +712,7 @@ def quality_slice_1080p(torch, clip, fast_stats):
     the probe kernels' launches of one probed frame (one frame is probed
     per scene at a fixed q), each wavefront kernel once per diagonal of
     the scene's keyframe."""
+    import av1tpu_torch.models.cdef as mcdef
     import av1tpu_torch.models.inter_v as inter_v
     import av1tpu_torch.models.intra_part as intra_part
     import av1tpu_torch.models.intra_wave as intra_wave
@@ -713,6 +727,17 @@ def quality_slice_1080p(torch, clip, fast_stats):
     gop_args: list = []
     tf_args: list = []
     probe_args: list = []
+    cdef_inputs: list = []
+    timed: list = []
+
+    def cdef_spy(y, u, v, skip8, pri_y, sec_y, pri_uv, sec_uv, damping=3,
+                 bit_depth=8):
+        strengths = tuple(int(x) for x in (pri_y, sec_y, pri_uv, sec_uv))
+        if any(strengths) and not timed:    # a warm-up launch, to the host
+            cdef_inputs.append(([p.to(torch.int16).cpu() for p in (y, u, v)],
+                                skip8.cpu(), strengths, damping, bit_depth))
+        return cdef_fn(y, u, v, skip8, pri_y, sec_y, pri_uv, sec_uv,
+                       damping, bit_depth)
 
     def probe_spy(*a, **k):
         if not probe_args:
@@ -740,17 +765,23 @@ def quality_slice_1080p(torch, clip, fast_stats):
         return bufs, ref, mv
 
     probe_fn = intra_part.encode_intra_part
+    cdef_fn = mcdef.cdef_planes
     intra_wave.encode_intra_wave_key_recon = key_spy
     inter_v.encode_gop_chunk_part = gop_spy
     tfilter.temporal_filter_key = tf_spy
     intra_part.encode_intra_part = probe_spy
+    mcdef.cdef_planes = cdef_spy
     try:
-        _, stats, launches = _timed_slice(torch, clip, "quality slice", True)
+        _, stats, launches = _timed_slice(torch, clip, "quality slice", True,
+                                          lambda: timed.append(True))
     finally:
         intra_wave.encode_intra_wave_key_recon = key_fn
         inter_v.encode_gop_chunk_part = gop_fn
         tfilter.temporal_filter_key = tf_fn
         intra_part.encode_intra_part = probe_fn
+        mcdef.cdef_planes = cdef_fn
+    assert len(cdef_inputs) == launches["cdef_filter"], len(cdef_inputs)
+    cdef_path(torch, cdef_inputs)
     assert launches["transform_quantize"] == 0, launches
     assert_part(launches, stats["scenes"])
     assert_wave(launches, stats["scenes"])
@@ -765,6 +796,31 @@ def quality_slice_1080p(torch, clip, fast_stats):
     assert abs(stats["bytes"] - 362224) <= 0.01 * 362224, stats["bytes"]
     assert abs(stats["psnr_y"] - 41.471) <= 0.05, stats["psnr_y"]
     return launches, key_args[-1], gop_args[0], tf_args[0], probe_args[0]
+
+
+def cdef_path(torch, calls) -> None:
+    """Phase 7's cdef_filter launches, caught in its warm-up encode (which
+    the timed one repeats launch for launch; calls: each one's planes,
+    skip map, preset, damping and bit depth, in order), each timed on its
+    own input (cdef_path_cases, cdef_times): the live share and the time
+    of the keyframe's (its strength search, then its filter) and of the
+    inter frames'.  With $AV1TPU_SMOKE_OUT they are saved as
+    cdef_path_inputs.pt for tools/search_compare.py --cdef."""
+    from av1tpu_torch.kernels import cdef as kcdef
+
+    out = os.environ.get("AV1TPU_SMOKE_OUT")
+    if out:
+        os.makedirs(out, exist_ok=True)
+        torch.save({"calls": calls}, os.path.join(out, "cdef_path_inputs.pt"))
+    recs = cdef_times(torch, kcdef, cdef_path_cases(torch, calls),
+                      plain=False)
+    for line in cdef_path_summary(recs):
+        print(f"cdef_filter on phase 7's {line['launches']} {line['part']} "
+              f"launches: live units min {line['live_min']:.6f}, median "
+              f"{line['live_median']:.6f}, max {line['live_max']:.6f}; "
+              f"device {line['device_us']:.3f} us in all (a launch "
+              f"{line['us_min']:.3f} to {line['us_max']:.3f}), bound "
+              f"{line['bound_us']:.4f} us", flush=True)
 
 
 def wave_key_bound(lanes: int) -> tuple[float, str]:
@@ -1017,14 +1073,114 @@ def _short(kernel_name: str) -> str:
     return m.group(1) if m else kernel_name[:40]
 
 
-def cdef_bounds(h: int, w: int) -> tuple[float, str]:
-    """Least time of one cdef_filter launch on an h x w frame, in us: its
+# int32 operations of cdef_filter per live 8x8 unit (chip_smoke.search_ops'
+# convention: an add, a multiply-add, a min, a max, a shift or a select is
+# one operation).  The direction search: per pixel its value (a shift and
+# a subtract) and eight partial sums, per bin of the 90 a square and a
+# multiply-add into the cost, the argmax and the variance (16).  The
+# filter, per pixel of a plane whose strengths are not zero: 12 taps of 11
+# (the difference, constrain's abs, shift, subtract, clamp at 0, min and
+# sign, the tap weight's multiply-add, the min, the max and its
+# CDEF_VERY_LARGE select), then the rounding (3) and the clamp (2).
+CDEF_SEARCH_OPS = 64 * (2 + 8) + 90 * 2 + 16
+CDEF_PIXEL_OPS = 12 * 11 + 5
+
+
+def cdef_ops(skip8, pri_y: int, sec_y: int, pri_uv: int, sec_uv: int) -> int:
+    """The int32 operations one cdef_filter call needs on this skip map
+    and preset: per unit that skip8 leaves on, the direction search where a
+    primary strength is not zero, and the filter of its 64 luma pixels and
+    2 x 16 chroma pixels where that plane's strengths are not zero."""
+    live = int((~skip8).sum())
+    per_unit = ((CDEF_SEARCH_OPS if pri_y or pri_uv else 0)
+                + (64 * CDEF_PIXEL_OPS if pri_y or sec_y else 0)
+                + (32 * CDEF_PIXEL_OPS if pri_uv or sec_uv else 0))
+    return live * per_unit
+
+
+def cdef_bounds(skip8, strengths) -> dict:
+    """Least time of one cdef_filter launch, in us: the larger of its
     bytes at the memory rate (the three int32 planes read once and written
-    once, the skip map and the 90 direction weights read once).  All of
-    its work is integer, which no fp32 or tensor peak counts, so bytes
-    bound it."""
+    once, the skip map and the 90 direction weights read once) and its
+    int32 operations on this skip map (cdef_ops) at the card's int32 rate
+    (int32_rate).  Returns bound_us, bound_by, bytes_us, ops_us and the
+    share of live units."""
+    h, w = 8 * skip8.shape[0], 8 * skip8.shape[1]
     nbytes = 2 * 4 * (h * w * 3 // 2) + (h // 8) * (w // 8) + 4 * 90
-    return nbytes / PEAK_BYTES * 1e6, "bytes"
+    t_bytes = nbytes / PEAK_BYTES * 1e6
+    t_ops = cdef_ops(skip8, *strengths) / int32_rate()[0] * 1e6
+    return {"bound_us": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "bytes_us": t_bytes, "ops_us": t_ops,
+            "live_share": float((~skip8).float().mean())}
+
+
+def cdef_cases(torch, cargs) -> list:
+    """The inputs cdef_filter is timed on: phase 7c's (the CDEF input of
+    the first inter frame with its skip map and preset), then that frame
+    with no unit skipped at the strongest preset of the strength search,
+    at 8 and 10 bits (the planes times 4 plus 2).  (label, args) each."""
+    from av1tpu_torch.models.cdef import CDEF_PRESETS
+
+    y, u, v, skip8 = cargs[:4]
+    strongest = tuple(int(x) for x in CDEF_PRESETS[-1])
+    dense = torch.zeros_like(skip8)
+    ten = [p * 4 + 2 for p in (y, u, v)]
+    return [("phase 7c", cargs),
+            ("dense 8-bit", (y, u, v, dense, *strongest, 3, 8)),
+            ("dense 10-bit", (*ten, dense, *strongest, 3, 10))]
+
+
+def cdef_path_cases(torch, calls) -> list:
+    """Phase 7's cdef_filter launches as cases on the card: the first
+    cdef_search_launches() + 1 the keyframe's, the rest the inter
+    frames'.  (label, args) each."""
+    nkey = cdef_search_launches() + 1
+    return [(f"{'keyframe' if i < nkey else 'inter'} {i} {tuple(pre)}",
+             (*(p.cuda().to(torch.int32) for p in planes), skip8.cuda(), *pre,
+              damping, bd))
+            for i, (planes, skip8, pre, damping, bd) in enumerate(calls)]
+
+
+def cdef_path_summary(recs) -> list:
+    """cdef_times' records of cdef_path_cases, summed per part (keyframe,
+    inter): launches, live share and device us per launch (min, median,
+    max), device and bound us in all."""
+    out = []
+    for part in ("keyframe", "inter"):
+        rs = [r for r in recs if r["case"].split()[0] == part]
+        live = sorted(r["live_share"] for r in rs)
+        us = sorted(r["device_us"] for r in rs)
+        out.append({"part": part, "launches": len(rs), "live_min": live[0],
+                    "live_median": live[len(live) // 2],
+                    "live_max": live[-1], "us_min": us[0],
+                    "us_median": us[len(us) // 2], "us_max": us[-1],
+                    "device_us": sum(us),
+                    "bound_us": sum(r["bound_us"] for r in rs)})
+    return out
+
+
+def cdef_times(torch, kcdef, cases, plain: bool = True) -> list:
+    """Each case's cdef_filter time (device_us, 100 launches behind a sleep
+    kernel), its bounds (cdef_bounds), the plain version's time (CUDA
+    events) where asked, and a sha256 of the three output planes: one
+    record per case.  Phase 7c and tools/search_compare.py --cdef time with
+    it."""
+    out = []
+    for label, args in cases:
+        got = kcdef.cdef_filter(*args)
+        torch.cuda.synchronize()
+        digest = hashlib.sha256(b"".join(
+            p.cpu().numpy().tobytes() for p in got)).hexdigest()
+        rec = {"case": label, "bit_depth": args[-1],
+               "device_us": device_us(torch, lambda: kcdef.cdef_filter(*args),
+                                      100),
+               **cdef_bounds(args[3], args[4:8]), "sha256": digest}
+        if plain:
+            rec["plain_ms"] = _median_ms(
+                torch, lambda: kcdef.cdef_filter_plain(*args), n=5)
+        out.append(rec)
+    return out
 
 
 @contextlib.contextmanager
@@ -1240,22 +1396,45 @@ def inter_vs_plain(torch, gop_args) -> dict:
         bound_by="bytes", cublas_ms=tot["cublas_ms"], max_abs_err=max_level,
         decisions_differ=decisions, rate_max_rel_err=site_err["rate_rel"],
         dskip_max_rel_err=site_err["dskip_rel"])
-    dev_us = device_us(torch, lambda: kcdef.cdef_filter(*cargs), 100)
-    plain = _median_ms(torch, lambda: kcdef.cdef_filter_plain(*cargs), n=5)
-    bound, by = cdef_bounds(h, w)
+    if out:          # the CDEF input tools/search_compare.py --cdef times
+        torch.save({"planes": [p.cpu() for p in cargs[:3]],
+                    "skip8": cargs[3].cpu(), "strengths": list(cargs[4:8]),
+                    "damping": cargs[8], "bit_depth": cargs[9]},
+                   os.path.join(out, "cdef_inputs.pt"))
+    cdef_recs = cdef_times(torch, kcdef, cdef_cases(torch, cargs))
+    for r in cdef_recs:
+        print(f"cdef_filter {w}x{h} {r['case']} ({r['bit_depth']}-bit): live "
+              f"units {r['live_share']:.4f}, device {r['device_us']:.3f} us, "
+              f"plain {r['plain_ms']:.3f} ms, bound {r['bound_us']:.4f} us "
+              f"({r['bound_by']}: bytes {r['bytes_us']:.4f}, int32 "
+              f"operations {r['ops_us']:.4f}; roofline "
+              f"{r['bound_us'] / r['device_us']:.4f})", flush=True)
+    main = cdef_recs[0]
     recs["cdef_filter"].update(
-        ms=dev_us / 1e3, plain_ms=plain, bound_ms=bound / 1e3, bound_by=by,
-        max_abs_err=cdef_err, pixels_differ=cdef_px)
+        ms=main["device_us"] / 1e3, plain_ms=main["plain_ms"],
+        bound_ms=main["bound_us"] / 1e3, bound_by=main["bound_by"],
+        live_share=main["live_share"], max_abs_err=cdef_err,
+        pixels_differ=cdef_px,
+        dense_us={r["case"]: r["device_us"] for r in cdef_recs[1:]})
     print(f"code_blocks per inter frame ({len(sites)} launches): device "
           f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.3f} ms, cuBLAS "
           f"products {tot['cublas_ms']:.4f} ms, bound {tot['bound_ms']:.5f} "
-          f"ms; cdef_filter {w}x{h}: device {dev_us:.3f} us, plain "
-          f"{plain:.3f} ms, bound {bound:.4f} us ({by}, roofline "
-          f"{bound / dev_us:.4f})", flush=True)
+          f"ms", flush=True)
+    for line in ptxas_report(BUILD_LOG, ("cdef_kernel",)):
+        print(f"-Xptxas -v {line}", flush=True)
     return recs
 
 
 INT32_LANES_PER_SM = 64     # Hopper: INT32 lanes per SM per clock
+
+
+@functools.cache
+def max_sm_mhz() -> float:
+    """The SM's maximum clock in MHz (nvidia-smi clocks.max.sm)."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
 
 
 @functools.cache
@@ -1266,10 +1445,7 @@ def int32_rate() -> tuple[float, str]:
     import torch
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True).stdout.split()[0])
+    mhz = max_sm_mhz()
     rate = INT32_LANES_PER_SM * sms * mhz * 1e6
     return rate, (f"{INT32_LANES_PER_SM} INT32 lanes x {sms} SMs x {mhz:g} "
                   f"MHz (clocks.max.sm) = {rate / 1e12:.3f} T int32 ops/s")
@@ -1930,6 +2106,63 @@ def part_bounds(calls: dict) -> dict:
     return out
 
 
+FMA_LATENCY_CYCLES = 4     # a dependent fp32 FMA on Hopper
+
+
+def chain_floor_us(jobs) -> float:
+    """part_chain's serial floor on these jobs, in us: the longest plane's
+    columns times its n*n dependent FMAs (each coefficient's sum keeps its
+    order on one thread) at FMA_LATENCY_CYCLES each and the SM's maximum
+    clock.  The quantize, the exchange and the inverse of each column come
+    on top."""
+    return max(j.src.shape[1] // j.site.n * j.site.n ** 2
+               for j in jobs) * FMA_LATENCY_CYCLES / max_sm_mhz()
+
+
+def capture_chain_jobs(torch, planes, q: int, bd: int) -> list:
+    """The probe of one frame (models/intra_part.encode_intra_part of the
+    checkout on sys.path) with its part_chain call caught: the jobs (luma,
+    U, V), their sources copied."""
+    from av1tpu_torch.models import intra_part
+
+    calls, chain = [], intra_part.part_chain
+
+    def catch(jobs):
+        calls.append([j._replace(src=j.src.clone()) for j in jobs])
+        return chain(jobs)
+
+    intra_part.part_chain = catch
+    try:
+        intra_part.encode_intra_part(*planes, q, bit_depth=bd)
+    finally:
+        intra_part.part_chain = chain
+    torch.cuda.synchronize()
+    assert len(calls) == 1, len(calls)
+    return calls[0]
+
+
+def chain_times(torch, kpart, jobs, reps: int = 50) -> dict:
+    """part_chain on one probed frame's jobs: the device us of the launch
+    of all of them and of each job alone (y, u, v; device_us, queued
+    behind a sleep kernel), and the sha256 of each job's levels and recon
+    after a launch of all.  Phase 7e and tools/search_compare.py --chain
+    time with it."""
+    out = {"all": device_us(torch, lambda: kpart.part_chain(jobs), reps,
+                            4 * SLEEP_CYCLES)}
+    for name, j in zip("yuv", jobs):
+        out[name] = device_us(torch, lambda: kpart.part_chain([j]), reps,
+                              4 * SLEEP_CYCLES)
+    fresh = [j._replace(lv=torch.zeros_like(j.lv), rec=torch.zeros_like(
+        j.rec)) for j in jobs]
+    kpart.part_chain(fresh)
+    torch.cuda.synchronize()
+    out["sha256"] = {name: hashlib.sha256(
+        j.lv.cpu().numpy().tobytes() + j.rec.cpu().numpy().tobytes()
+    ).hexdigest() for name, j in zip("yuv", fresh)}
+    out["floor_us"] = chain_floor_us(jobs)
+    return out
+
+
 def site_label(site) -> str:
     """A probe site's short name: y16, y32, y64 (luma, with a cost) or
     c8, c16, c32 (chroma)."""
@@ -2037,9 +2270,10 @@ def probe_vs_plain(torch, probe_args) -> dict:
     kernel, the 8-bit frame's calls replayed: the device time per probed
     frame (queued behind a sleep kernel), the plain versions' time (CUDA
     events), the bound (part_bounds), the launches per frame; part_chain's
-    serial depth.  (d) The probe's host time with the kernels and with the
-    plain versions, and its device busy time with the kernels
-    (device_busy_ms).  Returns the four kernels' records for the JSON line."""
+    serial floor, and its time per job on both frames (chain_times).
+    (d) The probe's host time with the kernels and with the plain
+    versions, and its device busy time with the kernels (device_busy_ms).
+    Returns the four kernels' records for the JSON line."""
     from av1tpu_torch.kernels import intra_part as kpart
     from av1tpu_torch.models import intra_part
 
@@ -2146,8 +2380,8 @@ def probe_vs_plain(torch, probe_args) -> dict:
         plain_ms = _median_ms(torch, lambda: [plain(j) for j in jobs_list],
                               n=3)
         bound_us, by = bounds[n]
-        extra = (f", serial depth {w // 16} columns (one block per plane)"
-                 if n == "part_chain" else "")
+        extra = (f", serial floor {chain_floor_us(jobs_list[0]):.3f} us "
+                 "(chain_floor_us)" if n == "part_chain" else "")
         print(f"{n} per probed {w}x{h} frame: {per_frame[n]} launches, "
               f"device {dev:.3f} us, plain {plain_ms:.3f} ms, bound "
               f"{bound_us:.4f} us ({by}{extra}, roofline "
@@ -2158,7 +2392,17 @@ def probe_vs_plain(torch, probe_args) -> dict:
                   "launches_per_frame": per_frame[n],
                   "decisions_differ": recs[n]["decisions"]}
 
-    # part_code per launch kind, on the 8-bit frame's calls
+    # part_chain per job (8 and 10 bits) and part_code per launch kind, on
+    # the frames' calls
+    for label, planes, qq, b in frames:
+        ct = chain_times(torch, kpart, capture_chain_jobs(torch, planes, qq,
+                                                          b))
+        print(f"part_chain {label} per job: all {ct['all']:.3f} us, luma "
+              f"{ct['y']:.3f}, U {ct['u']:.3f}, V {ct['v']:.3f}; serial "
+              f"floor {ct['floor_us']:.3f} us; sha256 {ct['sha256']}",
+              flush=True)
+        out["part_chain"].setdefault("per_job_us", {})[label] = {
+            k: ct[k] for k in ("all", "y", "u", "v")}
     out_dir = os.environ.get("AV1TPU_SMOKE_OUT")
     if out_dir:      # the frame tools/search_compare.py --probe times
         os.makedirs(out_dir, exist_ok=True)
@@ -2181,7 +2425,8 @@ def probe_vs_plain(torch, probe_args) -> dict:
               f"{r['no_level']}", flush=True)
     out["part_code"]["per_kind_us"] = {r["kind"]: r["device_us"]
                                        for r in kinds}
-    for line in ptxas_report(BUILD_LOG, ("part_code_kernel",)):
+    for line in ptxas_report(BUILD_LOG, ("part_code_kernel",
+                                         "part_chain_kernel")):
         print(f"-Xptxas -v {line}", flush=True)
 
     # (d) the probe's host and device time, kernels and plain versions

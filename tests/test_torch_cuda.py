@@ -6,8 +6,10 @@ to the whole keyframe), the wrappers reject what the kernels do not take, the in
 the motion search's and the loop filter's kernels agree with their plain
 versions bit for bit, the partition probe's four kernels give every output
 of its plain versions (and their rate per level is torch.log2's, bit for
-bit), and the scene batch runs on the visible GPUs (its workers launching
-one wavefront launch per keyframe).  They skip where CUDA is absent.
+bit), the launch layouts' Python mirrors equal the library's, a launch
+that the card or the library refuses raises, and the scene batch runs on
+the visible GPUs (its workers launching one wavefront launch per
+keyframe).  They skip where CUDA is absent.
 This file imports no JAX, so it also runs on a GPU machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -357,14 +359,17 @@ def test_cdef_filter_matches_plain(dev, bd):
     """cdef_filter against its plain version on the card, bit for bit (all
     integer): every strength preset of the search and the edge cases (a
     secondary or chroma strength alone, the largest strengths), units at
-    the frame's edges (a 40x56 frame has no interior row of units), with
-    none, some and all units skipped."""
+    the frame's edges (a 40x56 frame has no interior row of units), sizes
+    that are multiples of 8 but not of the kernel's 16 x 128 tile, with
+    none, some (a mixed map: tiles that are copied, filtered and both)
+    and all units skipped."""
     from av1tpu_torch.kernels.cdef import cdef_filter, cdef_filter_plain
     from av1tpu_torch.models.cdef import CDEF_PRESETS
 
     presets = [tuple(int(x) for x in p) for p in CDEF_PRESETS[1:]] + [
         (0, 2, 0, 3), (1, 0, 0, 0), (0, 0, 5, 0), (15, 3, 15, 3)]
-    for h, w, seed in ((1088, 1920, 1), (40, 56, 2)):
+    for h, w, seed in ((1088, 1920, 1), (40, 56, 2), (72, 200, 3),
+                       (24, 136, 4)):
         for skip_share in (0.0, 0.3, 1.0):
             y, u, v, sk = _cdef_case(dev, bd, h, w, seed, skip_share)
             for p in presets:
@@ -399,6 +404,113 @@ def test_cdef_filter_rejects_bad_inputs(dev):
         cdef_filter(y, u.cpu(), v, sk, 4, 1, 3, 1)
     with pytest.raises(ValueError):                 # not contiguous
         cdef_filter(y.t().contiguous().t(), u, v, sk, 4, 1, 3, 1)
+
+
+@pytest.mark.cuda
+def test_refused_launches_raise(dev):
+    """A launch the card refuses (cdef_filter's grid over 65,535 tile rows)
+    and one the library refuses (part_chain's four jobs) raise, and count
+    no launch."""
+    from av1tpu_torch.kernels import intra_part as kpart
+    from av1tpu_torch.kernels.cdef import cdef_filter
+
+    h, w = 8 * 2 * 65_536, 8
+    y = torch.zeros((h, w), dtype=torch.int32, device=dev)
+    u, v = (torch.zeros((h // 2, w // 2), dtype=torch.int32, device=dev)
+            for _ in range(2))
+    sk = torch.zeros((h // 8, w // 8), dtype=torch.bool, device=dev)
+    before = cdef_filter.launches
+    with pytest.raises(RuntimeError, match="cdef_filter kernel launch"):
+        cdef_filter(y, u, v, sk, 4, 1, 3, 1)
+    assert cdef_filter.launches == before
+    jobs = _chain_jobs(dev, 8, 72, 2, None)
+    with pytest.raises(RuntimeError, match="part_chain kernel launch"):
+        kpart._launch(kpart._lib().av1_part_chain, kpart.ChainJobC, [
+            kpart.ChainJobC(s=j.site.c, fwdt=j.fwdt.data_ptr(),
+                            src=j.src.data_ptr(), lv=j.lv.data_ptr(),
+                            rec=j.rec.data_ptr(), cols=2, width=j.src.shape[1],
+                            edge0=127) for j in jobs + jobs[:1]],
+            "part_chain")
+    torch.cuda.synchronize()
+
+
+def _chain_jobs(dev, bd, q, cols, fill, seed=3):
+    """The probe's first-row jobs (luma 16x16, U and V 8x8) over `cols`
+    columns: a gradient with noise, or every pixel `fill`."""
+    from av1tpu_torch.kernels.intra_part import ChainJob
+    from av1tpu_torch.models import intra_part
+    from av1tpu_torch.state import tables
+
+    S, T = intra_part._sites(q, bd, dev), tables(dev)
+    rng = np.random.RandomState(seed)
+    pm = (1 << bd) - 1
+    jobs = []
+    for site, fwdt, n in ((S.y_chain, T.fwdt(16, 0), 16),
+                          (S.c8, T.fwdt(8, 1), 8), (S.c8, T.fwdt(8, 1), 8)):
+        x = (np.arange(cols * n)[None, :] * (pm // 300 + 1)
+             + np.arange(n)[:, None] * 2)
+        img = np.clip(x % (pm + 1) + rng.randint(-pm // 8, pm // 8 + 1,
+                                                 x.shape), 0, pm)
+        if fill is not None:
+            img[:] = fill
+        src = torch.from_numpy(img.astype(np.int32)).to(dev)
+        jobs.append(ChainJob(site, fwdt, src, torch.full(
+            (cols, n, n), -1, dtype=torch.int16, device=dev),
+            torch.full((n, cols * n), -1, dtype=torch.int32, device=dev)))
+    return jobs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bd,q", [(8, 72), (10, 40)])
+def test_part_chain_matches_plain(dev, bd, q):
+    """part_chain (a cluster per plane) beside part_chain_plain under
+    chip_smoke.py's _chain_check, at 1, 2, 3 and 120 columns, with the
+    planes in one launch and alone: every level the float64 level of its
+    coefficient from the kernel's own carry (or, within TIE_REL of a
+    boundary, the level across it), every recon pixel exact; on
+    gradients and on planes of 0 and of the peak value, where the carried
+    edge sits at 0 and at pix_max."""
+    import chip_smoke
+    from av1tpu_torch.kernels import intra_part as kpart
+
+    pm = (1 << bd) - 1
+    for cols in (1, 2, 3, 120):
+        for fill in (None, 0, pm):
+            jobs = _chain_jobs(dev, bd, q, cols, fill, seed=cols)
+            for group in (jobs, jobs[:1], jobs[1:]):
+                plain = [chip_smoke._clone_job(j) for j in group]
+                before = kpart.part_chain.launches
+                kpart.part_chain(group)
+                kpart.part_chain_plain(plain)
+                torch.cuda.synchronize()
+                assert kpart.part_chain.launches == before + 1
+                for j, p in zip(group, plain):
+                    chip_smoke._chain_check(torch, j, p)
+
+
+@pytest.mark.cuda
+def test_chain_and_cdef_layouts_match_the_library(dev):
+    """kernels/intra_part.py:chain_layout and kernels/cdef.py:cdef_layout,
+    the Python mirrors of the launches, equal the library's
+    (av1_part_chain_layout, av1_cdef_layout)."""
+    import ctypes
+
+    from av1tpu_torch._build import cuda_lib
+    from av1tpu_torch.kernels import intra_part as kpart
+    from av1tpu_torch.kernels.cdef import cdef_layout
+
+    jobs = _chain_jobs(dev, 8, 72, 2, None)
+    for group in (jobs, jobs[:1], jobs[1:], jobs[2:]):
+        arr = (kpart.ChainJobC * len(group))(*[
+            kpart.ChainJobC(s=j.site.c, cols=2, width=j.src.shape[1])
+            for j in group])
+        out = (ctypes.c_int * 4)()
+        assert kpart._lib().av1_part_chain_layout(arr, len(group), out) == 0
+        assert tuple(out) == tuple(kpart.chain_layout(
+            [j.site.n for j in group]))
+    out = (ctypes.c_int * 7)()
+    assert cuda_lib().av1_cdef_layout(out) == 0
+    assert tuple(out) == tuple(cdef_layout())
 
 
 def _search_pair(dev, bd, h, w, seed, shift, kind="texture"):

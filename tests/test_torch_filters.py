@@ -329,3 +329,171 @@ def test_deblock_edges_on_cpu_is_both_plain_passes(luma, split, bd):
     assert torch.equal(got, want) and not torch.equal(got, plane)
     assert torch.equal(_tiled_plain(plane, v_on, h_on, 24, bd, luma, s16,
                                     th, tw), want)
+
+
+# ---- cdef_filter's tiles (kernels/cdef.py:cdef_layout mirrors
+# csrc/cdef.cu's and tests/test_torch_cuda.py holds it to the library;
+# _cdef_tiles mirrors the kernel's grid) ----
+
+def _cdef_tiles(h: int, w: int):
+    """The CTAs of one cdef_filter launch on an h x w frame (csrc/cdef.cu's
+    grid of ceil(w/8 / tc) x ceil(h/8 / tr) tiles): each tile's first unit
+    (row, column) and its units inside the frame (rows, columns)."""
+    from av1tpu_torch.kernels.cdef import cdef_layout
+
+    L = cdef_layout()
+    nbr, nbc = h // 8, w // 8
+    for r in range(0, nbr, L.tr):
+        for c in range(0, nbc, L.tc):
+            yield r, c, min(L.tr, nbr - r), min(L.tc, nbc - c)
+
+
+@pytest.mark.parametrize("h,w", [(1088, 1920), (1080, 1920), (40, 56),
+                                 (72, 200), (8, 8), (24, 136)])
+def test_cdef_tiles_take_every_unit_once(h, w):
+    """At the main path's 1088x1920 and at sizes that are multiples of 8
+    but not of the tile: the tiles take each 8x8 unit exactly once, 32 a
+    tile (a lane each), and each stages its apron: at least the 2 rows and
+    2 columns the taps reach, in 16-byte pieces, at a row stride that puts
+    a warp's 4 x 8 luma pixels (and its two 4 x 4 chroma units, V four
+    words after U) on 32 banks."""
+    from av1tpu_torch.kernels.cdef import cdef_layout
+
+    L = cdef_layout()
+    assert L.tr * L.tc == 32 and L.threads % 32 == 0
+    assert L.ar >= 2 and L.ac >= 2 and L.ac % 4 == 0
+    assert L.ls == 8 * L.tc + 2 * L.ac and L.cs == 4 * L.tc + 2 * L.ac
+    assert L.ls % 32 == 8 and L.cs % 32 == 8
+    cr = 4 * L.tr + 2 * L.ar
+    banks = {(8 * i + j) % 32 for i in range(4) for j in range(8)}
+    assert len(banks) == 32
+    chroma = {(i * L.cs + j + off) % 32 for i in range(4) for j in range(4)
+              for off in (0, cr * L.cs + 4)}
+    assert len(chroma) == 32
+    cover = np.zeros((h // 8, w // 8), np.int32)
+    for r, c, nr, nc in _cdef_tiles(h, w):
+        assert r % L.tr == 0 and c % L.tc == 0 and nr > 0 and nc > 0
+        cover[r:r + nr, c:c + nc] += 1
+    assert (cover == 1).all()
+
+
+LARGE = 0x4000
+
+
+def _taps_numpy(stage, at, d, stride, pri, par, sec, damping):
+    """cdef.cu's filter_px on a staged plane (numpy): the sample at the
+    flat positions `at`, its 12 taps read at +-offset along d (primary)
+    and d + 2, d + 6 (secondary), no bound tested."""
+    from av1tpu_torch.spec.cdef import CDEF_DIRECTIONS
+
+    def floor_log2(x):
+        return 0 if x <= 1 else int(x).bit_length() - 1
+
+    def constrain(diff, thr, damp):
+        if thr <= 0:
+            return np.zeros_like(diff)
+        ad = np.abs(diff)
+        m = np.minimum(ad, np.maximum(thr - (ad >> damp), 0))
+        return np.where(diff < 0, -m, m)
+
+    flat = stage.reshape(-1)
+    px = flat[at]
+    dp, ds = max(damping - floor_log2(pri), 0), max(damping - floor_log2(sec),
+                                                    0)
+    total, mn, mx = np.zeros_like(px), px.copy(), px.copy()
+    for k in range(2):
+        for o in range(3):
+            dy, dx = CDEF_DIRECTIONS[(d, d + 2, d + 6)[o] & 7][k]
+            off = dy * stride + dx
+            for s in (1, -1):
+                q = flat[at + s * off]
+                total += ((4 - par, 2 + par)[k] * constrain(q - px, pri, dp)
+                          if o == 0 else (2, 1)[k] * constrain(q - px, sec,
+                                                               ds))
+                mn = np.minimum(mn, q)
+                mx = np.maximum(mx, np.where(q == LARGE, -1, q))
+    out = px + ((8 + total - (total < 0)) >> 4)
+    return np.minimum(np.maximum(out, mn), mx)
+
+
+def _cdef_tiled(y, u, v, skip8, pri_y, sec_y, pri_uv, sec_uv, damping, bd):
+    """csrc/cdef.cu's live path mirrored in numpy, tile by tile: each
+    plane's window staged with its apron (CDEF_VERY_LARGE outside the
+    frame), every tap read from the stage; the directions and variances
+    from the plain version's search."""
+    from av1tpu_torch.kernels.cdef import cdef_layout
+    from av1tpu_torch.models.cdef import cdef_dirs
+
+    L, cs = cdef_layout(), bd - 8
+    dirs, vars_ = (t.numpy() for t in cdef_dirs(torch.from_numpy(y), cs))
+    search = pri_y > 0 or pri_uv > 0
+    outs = [p.copy() for p in (y, u, v)]
+    for r, c, nr, nc in _cdef_tiles(*y.shape):
+        for k, (p, n8, stride) in enumerate(((y, 8, L.ls), (u, 4, L.cs),
+                                             (v, 4, L.cs))):
+            rows = L.tr * n8 + 2 * L.ar
+            stage = np.full((rows, stride), LARGE, np.int64)
+            y0, x0 = r * n8 - L.ar, c * n8 - L.ac
+            ys = slice(max(y0, 0), min(y0 + rows, p.shape[0]))
+            xs = slice(max(x0, 0), min(x0 + stride, p.shape[1]))
+            stage[ys.start - y0:ys.stop - y0, xs.start - x0:xs.stop - x0] = \
+                p[ys, xs]
+            luma = k == 0
+            if not (pri_y or sec_y if luma else pri_uv or sec_uv):
+                continue
+            for ur in range(nr):
+                for uc in range(nc):
+                    R, C = r + ur, c + uc
+                    if skip8[R, C]:
+                        continue
+                    d, var = (dirs[R, C], vars_[R, C]) if search else (0, 0)
+                    i, j = np.mgrid[0:n8, 0:n8]
+                    at = ((L.ar + ur * n8 + i) * stride + L.ac + uc * n8
+                          + j).ravel()
+                    if luma:
+                        v6 = var >> 6
+                        ii = min(int(v6).bit_length() - 1, 12) if v6 > 0 \
+                            else 0
+                        pri = (((pri_y << cs) * (4 + ii) + 8) >> 4
+                               if var > 0 else 0)
+                        res = _taps_numpy(stage, at, d, stride, pri,
+                                          (pri >> cs) & 1,
+                                          (sec_y + (sec_y == 3)) << cs,
+                                          damping + cs)
+                    else:
+                        res = _taps_numpy(stage, at, d, stride,
+                                          pri_uv << cs, pri_uv & 1,
+                                          (sec_uv + (sec_uv == 3)) << cs,
+                                          damping - 1 + cs)
+                    outs[k][R * n8:(R + 1) * n8,
+                            C * n8:(C + 1) * n8] = res.reshape(n8, n8)
+    return outs
+
+
+@pytest.mark.parametrize("bit_depth,strengths,frame,skip_share", [
+    (8, (12, 3, 9, 3), (24, 136), 0.0), (10, (6, 2, 4, 1), (40, 56), 0.3),
+    (8, (0, 2, 0, 3), (16, 264), 0.2), (10, (1, 0, 5, 0), (24, 16), 0.0)])
+def test_cdef_taps_from_a_padded_apron_match_the_plain_version(
+        bit_depth, strengths, frame, skip_share):
+    """The premise of cdef.cu's live tiles: every tap read from a tile's
+    stage, whose apron beyond the frame holds CDEF_VERY_LARGE, with no
+    bound tested, gives cdef_filter_plain's pixels, on frames whose tiles
+    are cut by the frame's right and bottom edges and whose units touch
+    every edge."""
+    h, w = frame
+    rng = np.random.RandomState(h + w)
+    pm = (1 << bit_depth) - 1
+    y = np.clip(np.repeat(np.repeat(rng.randint(0, pm + 1, (h // 4, w // 4)),
+                                    4, 0), 4, 1)
+                + rng.randint(-9, 10, (h, w)), 0, pm).astype(np.int32)
+    u, v = (rng.randint(0, pm + 1, (h // 2, w // 2)).astype(np.int32)
+            for _ in range(2))
+    skip8 = rng.rand(h // 8, w // 8) < skip_share
+    got = _cdef_tiled(y, u, v, skip8, *strengths, 3, bit_depth)
+    want = cdef_filter(*(torch.from_numpy(p) for p in (y, u, v)),
+                       torch.from_numpy(skip8), *strengths, 3, bit_depth)
+    for g, wt in zip(got, want):
+        assert np.array_equal(g, wt.numpy())
+    assert not np.array_equal(got[0] if strengths[0] or strengths[1]
+                              else got[1], (y if strengths[0] or strengths[1]
+                                            else u))

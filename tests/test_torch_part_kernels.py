@@ -8,7 +8,8 @@ port before the kernels) at the rows of 64x128 and 128x192 frames, in 8
 and 10 bits; the probe calls each wrapper as often as
 models/intra_part.part_launches says and launches nothing; a frame where
 the 64, the 32 and the 16 each win somewhere keeps the losers' levels at
-zero; and the wrappers reject what the kernels do not take.
+zero; the wrappers reject what the kernels do not take; and the launch
+plans of part_code and part_chain cover every column or position once.
 
 No reference graph is compiled and no forward matrix is built: stand-in
 matrices (the orthonormal DCT basis over the integer inverse's DC gain)
@@ -692,3 +693,48 @@ def test_part_code_8x8_sums_keep_the_block_order(seed):
     assert first.tobytes() == f32(red2[0] + red2[1]).tobytes()
     # and a column whose elements are all +0.0 sums to +0.0
     assert _warp_sums(np.zeros(64, f32))[0].tobytes() == f32(0).tobytes()
+
+
+# ---- part_chain's launch (kernels/intra_part.py:chain_layout mirrors
+# csrc/intra_part.cu's clusters and the card test holds it to the
+# library; _chain_plan mirrors chain_plane's index arithmetic) ----
+
+def _chain_plan(n: int):
+    """Per CTA of a plane's cluster (rank r): the coefficient positions it
+    codes, a thread each (csrc/intra_part.cu chain_plane: pos = r * SL +
+    t), and per thread the source positions of a column whose residual it
+    forms (e = t + i * CHAIN_NT; every CTA forms the whole residual)."""
+    nn = n * n
+    sl = nn // K.CHAIN_CL
+    return [(list(range(r * sl, (r + 1) * sl)),
+             [list(range(t, nn, K.CHAIN_NT)) for t in range(K.CHAIN_NT)])
+            for r in range(K.CHAIN_CL)]
+
+
+@pytest.mark.parametrize("n", [16, 8], ids=["luma256", "chroma64"])
+def test_chain_plan_takes_each_position_once(n):
+    """A plane's cluster of CHAIN_CL CTAs: their slices take each of the
+    n*n coefficient positions exactly once, a thread each and in 16-byte
+    pieces of the forward matrix's row; every CTA's threads form the whole
+    residual, each source position once; and a CTA's shared memory (its
+    slice of the matrix, the residual, the two parity blocks, the
+    inverse's scratch, rd_zero's table) fits the card's 232,448 bytes."""
+    nn = n * n
+    plan = _chain_plan(n)
+    assert len(plan) == K.CHAIN_CL
+    coded = np.zeros(nn, np.int32)
+    for positions, sources in plan:
+        assert len(positions) <= K.CHAIN_NT and len(positions) % 4 == 0
+        assert positions == list(range(positions[0],
+                                       positions[0] + len(positions)))
+        coded[positions] += 1
+        formed = np.zeros(nn, np.int32)
+        for per_thread in sources:
+            formed[per_thread] += 1
+        assert (formed == 1).all()
+    assert (coded == 1).all()
+    words = K.chain_words(n)
+    assert words == nn * nn // K.CHAIN_CL + nn + 3 * n * (n + 1) + 8
+    lay = K.chain_layout([16, 8, 8] if n == 16 else [8, 8])
+    assert lay.ctas == K.CHAIN_CL * (3 if n == 16 else 2)
+    assert lay.smem == 4 * words <= 232_448

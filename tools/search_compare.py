@@ -4,12 +4,13 @@ the probe's coder of one checkout of av1tpu_torch on a GPU.
 
     python3 tools/search_compare.py [--inputs FILE] [--coder FILE ...]
                                     [--deblock FILE] [--probe FILE]
+                                    [--chain FILE] [--cdef FILE]
                                     [--root DIR]
     python3 tools/search_compare.py --coder FILE --make-coder DIR
 
 Imports av1tpu_torch from DIR (default: this checkout) and builds its CUDA
 kernels (printing the -Xptxas -v lines of motion.cu, inter_code.cu,
-deblock.cu and intra_part.cu's part_code).
+deblock.cu, cdef.cu and intra_part.cu's part_code and part_chain).
 
 --inputs: times coarse_search, global_search and refine_subpel on the pair
 that chip_smoke.py's phase 7d saved to FILE (its first 1080p inter frame,
@@ -40,6 +41,27 @@ kind (device us per launch and per frame, launches, columns, CTAs with
 work, each site alone, the columns without a level per site) and one for
 the frame.
 
+--chain: times part_chain on the probed frame that --probe reads (FILE
+is phase 7e's probe_inputs.pt) and on the 10-bit frame phase 7e makes
+from it (the planes times 4 plus 2, q 72): the probe runs once with
+part_chain's call caught (chip_smoke.capture_chain_jobs), then
+chip_smoke.chain_times times the launch of the three planes and each
+plane alone.  One JSON line per frame: device us, the serial floor
+(chip_smoke.chain_floor_us) and the sha256 of each plane's levels and
+recon, which two checkouts whose kernels agree print alike.
+
+--cdef: times cdef_filter on the CDEF input that phase 7c saved to FILE
+(cdef_inputs.pt: its first inter frame's planes, skip map and preset)
+and on that frame with no unit skipped at the strongest preset, at 8 and
+10 bits (chip_smoke.cdef_cases); or, where FILE is phase 7's
+cdef_path_inputs.pt (every cdef_filter launch of its quality encode: the
+keyframe's, then the inter frames'), on each launch's own input
+(chip_smoke.cdef_path_cases), with one more JSON line per part
+(chip_smoke.cdef_path_summary).  Phase 7c's own timing
+(chip_smoke.cdef_times).  One JSON line per case: device us, the share
+of live units, the bounds (chip_smoke.cdef_bounds: bytes and int32
+operations) and the sha256 of the three output planes.
+
 --make-coder DIR writes, with this checkout, coder batches in which most
 or all blocks carry levels, and times nothing: dense8.pt, FILE's batches
 with their source and prediction replaced by random pixels at the full
@@ -58,6 +80,7 @@ this script on each, in turns, within one command, after the smoke.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -120,6 +143,28 @@ def frame_batches(torch, dev, bit_depth: int = 10, qindex: int = 40,
     return sites
 
 
+@contextlib.contextmanager
+def forward_matrices(probe_file: str):
+    """Within the block the probe adopts the forward matrices kept beside
+    probe_file (probe_inputs_forward.npz, which the smoke writes too), and
+    writes them there after it where they are missing: each run builds
+    them otherwise (tens of seconds of np.linalg.pinv).  They are the same
+    in every checkout."""
+    from av1tpu_torch.ops import transforms
+
+    fwd = os.path.splitext(probe_file)[0] + "_forward.npz"
+    if os.path.exists(fwd):
+        with np.load(fwd) as z:
+            transforms.adopt_forward_matrices(
+                {("fwd64" if k == "fwd64" else tuple(
+                    int(x) for x in k.split("_"))): z[k] for k in z})
+    yield
+    if not os.path.exists(fwd):
+        np.savez(fwd, **{"_".join(map(str, k)) if k != "fwd64" else k: m
+                         for k, m in
+                         transforms.built_forward_matrices().items()})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--inputs", help="phase 7d's saved pair (chip_smoke.py)")
@@ -127,13 +172,17 @@ def main() -> int:
                     help="coder batches: phase 7c's or --make-coder's")
     ap.add_argument("--deblock", help="phase 7d's saved planes")
     ap.add_argument("--probe", help="phase 7e's saved probed frame")
+    ap.add_argument("--chain", help="phase 7e's saved probed frame")
+    ap.add_argument("--cdef", help="phase 7c's saved CDEF input")
     ap.add_argument("--make-coder", metavar="DIR",
                     help="write dense8.pt, frame10.pt and dense10.pt there")
     ap.add_argument("--root", default=HERE,
                     help="checkout whose av1tpu_torch is timed")
     args = ap.parse_args()
-    if not (args.inputs or args.coder or args.deblock or args.probe):
-        ap.error("give --inputs, --coder, --deblock or --probe")
+    if not (args.inputs or args.coder or args.deblock or args.probe
+            or args.chain or args.cdef):
+        ap.error("give --inputs, --coder, --deblock, --probe, --chain or "
+                 "--cdef")
     if args.make_coder and len(args.coder) != 1:
         ap.error("--make-coder takes one --coder FILE (phase 7c's)")
     sys.path.insert(0, HERE)
@@ -146,7 +195,9 @@ def main() -> int:
         print("search_compare: CUDA is not available", file=sys.stderr)
         return 1
     from av1tpu_torch import _build
-    from av1tpu_torch.kernels import deblock, inter_code, intra_part, motion
+    from av1tpu_torch.kernels import (
+        cdef, deblock, inter_code, intra_part, motion,
+    )
 
     dev = torch.device("cuda")
     if args.make_coder:
@@ -164,8 +215,8 @@ def main() -> int:
     print("\n".join(ln for ln in log.splitlines()
                     if "motion" in ln or "inter_code" in ln
                     or "spill" in ln) or log.strip(), flush=True)
-    for line in chip_smoke.ptxas_report(log, ("deblock_kernel",
-                                              "part_code")):
+    for line in chip_smoke.ptxas_report(log, ("deblock_kernel", "part_code",
+                                              "part_chain", "cdef_kernel")):
         print(f"-Xptxas -v {line}", flush=True)
     card = chip_smoke.card_name()
     if args.inputs:
@@ -209,24 +260,11 @@ def main() -> int:
             "bound_us": sum(r["bound_us"] for r in runs), "card": card}),
               flush=True)
     if args.probe:
-        from av1tpu_torch.ops import transforms
-
-        # the forward matrices beside FILE: each run builds them otherwise
-        # (tens of seconds of np.linalg.pinv); they are the same in every
-        # checkout
-        fwd = os.path.splitext(args.probe)[0] + "_forward.npz"
-        if os.path.exists(fwd):
-            with np.load(fwd) as z:
-                transforms.adopt_forward_matrices(
-                    {("fwd64" if k == "fwd64" else tuple(
-                        int(x) for x in k.split("_"))): z[k] for k in z})
         d = torch.load(args.probe)
-        calls = chip_smoke.capture_code_calls(
-            torch, [p.to(dev) for p in d["planes"]], d["q"], d["bit_depth"])
-        if not os.path.exists(fwd):
-            np.savez(fwd, **{"_".join(map(str, k)) if k != "fwd64" else k: m
-                             for k, m in
-                             transforms.built_forward_matrices().items()})
+        with forward_matrices(args.probe):
+            calls = chip_smoke.capture_code_calls(
+                torch, [p.to(dev) for p in d["planes"]], d["q"],
+                d["bit_depth"])
         kinds = chip_smoke.code_kinds(torch, intra_part, calls)
         for r in kinds:
             print(json.dumps({"root": args.root, "kernel": "part_code", **r,
@@ -236,6 +274,39 @@ def main() -> int:
             "launches": sum(r["launches"] for r in kinds),
             "frame_us": sum(r["frame_us"] for r in kinds), "card": card}),
               flush=True)
+    if args.chain:
+        d = torch.load(args.chain)
+        planes = [p.to(dev) for p in d["planes"]]
+        frames = [("8-bit", planes, d["q"], d["bit_depth"]),
+                  ("10-bit", [p * 4 + 2 for p in planes], 72, 10)]
+        with forward_matrices(args.chain):
+            for label, pl, q, bd in frames:
+                jobs = chip_smoke.capture_chain_jobs(torch, pl, q, bd)
+                ct = chip_smoke.chain_times(torch, intra_part, jobs)
+                print(json.dumps({
+                    "root": args.root, "kernel": "part_chain",
+                    "frame": label, "shape": list(pl[0].shape),
+                    **{f"{k}_us": ct[k] for k in ("all", "y", "u", "v")},
+                    "floor_us": ct["floor_us"], "sha256": ct["sha256"],
+                    "card": card}), flush=True)
+    if args.cdef:
+        d = torch.load(args.cdef)
+        if "calls" in d:        # phase 7's launches
+            cases = chip_smoke.cdef_path_cases(torch, d["calls"])
+        else:
+            cases = chip_smoke.cdef_cases(torch, (
+                *(p.to(dev) for p in d["planes"]), d["skip8"].to(dev),
+                *d["strengths"], d["damping"], d["bit_depth"]))
+        recs = chip_smoke.cdef_times(torch, cdef, cases, plain=False)
+        for r in recs:
+            print(json.dumps({"root": args.root, "kernel": "cdef_filter",
+                              "shape": list(cases[0][1][0].shape), **r,
+                              "bound_share": r["bound_us"] / r["device_us"],
+                              "card": card}), flush=True)
+        if "calls" in d:
+            for line in chip_smoke.cdef_path_summary(recs):
+                print(json.dumps({"root": args.root, "kernel": "cdef_filter",
+                                  **line, "card": card}), flush=True)
     for path in args.coder:
         sites = chip_smoke.load_coder_inputs(torch, inter_code, path, dev)
         times = chip_smoke.coder_times(torch, inter_code, sites, plain=False)

@@ -185,6 +185,13 @@ def cuda_lib() -> ctypes.CDLL:
         # jobs, count, out (4 ints: CTAs, CTAs per cluster, threads,
         # dynamic shared bytes)
         "av1_part_chain_layout": [vp, ci, vp],
+        # jobs, count, out (4 ints: CTAs, threads, launch attributes, PDL)
+        "av1_part_pred_layout": [vp, ci, vp],
+        # jobs, count, out (6 ints: CTAs along x, rows, CTAs per cluster,
+        # threads, static shared bytes, launch attributes)
+        "av1_part_merge_layout": [vp, ci, vp],
+        # count, pdl, stream: launches of an empty kernel
+        "av1_part_empty": [ci, ci, vp],
         # out (text), cap (bytes; returns the text's length)
         "av1_part_layout": [vp, ci],
     }

@@ -51,8 +51,44 @@
 // stage codes (U and V together), as a list of jobs in the kernel's
 // parameters; the outputs go straight into the frame's level, mode, split
 // and recon grids, so the row above a stage is a row of the recon plane
-// and nothing is copied between stages.  One block of 256 threads per
-// column of a site in part_pred (per superblock column in part_merge).
+// and nothing is copied between stages.
+//
+// part_pred and part_merge.  Each launch moves a few hundred KB and does
+// almost no arithmetic (a 1088x1920 probed frame: 52.6 us of bytes for
+// part_pred's 134 launches, 25.4 us for part_merge's 66, PERF.md), so a
+// launch costs its fixed overhead and its longest chain of dependent
+// memory round trips.  Their first versions lost most of that: part_pred
+// launched a CTA per (candidate, column) on a (max columns x jobs) grid,
+// about half of it empty, each CTA reloading the edge and the source
+// between two dependent round trips with 4-byte stores; part_merge ran 30
+// (chroma 60) CTAs, each walking seven dependent steps through device
+// memory per region (copy the winner, read it back for the SSE, read the
+// levels, three two-barrier sums, write the cost, read it back for the
+// 64, then 2-byte zeroing).  Now:
+// - both launch with programmatic stream serialization (griddepcontrol):
+//   a launch starts while its predecessor finishes, loads what no kernel
+//   still running writes (part_pred its source band; part_merge the luma
+//   source, the big site's band and cost, the first half's region costs),
+//   then waits; part_chain and part_merge let their dependents start at
+//   once (launch_dependents), so the next kernel's loads overlap their
+//   tails; part_code does not (its dependents' CTAs, resident early, cost
+//   the probe's sequence more than their early loads saved: PERF.md);
+// - part_pred: a flat grid of exactly the jobs' CTAs, the 64 site first;
+//   a thread takes a 16-byte quad of a column and builds every candidate
+//   of it from one edge load and one source load, 16-byte stores of pred
+//   and resid; 16 8x8 or 4 16x16 columns share a CTA, so no warp idles;
+// - part_merge: a cluster of MERGE_CL = 2 CTAs per superblock column, one
+//   per region of the half; after the wait one cp.async burst brings the
+//   costs, both candidates' recon of the region and (luma) the small and
+//   mid levels; the split is decided first, the loser zeroed, the SSE and
+//   the rates taken in shared memory (nothing the CTA writes is read
+//   back), one barrier for all five sums; with do_big the two region
+//   costs meet in both CTAs' shared memory behind one cluster barrier,
+//   both decide the 64 from the same terms, and each writes its half of
+//   the window, the levels and the splits once; every store 16 bytes.
+// What still bounds them: the launch itself and, after the wait, one
+// round trip for the inputs; part_merge's do_big launches a second one
+// for the cluster barrier.
 //
 // part_chain.  A plane's 120 columns are a chain through one carried
 // pixel.  Read through the cache by one CTA, the luma forward matrix (256
@@ -107,7 +143,12 @@
 //   passes run on 64 and 128 threads instead of 32 and 64;
 // - the 8x8 and 16x16 inverses stay inverse_2d (a thread per line).
 //
-// Bits.  part_code's sums keep the first version's order: element
+// Bits.  part_merge's rates keep the first version's order (element p of
+// the small pair or of the mid block on thread p mod 256 as its
+// (p div 256)-th addend, the warps' butterflies, then the warps in order;
+// the loser's zeroed levels, which that version added as +0.0, are left
+// out), so every region cost and decision is the first version's bit for
+// bit.  part_code's sums keep the first version's order: element
 // e = m * nc + j of a column on thread e mod 256 as its (e div 256)-th
 // addend, the warps' butterflies, then the warps in order (at 8x8 a
 // column's two warps: the other six added +0.0 to sums that are not
@@ -205,11 +246,14 @@ constexpr int CHAIN_CL = 4;
 constexpr int CHAIN_NT = 256 / CHAIN_CL;
 
 struct ChainJobs { ChainJob j[3]; };
-struct PredJobs { PredJob j[MAXJ]; };
-// part_code's jobs, heaviest size first, and each job's first CTA of the
-// flat grid (first[count] .. first[MAXJ]: the grid's end)
+// part_pred's and part_code's jobs, heaviest size first, and each job's
+// first CTA of the flat grid (first[count] .. first[MAXJ]: the grid's end)
+struct PredJobs { PredJob j[MAXJ]; int first[MAXJ + 1]; };
 struct CodeJobs { CodeJob j[MAXJ]; int first[MAXJ + 1]; };
 struct MergeJobs { MergeJob j[2]; };
+// part_merge: CTAs per superblock column (a cluster), one per region (the
+// 32x32, chroma 16x16, blocks of the half)
+constexpr int MERGE_CL = 2;
 
 // the candidates' mode values and mode bits (intra_part._mode_rdo: V, then
 // intra_v._RDO_MODES' D45 and D67)
@@ -294,6 +338,25 @@ __device__ __forceinline__ void copy_commit() {
 template <int PENDING>
 __device__ __forceinline__ void copy_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// ---- programmatic dependent launch ----
+
+// A kernel launched with the programmatic-stream-serialization attribute
+// may start while the previous kernel of the stream still runs (once that
+// kernel's CTAs have all called launch_dependents, or ended).  Until
+// wait_primary it may read only what no kernel still running writes, and
+// it writes nothing.  After wait_primary the previous kernel has ended and
+// its stores are visible, and so has every earlier one: a kernel ends only
+// after its own wait, and one launched without the attribute starts only
+// after every earlier one has ended.  Without the attribute both are
+// no-ops.
+__device__ __forceinline__ void wait_primary() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::);
 }
 
 // One half of a 1-D inverse DCT of N points (N = 32, 64) on a line of
@@ -556,6 +619,7 @@ __device__ void chain_plane(const ChainJob& C, float* smem,
 }
 
 __global__ void __launch_bounds__(CHAIN_NT) part_chain_kernel(ChainJobs J) {
+  launch_dependents();
   extern __shared__ __align__(16) float s_chain[];
   __shared__ unsigned long long s_bars[2];    // the blocks' mbarriers
   const ChainJob& C = J.j[blockIdx.x / CHAIN_CL];
@@ -563,40 +627,99 @@ __global__ void __launch_bounds__(CHAIN_NT) part_chain_kernel(ChainJobs J) {
   else chain_plane<8>(C, s_chain, s_bars);
 }
 
-// ---- part_pred: one block per (candidate, column) of a site ----
+// ---- part_pred: a flat grid of the jobs' CTAs, a column's candidates in
+// one CTA ----
+
+// part_pred's layout at size N: a thread takes the 16-byte quads u of a
+// column's block (pixels 4u .. 4u + 3 in raster order) and builds every
+// candidate of each; COLS columns share a CTA (16 at 8x8, 4 at 16x16, so
+// that every thread has a quad), PER quads a thread (4 at 64x64).
+// kernels/intra_part.py:PRED_COLS and pred_ctas mirror it.
+template <int N>
+struct PredLayout {
+  static constexpr int QUADS = N * N / 4;
+  static constexpr int COLS = QUADS >= NT ? 1 : NT / QUADS;
+  static constexpr int PER = QUADS > NT ? QUADS / NT : 1;
+  static_assert(COLS * 2 * N <= NT, "a thread per edge pixel");
+};
+
+// COLS columns of one job from column c0: quad u = t + k NT of the CTA is
+// quad u % QUADS of column c0 + u / QUADS.  Before the wait the source
+// quads go to registers (nothing in the stream writes the source); after
+// it, the edges (the row above is the recon the previous kernel wrote)
+// go to shared memory in one coalesced load, and every candidate of each
+// quad is stored as 16-byte pieces of pred and resid.
+template <int N>
+__device__ void pred_columns(const PredJob& P, int c0, int* ae) {
+  using L = PredLayout<N>;
+  constexpr int LAST = 2 * N - 1;
+  const int t = threadIdx.x, cols = P.cols, W = P.width;
+  int4 src[L::PER];
+  int c[L::PER], p4[L::PER];
+#pragma unroll
+  for (int k = 0; k < L::PER; ++k) {
+    const int u = t + k * NT;
+    c[k] = c0 + u / L::QUADS;
+    p4[k] = u % L::QUADS;
+    if (c[k] < cols)
+      src[k] = __ldg(reinterpret_cast<const int4*>(
+          P.src + (size_t)(4 * p4[k] / N) * W + c[k] * N + 4 * p4[k] % N));
+  }
+  // intra_part._edges: edge pixel e of column ec, above-right replicated
+  // where it is not available (the row is padded with its last pixel)
+  const int ec = c0 + t / (2 * N), e = t % (2 * N);
+  const bool edge = t < L::COLS * 2 * N && ec < cols;
+  const bool avail = edge && (e < N || (P.av != nullptr && P.av[ec]));
+  wait_primary();
+  if (edge)
+    ae[t] = __ldcg(P.bottom + (avail ? min(ec * N + e, W - 1)
+                                     : ec * N + N - 1));
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < L::PER; ++k) {
+    if (c[k] >= cols) continue;
+    const int* a = ae + (c[k] - c0) * 2 * N;
+    const int i = 4 * p4[k] / N, j0 = 4 * p4[k] % N;
+    const int sv[4] = {src[k].x, src[k].y, src[k].z, src[k].w};
+    for (int m = 0; m < P.nm; ++m) {
+      const int dx = kModeDx[m];
+      int pr[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int j = j0 + q;
+        if (m == 0) {
+          pr[q] = a[j];
+        } else {   // intra_v._directional_pred: zone 1 on the above edge
+          const int idx = (i + 1) * dx, pos = (idx >> 6) + j;
+          if (pos >= LAST) {
+            pr[q] = a[LAST];
+          } else {
+            const int sh = (idx >> 1) & 0x1F;
+            pr[q] = (a[pos] * (32 - sh) + a[pos + 1] * sh + 16) >> 5;
+          }
+        }
+      }
+      const size_t row = ((size_t)m * cols + c[k]) * N * N + 4 * p4[k];
+      *reinterpret_cast<int4*>(P.pred + row) =
+          make_int4(pr[0], pr[1], pr[2], pr[3]);
+      *reinterpret_cast<float4*>(P.resid + row) = make_float4(
+          (float)(sv[0] - pr[0]), (float)(sv[1] - pr[1]),
+          (float)(sv[2] - pr[2]), (float)(sv[3] - pr[3]));
+    }
+  }
+}
 
 __global__ void __launch_bounds__(NT) part_pred_kernel(PredJobs J) {
-  const PredJob& P = J.j[blockIdx.y];
-  const int n = P.n, cols = P.cols, b = blockIdx.x, t = threadIdx.x;
-  if (b >= P.nm * cols) return;
-  const int m = b / cols, c = b % cols;
-  // intra_part._edges: the above edge, above-right replicated where it is
-  // not available (the row is padded with its last pixel)
-  __shared__ int ae[128];
-  if (t < 2 * n) {
-    const bool avail = t < n || (P.av != nullptr && P.av[c]);
-    ae[t] = avail ? P.bottom[min(c * n + t, P.width - 1)]
-                  : P.bottom[c * n + n - 1];
-  }
-  __syncthreads();
-  const int dx = kModeDx[m], last = 2 * n - 1;
-  const size_t row = (size_t)b * n * n;
-  for (int p = t; p < n * n; p += NT) {
-    const int i = p / n, j = p % n;
-    int pr;
-    if (m == 0) {
-      pr = ae[j];
-    } else {     // intra_v._directional_pred: zone 1 on the above edge
-      const int idx = (i + 1) * dx, pos = (idx >> 6) + j;
-      if (pos >= last) {
-        pr = ae[last];
-      } else {
-        const int sh = (idx >> 1) & 0x1F;
-        pr = (ae[pos] * (32 - sh) + ae[pos + 1] * sh + 16) >> 5;
-      }
-    }
-    P.pred[row + p] = pr;
-    P.resid[row + p] = (float)(P.src[(size_t)i * P.width + c * n + j] - pr);
+  int k = 0;
+  while (k + 1 < MAXJ && (int)blockIdx.x >= J.first[k + 1]) ++k;
+  const PredJob& P = J.j[k];
+  __shared__ int ae[NT];           // the CTA's columns' edges, 2N each
+  const int b = blockIdx.x - J.first[k];
+  switch (P.n) {
+    case 8: pred_columns<8>(P, PredLayout<8>::COLS * b, ae); break;
+    case 16: pred_columns<16>(P, PredLayout<16>::COLS * b, ae); break;
+    case 32: pred_columns<32>(P, b, ae); break;
+    default: pred_columns<64>(P, b, ae); break;
   }
 }
 
@@ -776,115 +899,232 @@ __global__ void __launch_bounds__(NT) part_code_kernel(CodeJobs J) {
   }
 }
 
-// ---- part_merge: one block per superblock column of a plane ----
+// ---- part_merge: a cluster of MERGE_CL CTAs per superblock column ----
 
-__device__ void zero_blocks(int16_t* grid, int cols, int nc, int r0, int nr,
-                            int c0, int nb) {
-  for (int p = threadIdx.x; p < nr * nb * nc; p += NT) {
-    const int r = r0 + p / (nb * nc), q = p % (nb * nc);
-    grid[((size_t)r * cols + c0 + q / nc) * nc + q % nc] = 0;
-  }
+// part_merge's shared memory, at luma's sizes (chroma uses the first part
+// of each array): the region's source and its recon as the small blocks
+// coded it (luma: the SSE), the mid site's recon of the region, this CTA's
+// half of the big site's window (do_big), the region's small and mid
+// levels (luma: the rates), the warps' partial sums and the half's two
+// region costs (luma, do_big: one from each CTA of the cluster).
+struct MergeSmem {
+  int src[1024], small[1024], mid[1024], big[2048];
+  int16_t lvs[1024], lvm[1024];
+  float red[3 * NW];
+  unsigned ired[2 * NW];
+  float cost[MERGE_CL];
+};
+
+// cp.async of `quads` 16-byte pieces of a window at *g (its rows `stride`
+// elements apart, q pieces a row) into *s, row after row
+template <class T>
+__device__ __forceinline__ void stage_window(T* s, const T* g, size_t stride,
+                                             int quads, int q) {
+  constexpr int E = 16 / sizeof(T);
+  for (int p = threadIdx.x; p < quads; p += NT)
+    copy16(s + E * p, g + (size_t)(p / q) * stride + E * (p % q));
 }
 
-// copy an nr x nx window of a band (stride width) into the recon at row r0
-__device__ void copy_window(int* recon, const int* band, int width, int r0,
-                            int nr, int x0, int nx) {
-  for (int p = threadIdx.x; p < nr * nx; p += NT) {
-    const int i = p / nx, x = x0 + p % nx;
-    recon[(size_t)(r0 + i) * width + x] = band[(size_t)i * width + x];
-  }
+// zero nr rows (from r0) of a level grid of `cols` blocks of nc int16 a
+// row, blocks c0 .. c0 + nbk - 1 of each, 16 bytes a store
+__device__ void zero_levels(int16_t* grid, int cols, int nc, int r0, int nr,
+                            int c0, int nbk) {
+  const int q = nbk * nc / 8;
+  for (int p = threadIdx.x; p < nr * q; p += NT)
+    *reinterpret_cast<int4*>(grid + ((size_t)(r0 + p / q) * cols + c0) * nc
+                             + 8 * (p % q)) = make_int4(0, 0, 0, 0);
 }
 
+// the nr x nx window at row r0, column x0 of the recon from shared memory
+// (rows of nx words), 16 bytes a store
+__device__ void store_window(int* recon, const int* win, int width, int r0,
+                             int nr, int x0, int nx) {
+  const int q = nx / 4;
+  for (int p = threadIdx.x; p < nr * q; p += NT)
+    *reinterpret_cast<int4*>(recon + (size_t)(r0 + p / q) * width + x0
+                             + 4 * (p % q)) =
+        *reinterpret_cast<const int4*>(win + 4 * p);
+}
+
+// barrier.cluster in two halves: the arrival (relaxed: orders nothing, or
+// release) and the wait (acquire)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// CTA k of a cluster takes region cm = 2C + k of superblock column C in
+// mid row R (the half): its split decision, the loser's levels zeroed, the
+// winner's recon, the region's cost (luma); with do_big, its half of the
+// 64 (chroma 32) decision's writes, the 64 decided by both CTAs from the
+// two region costs exchanged in shared memory.
 __global__ void __launch_bounds__(NT) part_merge_kernel(MergeJobs J) {
+  __shared__ __align__(16) MergeSmem S;
   const MergeJob& M = J.j[blockIdx.y];
   const int ns = M.ns, nm = 2 * ns, nb = 4 * ns, W = M.width;
   const int cols_s = W / ns, cols_m = W / nm, cols_b = W / nb;
-  const int C = blockIdx.x, t = threadIdx.x, s = M.sb_row;
-  if (C >= cols_b) return;
-  const bool luma = M.cost_m != nullptr;
   const int ncs = ns * ns, ncm = nm * nm;
-  __shared__ float s_red[3 * NW];
-  __shared__ long long s_lred[2 * NW];
-
-  // the 16s (8s) against the 32 (16) in the half's two mid regions
-  const int R = 2 * s + M.half;
-  for (int h = 0; h < 2; ++h) {
-    const int cm = 2 * C + h;
-    bool split;
-    if (luma) {
-      const float* c0 = M.cost_s;
-      const float* c1 = M.cost_s + cols_s;
-      const float sum16 = __fadd_rn(
-          __fadd_rn(__fadd_rn(c0[2 * cm], c0[2 * cm + 1]),
-                    __fadd_rn(c1[2 * cm], c1[2 * cm + 1])), M.lam_split);
-      split = sum16 < M.cost_m[cm];
-      if (t == 0) M.split[(size_t)R * cols_m + cm] = split;
-    } else {
-      split = M.split[(size_t)R * cols_m + cm] != 0;
-    }
-    if (split) {
-      zero_blocks(M.lv_m, cols_m, ncm, R, 1, cm, 1);
-    } else {
-      zero_blocks(M.lv_s, cols_s, ncs, 2 * R, 2, 2 * cm, 2);
-      copy_window(M.recon, M.rec_m, W, R * nm, nm, cm * nm, nm);
-    }
-    if (!luma) continue;
-    __syncthreads();      // the recon and the levels as selected
-    // the selection's pixel SSE and rate: per small column (left, right)
-    // the SSE over both small rows, log2_rate over both rows' levels
-    long long sse[2] = {0, 0};
-    for (int p = t; p < nm * nm; p += NT) {
-      const int i = p / nm, x = cm * nm + p % nm;
-      const size_t g = (size_t)(R * nm + i) * W + x;
-      const int e = M.recon[g] - M.src[g];
-      if (p % nm < ns) sse[0] += e * e;
-      else sse[1] += e * e;
-    }
-    float rt[3] = {0.f, 0.f, 0.f};      // left 16s, right 16s, the 32
-    for (int p = t; p < 2 * 2 * ncs; p += NT) {
-      const int side = p / (2 * ncs), q = p % (2 * ncs);
-      const int r = 2 * R + q / ncs;
-      const float v = level_rate(
-          M.lv_s[((size_t)r * cols_s + 2 * cm + side) * ncs + q % ncs]);
-      if (side == 0) rt[0] = __fadd_rn(rt[0], v);
-      else rt[1] = __fadd_rn(rt[1], v);
-    }
-    for (int p = t; p < ncm; p += NT)
-      rt[2] = __fadd_rn(rt[2], level_rate(
-          M.lv_m[((size_t)R * cols_m + cm) * ncm + p]));
-    group_sum<2>(sse, s_lred, NW);
-    group_sum<3>(rt, s_red, NW);
-    if (t == 0) {
-      const float d = __fadd_rn(__ll2float_rn(sse[0]), __ll2float_rn(sse[1]));
-      M.cost_region[(size_t)M.half * cols_m + cm] = __fadd_rn(
-          d, __fmul_rn(M.lam, __fadd_rn(__fadd_rn(rt[0], rt[1]), rt[2])));
-    }
-  }
-  if (!M.do_big) return;
-  __syncthreads();        // the region costs, the split row as decided
-
-  // the sub-levels against the 64 (chroma 32) of this superblock
-  bool split64;
-  if (luma) {
-    const float* r0 = M.cost_region;
-    const float* r1 = M.cost_region + cols_m;
-    const float sub = __fadd_rn(
-        __fadd_rn(__fadd_rn(r0[2 * C], r0[2 * C + 1]),
-                  __fadd_rn(r1[2 * C], r1[2 * C + 1])), M.lam_split);
-    split64 = sub < M.cost_b[C];
-    if (t == 0) M.split64[(size_t)s * cols_b + C] = split64;
-  } else {
-    split64 = M.split64[(size_t)s * cols_b + C] != 0;
-  }
-  if (split64) {
-    zero_blocks(M.lv_b, cols_b, 1024, s, 1, C, 1);
+  const int C = blockIdx.x / MERGE_CL, t = threadIdx.x;
+  if (C >= cols_b) {      // both CTAs of the cluster
+    wait_primary();
     return;
   }
-  zero_blocks(M.lv_s, cols_s, ncs, 4 * s, 4, 4 * C, 4);
-  zero_blocks(M.lv_m, cols_m, ncm, 2 * s, 2, 2 * C, 2);
-  if (luma && t < 4)
-    M.split[(size_t)(2 * s + t / 2) * cols_m + 2 * C + t % 2] = 0;
-  copy_window(M.recon, M.rec_b, W, s * nb, nb, C * nb, nb);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = (int)cluster.block_rank(), cm = 2 * C + k;
+  const int s = M.sb_row, R = 2 * s + M.half;
+  const bool luma = M.cost_m != nullptr, big = M.do_big != 0;
+  const bool exchange = luma && big;
+  const int q = nm / 4, rq = nm * q;    // a region row's and its quads
+  if (exchange) cluster_arrive_relaxed();   // the peer has started by the
+                                            // wait before the exchange
+  // before the wait, what the stream's previous kernel does not write: the
+  // source, the big site's recon and cost (its half-0 stage) and the first
+  // half's region costs (its merge)
+  if (luma)
+    stage_window(S.src, M.src + (size_t)R * nm * W + cm * nm, W, rq, q);
+  if (big) stage_window(S.big, M.rec_b + cm * nm, W, nb * q, q);
+  copy_commit();
+  float r0a = 0.f, r0b = 0.f, cost_b = 0.f;
+  if (exchange) {
+    r0a = __ldcg(M.cost_region + 2 * C);
+    r0b = __ldcg(M.cost_region + 2 * C + 1);
+    cost_b = __ldcg(M.cost_b + C);
+  }
+  launch_dependents();
+  wait_primary();
+
+  // one burst: the split's inputs, both candidates' recon of the region
+  // and (luma) their levels
+  float c0a = 0.f, c0b = 0.f, c1a = 0.f, c1b = 0.f, cmid = 0.f;
+  bool split = false, split64 = true;
+  if (luma) {
+    c0a = __ldcg(M.cost_s + 2 * cm);
+    c0b = __ldcg(M.cost_s + 2 * cm + 1);
+    c1a = __ldcg(M.cost_s + cols_s + 2 * cm);
+    c1b = __ldcg(M.cost_s + cols_s + 2 * cm + 1);
+    cmid = __ldcg(M.cost_m + cm);
+    stage_window(S.small, M.recon + (size_t)R * nm * W + cm * nm, W, rq, q);
+    // the rows 2R and 2R + 1 of the small grid, blocks 2cm and 2cm + 1
+    stage_window(S.lvs, M.lv_s + ((size_t)2 * R * cols_s + 2 * cm) * ncs,
+                 (size_t)cols_s * ncs, 2 * 2 * ncs / 8, 2 * ncs / 8);
+    stage_window(S.lvm, M.lv_m + ((size_t)R * cols_m + cm) * ncm, 0,
+                 ncm / 8, ncm / 8);
+  } else {
+    split = __ldcg(M.split + (size_t)R * cols_m + cm) != 0;
+    if (big) split64 = __ldcg(M.split64 + (size_t)s * cols_b + C) != 0;
+  }
+  stage_window(S.mid, M.rec_m + cm * nm, W, rq, q);
+  copy_commit();
+  if (luma)    // the 16s (8s) against the 32 (16), as row32_step
+    split = __fadd_rn(__fadd_rn(__fadd_rn(c0a, c0b), __fadd_rn(c1a, c1b)),
+                      M.lam_split) < cmid;
+  // the loser's levels, zero whatever the 64 decides
+  if (split) zero_levels(M.lv_m, cols_m, ncm, R, 1, cm, 1);
+  else zero_levels(M.lv_s, cols_s, ncs, 2 * R, 2, 2 * cm, 2);
+  copy_wait<0>();
+  __syncthreads();
+
+  if (luma) {
+    // the selection's pixel SSE, left and right small column apart, and
+    // its rate in the parent kernel's order: element p of the small pair
+    // (or of the mid block) on thread p mod NT as its (p div NT)-th
+    // addend, then group_sum's order (the loser's zeroed levels added
+    // +0.0 there, which leaves every sum as it is)
+    const int* sel = split ? S.small : S.mid;
+    unsigned sse[2] = {0u, 0u};
+    for (int p = t; p < rq; p += NT) {
+      const int4 a = *reinterpret_cast<const int4*>(sel + 4 * p);
+      const int4 b = *reinterpret_cast<const int4*>(S.src + 4 * p);
+      const int e0 = a.x - b.x, e1 = a.y - b.y, e2 = a.z - b.z,
+                e3 = a.w - b.w;
+      const unsigned e = e0 * e0 + e1 * e1 + e2 * e2 + e3 * e3;
+      if (4 * (p % q) < ns) sse[0] += e;
+      else sse[1] += e;
+    }
+    float rt[3] = {0.f, 0.f, 0.f};      // left 16s, right 16s, the 32
+    if (split) {
+      for (int p = t; p < 2 * 2 * ncs; p += NT) {
+        const int side = p / (2 * ncs), r = p % (2 * ncs) / ncs;
+        const float v = level_rate(S.lvs[r * 2 * ncs + side * ncs
+                                         + p % ncs]);
+        if (side == 0) rt[0] = __fadd_rn(rt[0], v);
+        else rt[1] = __fadd_rn(rt[1], v);
+      }
+    } else {
+      for (int p = t; p < ncm; p += NT)
+        rt[2] = __fadd_rn(rt[2], level_rate(S.lvm[p]));
+    }
+    const int warp = t >> 5;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      for (int o = 16; o; o >>= 1)
+        rt[i] = __fadd_rn(rt[i], __shfl_xor_sync(~0u, rt[i], o));
+    sse[0] = __reduce_add_sync(~0u, sse[0]);
+    sse[1] = __reduce_add_sync(~0u, sse[1]);
+    if ((t & 31) == 0) {
+      for (int i = 0; i < 3; ++i) S.red[i * NW + warp] = rt[i];
+      S.ired[warp] = sse[0];
+      S.ired[NW + warp] = sse[1];
+    }
+    __syncthreads();
+    float cost = 0.f;
+    if (t == 0) {
+      long long e[2] = {0, 0};
+      for (int i = 0; i < 3; ++i) {
+        float v = S.red[i * NW];
+        for (int w = 1; w < NW; ++w) v = __fadd_rn(v, S.red[i * NW + w]);
+        rt[i] = v;
+      }
+      for (int w = 0; w < NW; ++w) {
+        e[0] += S.ired[w];
+        e[1] += S.ired[NW + w];
+      }
+      const float d = __fadd_rn(__ll2float_rn(e[0]), __ll2float_rn(e[1]));
+      cost = __fadd_rn(d, __fmul_rn(M.lam, __fadd_rn(__fadd_rn(rt[0], rt[1]),
+                                                     rt[2])));
+      M.cost_region[(size_t)M.half * cols_m + cm] = cost;
+    }
+    if (exchange) {
+      // the two region costs meet in both CTAs, and both decide the 64
+      // from the same terms in sb_step's order
+      cluster_wait();
+      if (t == 0) {
+        S.cost[k] = cost;
+        *cluster.map_shared_rank(S.cost + k, k ^ 1) = cost;
+      }
+      cluster_arrive();
+      cluster_wait();
+      split64 = __fadd_rn(__fadd_rn(__fadd_rn(r0a, r0b),
+                                    __fadd_rn(S.cost[0], S.cost[1])),
+                          M.lam_split) < cost_b;
+      if (k == 0 && t == 0) M.split64[(size_t)s * cols_b + C] = split64;
+    }
+  }
+
+  if (!big || split64) {     // the region's selection stands
+    if (!split) store_window(M.recon, S.mid, W, R * nm, nm, cm * nm, nm);
+    if (luma && t == 0) M.split[(size_t)R * cols_m + cm] = split;
+    if (big) {   // the 64's (chroma 32's) levels, half a CTA
+      int16_t* lb = M.lv_b + ((size_t)s * cols_b + C) * 1024 + k * 512;
+      for (int p = t; p < 512 / 8; p += NT)
+        *reinterpret_cast<int4*>(lb + 8 * p) = make_int4(0, 0, 0, 0);
+    }
+    return;
+  }
+  // the 64 (chroma 32) wins: this CTA's columns of the superblock's small
+  // and mid levels zeroed (those of row R's loser already are), the splits
+  // cleared, the big site's recon
+  zero_levels(M.lv_s, cols_s, ncs, 4 * s, split ? 4 : 2, 2 * cm, 2);
+  zero_levels(M.lv_m, cols_m, ncm, 2 * s, split ? 1 : 2, cm, 1);
+  if (luma && t < 2) M.split[(size_t)(2 * s + t) * cols_m + cm] = 0;
+  store_window(M.recon, S.big, W, s * nb, nb, cm * nm, nm);
 }
 
 int err() { return (int)cudaGetLastError(); }
@@ -951,6 +1191,69 @@ int code_plan(const CodeJob* jobs, int count, CodeJobs& J, int* smem) {
   return n == count ? total : -1;
 }
 
+// part_pred's CTAs for one job (PredLayout)
+int pred_ctas(const PredJob& j) {
+  const int cols = j.n == 8 ? PredLayout<8>::COLS
+                 : j.n == 16 ? PredLayout<16>::COLS : 1;
+  return (j.cols + cols - 1) / cols;
+}
+
+// part_pred's flat grid, as code_plan: the jobs heaviest size first (the
+// 64 site's CTAs start first).  Returns the grid's CTAs, -1 for a job of
+// another size.
+int pred_plan(const PredJob* jobs, int count, PredJobs& J) {
+  int n = 0, total = 0;
+  for (int size = 64; size >= 8; size /= 2)
+    for (int k = 0; k < count; ++k)
+      if (jobs[k].n == size) {
+        J.j[n] = jobs[k];
+        J.first[n++] = total;
+        total += pred_ctas(jobs[k]);
+      }
+  for (int k = n; k <= MAXJ; ++k) J.first[k] = total;
+  return n == count ? total : -1;
+}
+
+// A launch that may start during its predecessor's tail (wait_primary),
+// in clusters of `cluster` CTAs along x where cluster > 1.
+void pdl_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                dim3 grid, int cluster, cudaStream_t stream) {
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  attr[1].id = cudaLaunchAttributeClusterDimension;
+  attr[1].val.clusterDim.x = cluster;
+  attr[1].val.clusterDim.y = 1;
+  attr[1].val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = grid;
+  cfg->blockDim = dim3(NT);
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = cluster > 1 ? 2 : 1;
+}
+
+// part_merge's launch: a cluster of MERGE_CL CTAs per superblock column of
+// the widest job, a row of the grid per job.  False for jobs it does not
+// take (1 or 2 jobs, 8 or 16 small blocks).
+bool merge_config(const MergeJob* jobs, int count, MergeJobs& J,
+                  cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg,
+                  cudaStream_t stream) {
+  if (count < 1 || count > 2) return false;
+  int cols_b = 1;
+  for (int k = 0; k < count; ++k) {
+    if (jobs[k].ns != 8 && jobs[k].ns != 16) return false;
+    J.j[k] = jobs[k];
+    cols_b = max(cols_b, jobs[k].width / (4 * jobs[k].ns));
+  }
+  pdl_config(cfg, attr, dim3(MERGE_CL * cols_b, count), MERGE_CL, stream);
+  return true;
+}
+
+__global__ void empty_kernel() {
+  launch_dependents();
+  wait_primary();
+}
+
 }  // namespace
 
 extern "C" int av1_part_chain(const ChainJob* jobs, int count,
@@ -990,13 +1293,31 @@ extern "C" int av1_part_pred(const PredJob* jobs, int count,
                              cudaStream_t stream) {
   if (count < 1 || count > MAXJ) return (int)cudaErrorInvalidValue;
   PredJobs J;
-  int gx = 1;
-  for (int k = 0; k < count; ++k) {
-    J.j[k] = jobs[k];
-    gx = max(gx, jobs[k].nm * jobs[k].cols);
-  }
-  part_pred_kernel<<<dim3(gx, count), NT, 0, stream>>>(J);
+  const int total = pred_plan(jobs, count, J);
+  if (total < 1) return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[2];
+  cudaLaunchConfig_t cfg;
+  pdl_config(&cfg, attr, dim3(total), 1, stream);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, part_pred_kernel, J);
+  if (e != cudaSuccess) return (int)e;
   return err();
+}
+
+// part_pred's launch of these jobs, for kernels/intra_part.py:pred_ctas to
+// check its mirror against: out = {CTAs, threads per CTA, launch
+// attributes, programmatic stream serialization allowed}.
+extern "C" int av1_part_pred_layout(const PredJob* jobs, int count,
+                                    int* out) {
+  if (count < 1 || count > MAXJ) return (int)cudaErrorInvalidValue;
+  PredJobs J;
+  cudaLaunchAttribute attr[2];
+  cudaLaunchConfig_t cfg;
+  pdl_config(&cfg, attr, dim3(pred_plan(jobs, count, J)), 1, nullptr);
+  out[0] = (int)cfg.gridDim.x;
+  out[1] = (int)cfg.blockDim.x;
+  out[2] = (int)cfg.numAttrs;
+  out[3] = (int)attr[0].val.programmaticStreamSerializationAllowed;
+  return 0;
 }
 
 extern "C" int av1_part_code(const CodeJob* jobs, int count,
@@ -1030,14 +1351,51 @@ extern "C" int av1_part_code_layout(const CodeJob* jobs, int count,
 
 extern "C" int av1_part_merge(const MergeJob* jobs, int count,
                               cudaStream_t stream) {
-  if (count < 1 || count > 2) return (int)cudaErrorInvalidValue;
   MergeJobs J;
-  int gx = 1;
-  for (int k = 0; k < count; ++k) {
-    J.j[k] = jobs[k];
-    gx = max(gx, jobs[k].width / (4 * jobs[k].ns));
+  cudaLaunchAttribute attr[2];
+  cudaLaunchConfig_t cfg;
+  if (!merge_config(jobs, count, J, attr, &cfg, stream))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, part_merge_kernel, J);
+  if (e != cudaSuccess) return (int)e;
+  return err();
+}
+
+// part_merge's launch of these jobs, for kernels/intra_part.py:
+// merge_layout to check its mirror against: out = {CTAs along x, rows
+// (jobs), CTAs per cluster, threads per CTA, static shared bytes
+// (cudaFuncGetAttributes), launch attributes}.
+extern "C" int av1_part_merge_layout(const MergeJob* jobs, int count,
+                                     int* out) {
+  MergeJobs J;
+  cudaLaunchAttribute attr[2];
+  cudaLaunchConfig_t cfg;
+  if (!merge_config(jobs, count, J, attr, &cfg, nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, part_merge_kernel);
+  out[0] = (int)cfg.gridDim.x;
+  out[1] = (int)cfg.gridDim.y;
+  out[2] = (int)attr[1].val.clusterDim.x;
+  out[3] = (int)cfg.blockDim.x;
+  out[4] = (int)a.sharedSizeBytes;
+  out[5] = (int)cfg.numAttrs;
+  return (int)e;
+}
+
+// `count` launches of a kernel that does nothing (one CTA; with `pdl` the
+// probe's launch attribute, and then it triggers and waits as part_pred
+// does): the floor of a launch, which chip_smoke.py's phase 7e times.
+extern "C" int av1_part_empty(int count, int pdl, cudaStream_t stream) {
+  cudaLaunchAttribute attr[2];
+  cudaLaunchConfig_t cfg;
+  pdl_config(&cfg, attr, dim3(1), 1, stream);
+  cfg.blockDim = dim3(32);
+  cfg.numAttrs = pdl ? 1 : 0;
+  for (int i = 0; i < count; ++i) {
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, empty_kernel);
+    if (e != cudaSuccess) return (int)e;
   }
-  part_merge_kernel<<<dim3(gx, count), NT, 0, stream>>>(J);
   return err();
 }
 

@@ -9,13 +9,23 @@ stage codes, U and V together):
 - `part_chain`: the first block row's serial chains (luma 16x16, U and V
   8x8 ADST_DCT), a cluster of CHAIN_CL CTAs per plane;
 - `part_pred`: a stage's candidate predictions and residuals from the row
-  above (V, D45, D67 at the luma 16 and 32 sites; V_PRED elsewhere);
+  above (V, D45, D67 at the luma 16 and 32 sites; V_PRED elsewhere), a
+  flat grid of CTAs that each build every candidate of their columns;
 - `part_code`: after the forward product (a matmul in the caller, as the
   JAX package leaves it to XLA), the quantize, rd_zero, the mode RDO, the
   dequantize, the inverse, the recon and the site's cost;
 - `part_merge`: one half of a superblock row's split decisions (and after
   the second half the 64's), the losers' levels zeroed, the winner's recon
-  in the frame.
+  in the frame, a cluster of MERGE_CL CTAs per superblock column.
+
+part_pred and part_merge launch with programmatic stream serialization:
+each may start while the previous kernel of the stream still runs, and
+reads what that kernel writes only after it waits for it.  Before the
+wait part_pred reads its source band, part_merge the luma source band,
+the big site's recon band and cost and the first half's region costs: the
+caller must not have those written by a kernel still running, which on
+the probe's path holds (each was written before the stream's previous
+kernel, which launches without the attribute or waits in turn).
 
 The hand kernels live in av1tpu_torch/csrc/intra_part.cu (built for
 sm_90a by av1tpu_torch._build); the note at its top states their design
@@ -252,6 +262,14 @@ def _launch(fn, cls, structs, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
+def _aligned(name: str, tensors) -> None:
+    """Raise unless every tensor starts 16-byte aligned (the kernels move
+    16-byte pieces)."""
+    for k, t in tensors:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {k} is not 16-byte aligned")
+
+
 def _layout() -> dict:
     """{"Struct": size, "Struct.field": offset} of the ctypes mirrors."""
     out = {}
@@ -404,6 +422,17 @@ part_chain.launches = 0
 
 # ---- part_pred ----
 
+# part_pred's kernel: columns per CTA at each size (a 16-byte quad of every
+# candidate per thread; csrc/intra_part.cu:PredLayout), and its flat grid
+PRED_COLS = {8: 16, 16: 4, 32: 1, 64: 1}
+
+
+def pred_ctas(jobs) -> int:
+    """The CTAs of part_pred's launch on these jobs (n, cols from src)."""
+    return sum(-(-(j.src.shape[1] // j.src.shape[0])
+                 // PRED_COLS[j.src.shape[0]]) for j in jobs)
+
+
 def _pred_shape(j: PredJob):
     if j.src.dim() != 2 or j.src.shape[0] not in (8, 16, 32, 64):
         raise ValueError(f"src: expected (n, width), n in 8..64, got "
@@ -458,7 +487,10 @@ def part_pred_plain(jobs) -> None:
 
 
 def part_pred(jobs) -> None:
-    """jobs: 1 to 6 PredJobs on one device, written in place."""
+    """jobs: 1 to 6 PredJobs on one device, written in place.  On the card
+    src, resid and pred are moved in 16-byte pieces: each must start
+    16-byte aligned; src is read before the launch waits for the stream's
+    previous kernel (see the module's note)."""
     if not 1 <= len(jobs) <= 6:
         raise ValueError(f"part_pred: 1 to 6 jobs, got {len(jobs)}")
     shapes = [_pred_shape(j) for j in jobs]
@@ -467,6 +499,9 @@ def part_pred(jobs) -> None:
         raise ValueError(f"part_pred: jobs on several devices {devs}")
     if not _on_card(devs.pop()):
         return part_pred_plain(jobs)
+    for j in jobs:
+        _aligned("part_pred", (("src", j.src), ("resid", j.resid),
+                               ("pred", j.pred)))
     _launch(_lib().av1_part_pred, PredJobC, [
         PredJobC(bottom=_ptr(j.bottom), src=_ptr(j.src), av=_ptr(j.av),
                  resid=_ptr(j.resid), pred=_ptr(j.pred), n=n, nm=nm,
@@ -627,10 +662,7 @@ def part_code(jobs) -> None:
     if not _on_card(devs.pop()):
         return part_code_plain(jobs)
     for j in jobs:
-        for name in ("pred", "src"):
-            if getattr(j, name).data_ptr() % 16:
-                raise ValueError(f"part_code: {name} is not 16-byte "
-                                 "aligned")
+        _aligned("part_code", (("pred", j.pred), ("src", j.src)))
     _launch(_lib().av1_part_code, CodeJobC, [
         CodeJobC(s=j.site.c, coefs=_ptr(j.coefs), pred=_ptr(j.pred),
                  src=_ptr(j.src), lv=_ptr(j.lv), rec=_ptr(j.rec),
@@ -747,8 +779,32 @@ def part_merge_plain(jobs) -> None:
                               j.rec_b))
 
 
+# part_merge's kernel: CTAs per superblock column (a cluster, one per
+# region of the half; csrc/intra_part.cu:MERGE_CL)
+MERGE_CL = 2
+
+
+class MergeLayout(NamedTuple):
+    """part_merge's launch: CTAs along x (MERGE_CL per superblock column of
+    the widest job), rows (a job each), CTAs per cluster, threads."""
+    ctas: int
+    rows: int
+    cluster: int
+    threads: int
+
+
+def merge_layout(jobs) -> MergeLayout:
+    """The launch of part_merge on these jobs."""
+    cols_b = max(j.recon.shape[1] // (4 * j.lv_s.shape[-1]) for j in jobs)
+    return MergeLayout(MERGE_CL * cols_b, len(jobs), MERGE_CL, 256)
+
+
 def part_merge(jobs) -> None:
-    """jobs: 1 or 2 MergeJobs (a plane each) on one device, in place."""
+    """jobs: 1 or 2 MergeJobs (a plane each) on one device, in place.  On
+    the card the grids, the bands and the source are moved in 16-byte
+    pieces: each must start 16-byte aligned; some inputs are read before
+    the launch waits for the stream's previous kernel (see the module's
+    note)."""
     if not 1 <= len(jobs) <= 2:
         raise ValueError(f"part_merge: 1 or 2 jobs, got {len(jobs)}")
     shapes = [_merge_shape(j) for j in jobs]
@@ -757,6 +813,9 @@ def part_merge(jobs) -> None:
         raise ValueError(f"part_merge: jobs on several devices {devs}")
     if not _on_card(devs.pop()):
         return part_merge_plain(jobs)
+    for j in jobs:
+        _aligned("part_merge", [(k, getattr(j, k)) for k in (
+            "lv_s", "lv_m", "lv_b", "recon", "rec_m", "rec_b", "src")])
     _launch(_lib().av1_part_merge, MergeJobC, [
         MergeJobC(lv_s=_ptr(j.lv_s), lv_m=_ptr(j.lv_m), lv_b=_ptr(j.lv_b),
                   recon=_ptr(j.recon), src=_ptr(j.src),

@@ -103,12 +103,23 @@ exits non-zero:
    per launch kind (code_kinds: device time per launch and per frame,
    launches, columns, CTAs with work, each site's jobs alone, the columns
    per site whose chosen candidate has no level) and the -Xptxas -v lines
-   of part_code_kernel and part_chain_kernel; (d) the probe's host
-   time with the kernels and with the plain versions, and its device busy
-   time with the kernels (torch.profiler: its launches overfill the launch
-   queue, so it cannot wait behind a sleep kernel).  Where
-   $AV1TPU_SMOKE_OUT is set, the 8-bit frame's planes and q go to
-   probe_inputs.pt there, for tools/search_compare.py --probe;
+   of the four kernels (part_pred's and part_merge's calls back to back:
+   each may start during the previous one's tail, PDL); (d) the probe's
+   host time with the kernels and with the plain versions, and its device
+   busy time with the kernels (torch.profiler: the probe's other
+   operations overfill the launch queue, so it cannot wait behind a sleep
+   kernel); (e) the floor of a launch (empty_launch_us: an empty kernel,
+   without and with programmatic stream serialization), the probe's
+   device sequence per frame (capture_probe_sequence, sequence_us: chain,
+   preds, cuBLAS products, codes and merges replayed, its luma and its
+   chroma part each behind a sleep kernel, events around each part only,
+   summed, five times: the launch queue does not hold the whole frame;
+   the replay's outputs
+   equal the probe's, their sha256 and that of each luma merge's region
+   costs printed) and part_pred's and part_merge's launch kinds
+   (pred_merge_kinds).  Where $AV1TPU_SMOKE_OUT is set, the 8-bit frame's
+   planes and q go to probe_inputs.pt there, for tools/search_compare.py
+   --probe;
 8. modes parity: phase 4 again (quality preset) in the command's other
    modes: the default metric, tpu_vmaf (its score within 1e-3, and once
    more under torch.backends.cudnn.flags(allow_tf32=True): the metric
@@ -2231,6 +2242,175 @@ def code_kinds(torch, kpart, calls, reps: int = 5) -> list:
     return out
 
 
+def capture_probe_sequence(torch, planes, q: int, bd: int):
+    """The probe of one frame (models/intra_part.encode_intra_part of the
+    checkout on sys.path) caught as its device sequence: part_chain's
+    jobs; per stage part_pred's jobs, the forward products (residual,
+    matrix, product) and part_code's jobs, as models/intra_part._stage
+    runs them; each part_merge's jobs; in order.  Returns (the steps, the
+    probe's outputs, the sha256 of each luma merge's region costs after
+    it, in order)."""
+    from av1tpu_torch.models import intra_part
+
+    steps, costs = [], []
+    saved = {n: getattr(intra_part, n)
+             for n in ("_stage", "part_chain", "part_merge")}
+
+    def stage(sites):
+        preds = [p for p, _, _ in sites]
+        intra_part.part_pred(preds)
+        prods = [(p.resid, f, p.resid @ f) for p, f, _ in sites]
+        codes = [c._replace(coefs=m[2]) for (_, _, c), m in zip(sites, prods)]
+        intra_part.part_code(codes)
+        steps.append(("stage", preds, prods, codes))
+
+    def chain(jobs):
+        saved["part_chain"](jobs)
+        steps.append(("chain", list(jobs)))
+
+    def merge(jobs):
+        saved["part_merge"](jobs)
+        steps.append(("merge", list(jobs)))
+        costs.extend(j.cost_region[j.half].cpu().numpy().tobytes()
+                     for j in jobs if j.cost_region is not None)
+
+    intra_part._stage, intra_part.part_chain, intra_part.part_merge = (
+        stage, chain, merge)
+    try:
+        out = intra_part.encode_intra_part(*planes, q, bit_depth=bd)
+    finally:
+        for n, f in saved.items():
+            setattr(intra_part, n, f)
+    torch.cuda.synchronize()
+    return steps, out, hashlib.sha256(b"".join(costs)).hexdigest()
+
+
+def replay_probe(torch, kpart, steps) -> None:
+    """A caught probe sequence again on its own tensors: the probe's
+    kernels (kpart's wrappers) and its forward products (cuBLAS, into the
+    caught products), in order, and nothing else.  It rewrites every
+    output of the probe as the probe wrote it."""
+    for step in steps:
+        if step[0] == "chain":
+            kpart.part_chain(step[1])
+        elif step[0] == "merge":
+            kpart.part_merge(step[1])
+        else:
+            _, preds, prods, codes = step
+            kpart.part_pred(preds)
+            for r, f, c in prods:
+                torch.matmul(r, f, out=c)
+            kpart.part_code(codes)
+
+
+def outputs_sha256(out: dict) -> str:
+    """One sha256 of a probe's output grids, by name."""
+    h = hashlib.sha256()
+    for k in sorted(out):
+        h.update(k.encode())
+        h.update(out[k].cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def sequence_parts(steps) -> list:
+    """A caught probe sequence cut where chroma's first stage begins: about
+    1,015 kernels a 1088x1920 frame (a cuBLAS product is often two), more
+    than the launch queue holds behind a sleep kernel, and each part
+    fewer.  Each part replays alone: chroma reads of luma only its split
+    grids, which the luma part rewrites as they were."""
+    cut = next(i for i, st in enumerate(steps) if st[0] == "stage"
+               and pred_label(st[1][0]).startswith("c"))
+    return [steps[:cut], steps[cut:]]
+
+
+def sequence_us(torch, kpart, steps, runs: int = 5) -> list:
+    """Device us of a caught probe sequence per frame, `runs` times: each
+    part (sequence_parts) replayed behind its own sleep kernel, CUDA events
+    around the part only (device_us), so that each launch may overlap its
+    predecessor's tail as on the probe's path; the frame's time is the
+    parts' sum (the one overlap across the cut is lost)."""
+    parts = sequence_parts(steps)
+    return [sum(device_us(torch, lambda p=p: replay_probe(torch, kpart, p),
+                          1, 4 * SLEEP_CYCLES) for p in parts)
+            for _ in range(runs)]
+
+
+def pred_label(j) -> str:
+    """A part_pred job's site: y16, y32, y64 or c8, c16, c32."""
+    n = j.src.shape[0]
+    return ("y" if j.av is not None or n == 64 else "c") + str(n)
+
+
+def merge_label(jobs) -> str:
+    """A part_merge launch's kind: luma (y) or chroma (uv), a half's
+    merge or the superblock's second with the 64's (big)."""
+    return (("y" if jobs[0].cost_m is not None else "uv")
+            + ("-big" if jobs[0].do_big else "-half"))
+
+
+def pred_merge_kinds(torch, kpart, steps, reps: int = 5) -> dict:
+    """part_pred's and part_merge's calls of a caught probe sequence,
+    grouped by launch kind (the sites of a part_pred launch, such as
+    y16+y32+y64; a part_merge's plane and half), each kind's calls of the
+    frame back to back behind a sleep kernel (device_us): launches, us a
+    launch and per frame, CTAs (kpart's pred_ctas and merge_layout where
+    the checkout has them, else the first version's grid).  Back to back a
+    launch may start during the previous one's tail, so a launch's us is
+    not its own alone.  It leaves the merged grids changed: replay the
+    sequence after it.  Returns {kernel: [record per kind]}."""
+    calls = {"part_pred": [s[1] for s in steps if s[0] == "stage"],
+             "part_merge": [s[1] for s in steps if s[0] == "merge"]}
+    label = {"part_pred": lambda jobs: "+".join(dict.fromkeys(
+        pred_label(j) for j in jobs)), "part_merge": merge_label}
+
+    def ctas(name, jobs):
+        if name == "part_pred":
+            if hasattr(kpart, "pred_ctas"):
+                return kpart.pred_ctas(jobs)
+            return len(jobs) * max((1 if j.av is None else 3)
+                                   * j.src.shape[1] // j.src.shape[0]
+                                   for j in jobs)
+        if hasattr(kpart, "merge_layout"):
+            lay = kpart.merge_layout(jobs)
+            return lay.ctas * lay.rows
+        return len(jobs) * max(j.recon.shape[1] // (4 * j.lv_s.shape[-1])
+                               for j in jobs)
+
+    out = {}
+    for name, jobs_list in calls.items():
+        fn = getattr(kpart, name)
+        kinds: dict = {}
+        for jobs in jobs_list:
+            kinds.setdefault(label[name](jobs), []).append(jobs)
+        out[name] = []
+        for key, group in kinds.items():
+            us = device_us(torch, lambda: [fn(j) for j in group], reps,
+                           4 * SLEEP_CYCLES)
+            out[name].append(dict(
+                kind=key, launches=len(group), device_us=us / len(group),
+                frame_us=us, ctas=sum(ctas(name, j) for j in group)))
+    return out
+
+
+def empty_launch_us(torch, count: int = 200) -> dict:
+    """Device us a launch of a kernel that does nothing (one CTA of 32
+    threads; av1_part_empty, `count` launches from one C call queued
+    behind a sleep kernel): "plain" without a launch attribute, "pdl" with
+    part_pred's (programmatic stream serialization; the kernel lets its
+    dependent start, then waits, as the probe's kernels do)."""
+    from av1tpu_torch._build import cuda_lib
+
+    lib, out = cuda_lib(), {}
+    for key, pdl in (("plain", 0), ("pdl", 1)):
+        def run(pdl=pdl):
+            err = lib.av1_part_empty(count, pdl,
+                                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"av1_part_empty: cudaError {err}")
+        out[key] = device_us(torch, run, 5, 4 * SLEEP_CYCLES) / count
+    return out
+
+
 def device_busy_ms(torch, fn) -> tuple[float, int, float]:
     """One fn() after a warm-up under torch.profiler (CUDA activity): the
     device's busy time in ms (the union of its kernels' intervals), the
@@ -2273,7 +2453,10 @@ def probe_vs_plain(torch, probe_args) -> dict:
     serial floor, and its time per job on both frames (chain_times).
     (d) The probe's host time with the kernels and with the plain
     versions, and its device busy time with the kernels (device_busy_ms).
-    Returns the four kernels' records for the JSON line."""
+    (e) The empty-launch floor (empty_launch_us), the probe's device
+    sequence per frame (sequence_us) and part_pred's and part_merge's
+    launch kinds (pred_merge_kinds).  Returns the four kernels' records
+    for the JSON line."""
     from av1tpu_torch.kernels import intra_part as kpart
     from av1tpu_torch.models import intra_part
 
@@ -2382,6 +2565,9 @@ def probe_vs_plain(torch, probe_args) -> dict:
         bound_us, by = bounds[n]
         extra = (f", serial floor {chain_floor_us(jobs_list[0]):.3f} us "
                  "(chain_floor_us)" if n == "part_chain" else "")
+        if n in ("part_pred", "part_merge"):
+            extra += ("; its calls back to back: each may start during the "
+                      "previous one's tail (PDL)")
         print(f"{n} per probed {w}x{h} frame: {per_frame[n]} launches, "
               f"device {dev:.3f} us, plain {plain_ms:.3f} ms, bound "
               f"{bound_us:.4f} us ({by}{extra}, roofline "
@@ -2425,9 +2611,42 @@ def probe_vs_plain(torch, probe_args) -> dict:
               f"{r['no_level']}", flush=True)
     out["part_code"]["per_kind_us"] = {r["kind"]: r["device_us"]
                                        for r in kinds}
-    for line in ptxas_report(BUILD_LOG, ("part_code_kernel",
-                                         "part_chain_kernel")):
+    for line in ptxas_report(BUILD_LOG, (
+            "part_code_kernel", "part_chain_kernel", "part_pred_kernel",
+            "part_merge_kernel")):
         print(f"-Xptxas -v {line}", flush=True)
+
+    # (e) the floor of a launch, the whole probe's device sequence per
+    # frame and part_pred's and part_merge's launch kinds
+    floor = empty_launch_us(torch)
+    print(f"empty launch: {floor['plain']:.3f} us a launch, "
+          f"{floor['pdl']:.3f} us with programmatic stream serialization "
+          "(av1_part_empty, 200 launches behind a sleep kernel)", flush=True)
+    steps, seq_out, costs_sha = capture_probe_sequence(torch, (y, u, v), q,
+                                                       bd)
+    want = outputs_sha256(seq_out)
+    seq = sequence_us(torch, kpart, steps)
+    kinds_pm = pred_merge_kinds(torch, kpart, steps)
+    replay_probe(torch, kpart, steps)
+    torch.cuda.synchronize()
+    assert outputs_sha256(seq_out) == want, "the replay differs"
+    print(f"probe sequence per {w}x{h} frame ({len(steps)} steps: chain, "
+          f"pred, cuBLAS products, code, merge; events around its luma and "
+          f"its chroma part, summed): "
+          f"{[round(x, 3) for x in seq]} us, median {np.median(seq):.3f}; "
+          f"outputs sha256 {want}, region costs sha256 {costs_sha}",
+          flush=True)
+    for name, recs_k in kinds_pm.items():
+        for r in recs_k:
+            print(f"{name} {r['kind']}: {r['launches']} launches, device "
+                  f"{r['device_us']:.3f} us a launch back to back "
+                  f"({r['frame_us']:.3f} us per frame), {r['ctas']} CTAs",
+                  flush=True)
+        out[name]["per_kind_us"] = {r["kind"]: r["device_us"]
+                                    for r in recs_k}
+    for n in PART_KERNELS:
+        out[n].update(empty_launch_us=floor,
+                      probe_sequence_us=float(np.median(seq)))
 
     # (d) the probe's host and device time, kernels and plain versions
     def probe():

@@ -954,3 +954,131 @@ def test_part_code_log2_rate_bit_for_bit(dev):
     assert int(lv.flatten(1)[:, 2:].abs().sum()) == 0
     assert torch.equal(rate[0], 2.0 + torch.log2(1.0 + a))
     assert torch.equal(rate, plain_rate)
+
+
+def _probe_calls(dev, names, h=1088, w=1920):
+    """Each call of the probe's wrappers `names` on a 1088x1920 frame at q
+    72 (8 bits), by wrapper: the jobs of every call, in order."""
+    from av1tpu_torch.models import intra_part
+
+    calls = {n: [] for n in names}
+    saved = {n: getattr(intra_part, n) for n in names}
+
+    def catch(name):
+        def run(jobs):
+            calls[name].append(list(jobs))
+            return saved[name](jobs)
+        return run
+
+    try:
+        for n in names:
+            setattr(intra_part, n, catch(n))
+        intra_part.encode_intra_part(*_wave_planes(8, dev, w=w, h=h,
+                                                   seed=3), 72)
+    finally:
+        for n, f in saved.items():
+            setattr(intra_part, n, f)
+    torch.cuda.synchronize()
+    return calls
+
+
+def _pred_structs(jobs):
+    from av1tpu_torch.kernels import intra_part as kpart
+
+    return (kpart.PredJobC * len(jobs))(*[kpart.PredJobC(
+        bottom=j.bottom.data_ptr(), src=j.src.data_ptr(),
+        av=None if j.av is None else j.av.data_ptr(),
+        resid=j.resid.data_ptr(), pred=j.pred.data_ptr(), n=j.src.shape[0],
+        nm=1 if j.av is None else 3, cols=j.src.shape[1] // j.src.shape[0],
+        width=j.src.shape[1]) for j in jobs])
+
+
+def _merge_structs(jobs):
+    from av1tpu_torch.kernels import intra_part as kpart
+
+    return (kpart.MergeJobC * len(jobs))(*[kpart.MergeJobC(
+        ns=j.lv_s.shape[-1], width=j.recon.shape[1], sb_row=j.sb_row,
+        half=j.half, do_big=int(j.do_big)) for j in jobs])
+
+
+@pytest.mark.cuda
+def test_pred_and_merge_layouts_match_the_library(dev):
+    """kernels/intra_part.py:pred_ctas and merge_layout, the Python
+    mirrors of part_pred's flat grid and part_merge's clusters, equal the
+    library's (av1_part_pred_layout, av1_part_merge_layout) on every launch
+    kind of the probe at 1088x1920: a CTA per 16 8x8, 4 16x16 or one
+    larger column, the programmatic-serialization attribute on both, two
+    CTAs a cluster for part_merge, and its shared memory within the card's
+    232,448 bytes."""
+    import ctypes
+
+    from av1tpu_torch.kernels import intra_part as kpart
+
+    calls = _probe_calls(dev, ("part_pred", "part_merge"))
+    kinds = {}
+    for jobs in calls["part_pred"]:
+        kinds.setdefault(tuple(j.src.shape[0] for j in jobs), jobs)
+    assert len(kinds) == 6
+    for jobs in kinds.values():
+        out = (ctypes.c_int * 4)()
+        assert kpart._lib().av1_part_pred_layout(_pred_structs(jobs),
+                                                 len(jobs), out) == 0
+        assert tuple(out) == (kpart.pred_ctas(jobs), 256, 1, 1)
+    kinds = {}
+    for jobs in calls["part_merge"]:
+        kinds.setdefault((len(jobs), jobs[0].do_big), jobs)
+    assert len(kinds) == 4
+    for jobs in kinds.values():
+        out = (ctypes.c_int * 6)()
+        assert kpart._lib().av1_part_merge_layout(_merge_structs(jobs),
+                                                  len(jobs), out) == 0
+        assert tuple(out[:4]) == tuple(kpart.merge_layout(jobs))
+        assert out[5] == 2 and 0 < out[4] <= 232_448
+
+
+@pytest.mark.cuda
+def test_refused_pred_and_merge_launches_raise(dev, monkeypatch):
+    """part_pred and part_merge never fall back: a launch that the library
+    refuses (seven part_pred jobs, three part_merge jobs) raises, and so
+    does one whose launch with the programmatic-serialization attribute
+    or the cluster is refused (the launcher's cudaError, here
+    cudaErrorNotSupported 801 and cudaErrorInvalidClusterSize 912): no launch
+    counted, the plain version not run, the outputs untouched."""
+    from av1tpu_torch.kernels import intra_part as kpart
+
+    calls = _probe_calls(dev, ("part_pred", "part_merge"), h=128, w=192)
+    pred, merge = calls["part_pred"][1], calls["part_merge"][-1]
+    lib = kpart._lib()
+    with pytest.raises(RuntimeError, match="part_pred kernel launch"):
+        kpart._launch(lib.av1_part_pred, kpart.PredJobC,
+                      list(_pred_structs(pred * 7)[:7]), "part_pred")
+    with pytest.raises(RuntimeError, match="part_merge kernel launch"):
+        kpart._launch(lib.av1_part_merge, kpart.MergeJobC,
+                      list(_merge_structs(merge * 3)), "part_merge")
+
+    class Refusing:
+        def __init__(self, code):
+            self.code = code
+
+        def __getattr__(self, name):
+            return lambda *a: self.code
+
+    def no_plain(jobs):
+        raise AssertionError("the plain version ran on the card")
+
+    monkeypatch.setattr(kpart, "part_pred_plain", no_plain)
+    monkeypatch.setattr(kpart, "part_merge_plain", no_plain)
+    for code in (801, 912):
+        monkeypatch.setattr(kpart, "_lib", lambda code=code: Refusing(code))
+        for fn, jobs, outs in ((kpart.part_pred, pred, ("resid", "pred")),
+                               (kpart.part_merge, merge, ("recon", "lv_s",
+                                                          "split"))):
+            before = fn.launches
+            kept = [[getattr(j, k).clone() for k in outs] for j in jobs]
+            with pytest.raises(RuntimeError, match=f"cudaError {code}"):
+                fn(jobs)
+            assert fn.launches == before
+            for j, old in zip(jobs, kept):
+                for k, t in zip(outs, old):
+                    assert torch.equal(getattr(j, k), t), k
+    torch.cuda.synchronize()

@@ -738,3 +738,200 @@ def test_chain_plan_takes_each_position_once(n):
     lay = K.chain_layout([16, 8, 8] if n == 16 else [8, 8])
     assert lay.ctas == K.CHAIN_CL * (3 if n == 16 else 2)
     assert lay.smem == 4 * words <= 232_448
+
+
+# ---- part_pred's launch (kernels/intra_part.py:PRED_COLS and pred_ctas
+# mirror csrc/intra_part.cu's PredLayout and flat grid; the card test holds
+# them to the library; _pred_plan mirrors pred_columns' index arithmetic)
+# ----
+
+def _pred_jobs(sizes, width):
+    """Stand-ins of one launch's PredJobs: (n, nm, planes) per site at a
+    frame `width` luma pixels wide (chroma half as wide)."""
+    from types import SimpleNamespace
+
+    return [SimpleNamespace(n=n, nm=nm, src=np.empty((n, w // n * n),
+                                                     np.int8))
+            for n, nm, luma, planes in sizes
+            for w in [width if luma else width // 2] for _ in range(planes)]
+
+
+_P16, _P32, _P64 = (16, 3, True, 1), (32, 3, True, 1), (64, 1, True, 1)
+_P8C, _P16C, _P32C = (8, 1, False, 2), (16, 1, False, 2), (32, 1, False, 2)
+_PRED_KINDS = [[_P16], [_P16, _P32], [_P16, _P32, _P64], [_P8C],
+               [_P8C, _P16C], [_P8C, _P16C, _P32C]]
+
+
+def _pred_plan(jobs):
+    """The flat grid of part_pred, as the kernel walks it: per CTA its
+    job (the jobs heaviest size first) and first column; per thread t and
+    quad k < PER the quad u = t + 256 k, column c0 + u // QUADS, quad
+    u % QUADS; the threads t < COLS * 2n load the edges, pixel t % 2n of
+    column c0 + t // 2n.  Returns (order, [(job, c0)] per CTA), the
+    elements of each job's resid and pred written, and its edge loads."""
+    order = sorted(range(len(jobs)), key=lambda k: -jobs[k].n)
+    ctas = []
+    for k in order:
+        n = jobs[k].n
+        cols = jobs[k].src.shape[1] // n
+        ctas += [(k, K.PRED_COLS[n] * b)
+                 for b in range(-(-cols // K.PRED_COLS[n]))]
+    written = [np.zeros(j.nm * (j.src.shape[1] // j.n) * j.n * j.n,
+                        np.int32) for j in jobs]
+    edges = [np.zeros((j.src.shape[1] // j.n, 2 * j.n), np.int32)
+             for j in jobs]
+    t = np.arange(256)
+    for k, c0 in ctas:
+        j = jobs[k]
+        n, cols = j.n, j.src.shape[1] // j.n
+        quads = n * n // 4
+        per = max(1, quads // 256)
+        for q in range(per):
+            u = t + 256 * q
+            c, p4 = c0 + u // quads, u % quads
+            live = c < cols
+            for m in range(j.nm):
+                row = ((m * cols + c[live]) * n * n + 4 * p4[live])
+                for e in range(4):
+                    np.add.at(written[k], row + e, 1)
+        et = t[t < K.PRED_COLS[n] * 2 * n]
+        ec = c0 + et // (2 * n)
+        np.add.at(edges[k], (ec[ec < cols], (et % (2 * n))[ec < cols]), 1)
+    return order, ctas, written, edges
+
+
+@pytest.mark.parametrize("width", [1920, 1936, 64, 192])
+@pytest.mark.parametrize("kind", range(6), ids=[
+    "+".join(("y" if s[2] else "c") + str(s[0]) for s in k)
+    for k in _PRED_KINDS])
+def test_part_pred_grid_writes_every_row_once(kind, width):
+    """Every launch kind of the probe at 1920 (the main path) and ragged
+    widths: part_pred's flat grid has exactly pred_ctas CTAs, the 64
+    site's first, every CTA with a column; each (site, candidate, column)
+    row of resid and pred is written exactly once, element by element in
+    16-byte quads; and each column's 2n edge pixels are loaded once."""
+    jobs = _pred_jobs(_PRED_KINDS[kind], width)
+    order, ctas, written, edges = _pred_plan(jobs)
+    assert len(ctas) == K.pred_ctas(jobs)
+    sizes = [jobs[k].n for k, _ in ctas]
+    assert sizes == sorted(sizes, reverse=True)
+    assert all(c0 < jobs[k].src.shape[1] // jobs[k].n for k, c0 in ctas)
+    for w, e in zip(written, edges):
+        assert (w == 1).all() and (e == 1).all()
+    # every thread of a full CTA has a quad: no warp idles
+    for n in (8, 16, 32, 64):
+        assert K.PRED_COLS[n] * n * n // 4 >= 256
+
+
+# ---- part_merge's launch (kernels/intra_part.py:MERGE_CL and
+# merge_layout mirror csrc/intra_part.cu's clusters; the card test holds
+# them to the library; _merge_plan mirrors part_merge_kernel's indices) ----
+
+def _merge_plan(ns, width, big):
+    """What each CTA of one plane's part_merge launch takes, as the kernel
+    indexes it: CTA x of the grid is rank k = x % MERGE_CL of superblock
+    column C = x // MERGE_CL and takes region cm = 2C + k; its staged
+    window quads (row p // q, pixels 4 (p % q) .. + 3), and with do_big
+    (the 64 wins) its columns of the big window, rows of the small and
+    mid levels and half of the big levels.  Returns per output the count
+    of CTAs taking each element."""
+    nm, nb = 2 * ns, 4 * ns
+    cols_b, cols_m, cols_s = width // nb, width // nm, width // ns
+    q = nm // 4
+    out = {"region": np.zeros(cols_m, np.int32),
+           "window": np.zeros((nm, width), np.int32),
+           "big": np.zeros((nb, width), np.int32),
+           "lv_s": np.zeros((4, cols_s, ns * ns), np.int32),
+           "lv_m": np.zeros((2, cols_m, nm * nm), np.int32),
+           "lv_b": np.zeros((cols_b, 1024), np.int32)}
+    lay = K.merge_layout([MergeJob(
+        torch.empty((1, cols_s, ns, ns)), None, None,
+        torch.empty((nb, width)), None, None, None, None, 0, 1, big)])
+    assert lay.cluster == K.MERGE_CL and lay.ctas == K.MERGE_CL * cols_b
+    for x in range(lay.ctas):
+        k, C = x % K.MERGE_CL, x // K.MERGE_CL
+        cm = 2 * C + k
+        out["region"][cm] += 1
+        for key, rows in (("window", nm),) + ((("big", nb),) if big else ()):
+            p = np.arange(rows * q)[:, None]
+            np.add.at(out[key], (p // q, cm * nm + 4 * (p % q)
+                                 + np.arange(4)), 1)
+        if big:
+            out["lv_s"][:, 2 * cm:2 * cm + 2] += 1
+            out["lv_m"][:, cm] += 1
+            out["lv_b"][C, k * 512 + np.arange(512)] += 1
+    return out
+
+
+@pytest.mark.parametrize("big", [False, True], ids=["half", "do_big"])
+@pytest.mark.parametrize("ns,width", [(16, 1920), (8, 960), (16, 64),
+                                      (8, 96)],
+                         ids=["luma1920", "chroma960", "luma64", "chroma96"])
+def test_part_merge_clusters_take_each_region_once(ns, width, big):
+    """part_merge's clusters of MERGE_CL CTAs at the main path's widths and
+    one superblock: each region of the half is taken by one CTA, whose
+    staged window covers its nm x nm pixels once; with do_big the two CTAs
+    of a superblock column split the 64x64 (chroma 32x32) window, the 16
+    small and 4 mid level blocks and the big block's 1024 levels, each
+    element once."""
+    out = _merge_plan(ns, width, big)
+    assert (out["region"] == 1).all() and (out["window"] == 1).all()
+    for k in ("big", "lv_s", "lv_m", "lv_b"):
+        assert (out[k] == (1 if big else 0)).all(), k
+
+
+def _region_cost(lvs, lvm, sse, lam, split, parent):
+    """A luma region's cost as part_merge sums it, in float32: the parent
+    kernel's loops over the 16s' (lvs: (2 rows, 2 sides, 256)) and the
+    32's (lvm: (1024,)) levels after the loser was zeroed, or the new
+    kernel's over the winner's staged levels alone (row * 512 + side *
+    256 + pos); element p on thread p mod 256 as its (p div 256)-th
+    addend, the warps' xor butterflies, the warps in order."""
+    def rate(v):
+        v = np.abs(v.astype(np.float32))
+        return np.where(v == 0, f32(0), f32(2) + np.log2(f32(1) + v))
+
+    if parent:
+        small = lvs if split else np.zeros_like(lvs)
+        mid = np.zeros_like(lvm) if split else lvm
+    rt = np.zeros((3, 256), f32)
+    if parent or split:
+        src = (small if parent else lvs).reshape(-1)
+        for p in range(1024):
+            side, r, pos = p // 512, p % 512 // 256, p % 256
+            rt[side, p % 256] = f32(rt[side, p % 256]
+                                    + rate(src[r * 512 + side * 256 + pos]))
+    if parent or not split:
+        src = mid if parent else lvm
+        for p in range(1024):
+            rt[2, p % 256] = f32(rt[2, p % 256] + rate(src[p]))
+    tot = []
+    for i in range(3):
+        red = _warp_sums(rt[i])
+        v = red[0]
+        for w in range(1, 8):
+            v = f32(v + red[w])
+        tot.append(v)
+    d = f32(f32(sse[0]) + f32(sse[1]))
+    return f32(d + f32(lam * f32(f32(tot[0] + tot[1]) + tot[2])))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_part_merge_rates_keep_the_parent_order(seed):
+    """The premise of part_merge's rates: the winner's levels alone, read
+    from the staged layout, give the region cost of the parent kernel's
+    sums over both candidates' levels after the loser was zeroed (+0.0
+    terms), bit for bit in float32, whichever wins, at levels of every
+    magnitude with zeros among them."""
+    rng = np.random.RandomState(seed)
+    mags = 2 ** rng.randint(0, 14, (2, 2, 256))
+    lvs = np.where(rng.rand(2, 2, 256) < 0.6, 0,
+                   rng.randint(-1, 2, (2, 2, 256)) * mags).astype(np.int16)
+    lvm = np.where(rng.rand(1024) < 0.5, 0,
+                   rng.randint(-300, 300, 1024)).astype(np.int16)
+    sse = rng.randint(0, 1 << 28, 2)
+    lam = f32(rng.rand() * 300)
+    for split in (True, False):
+        a = _region_cost(lvs, lvm, sse, lam, split, parent=True)
+        b = _region_cost(lvs, lvm, sse, lam, split, parent=False)
+        assert a.tobytes() == b.tobytes(), (split, a, b)

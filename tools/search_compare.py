@@ -33,13 +33,24 @@ phase 7d's own timing (chip_smoke.deblock_times): one JSON line per
 launch (per plane; per plane and direction for an older checkout whose
 kernel filters one direction a launch) and one for the frame.
 
---probe: times part_code on the probed frame that phase 7e saved to FILE
-(its planes, q and bit depth): the probe runs once with part_code's calls
-caught (chip_smoke.capture_code_calls), then each launch kind is timed
-with phase 7e's own timing (chip_smoke.code_kinds).  One JSON line per
-kind (device us per launch and per frame, launches, columns, CTAs with
-work, each site alone, the columns without a level per site) and one for
-the frame.
+--probe: times part_code, part_pred and part_merge on the probed frame
+that phase 7e saved to FILE (its planes, q and bit depth): the probe runs
+once with part_code's calls caught (chip_smoke.capture_code_calls), then
+each launch kind is timed with phase 7e's own timing (chip_smoke.
+code_kinds).  One JSON line per kind (device us per launch and per frame,
+launches, columns, CTAs with work, each site alone, the columns without a
+level per site) and one for the frame.  Then the probe runs once more
+caught as its device sequence (chip_smoke.capture_probe_sequence):
+part_pred's and part_merge's launch kinds, each kind's calls back to back
+(chip_smoke.pred_merge_kinds: us a launch and per frame, CTAs; a launch
+may start during the previous one's tail), one JSON line per kind and one
+per kernel for the frame; and the whole sequence (chain, preds, cuBLAS
+products, codes, merges) replayed, its luma and its chroma part each
+with events around it only, summed, five times (chip_smoke.sequence_us),
+with the sha256 of every output grid and
+of each luma merge's region costs, which two checkouts whose kernels
+agree bit for bit print alike, and the empty-launch floor
+(chip_smoke.empty_launch_us) where the checkout's library has it.
 
 --chain: times part_chain on the probed frame that --probe reads (FILE
 is phase 7e's probe_inputs.pt) and on the 10-bit frame phase 7e makes
@@ -215,8 +226,9 @@ def main() -> int:
     print("\n".join(ln for ln in log.splitlines()
                     if "motion" in ln or "inter_code" in ln
                     or "spill" in ln) or log.strip(), flush=True)
-    for line in chip_smoke.ptxas_report(log, ("deblock_kernel", "part_code",
-                                              "part_chain", "cdef_kernel")):
+    for line in chip_smoke.ptxas_report(log, (
+            "deblock_kernel", "part_code", "part_chain", "part_pred",
+            "part_merge", "cdef_kernel")):
         print(f"-Xptxas -v {line}", flush=True)
     card = chip_smoke.card_name()
     if args.inputs:
@@ -261,10 +273,35 @@ def main() -> int:
               flush=True)
     if args.probe:
         d = torch.load(args.probe)
+        planes = [p.to(dev) for p in d["planes"]]
         with forward_matrices(args.probe):
-            calls = chip_smoke.capture_code_calls(
-                torch, [p.to(dev) for p in d["planes"]], d["q"],
-                d["bit_depth"])
+            calls = chip_smoke.capture_code_calls(torch, planes, d["q"],
+                                                  d["bit_depth"])
+        steps, seq_out, costs_sha = chip_smoke.capture_probe_sequence(
+            torch, planes, d["q"], d["bit_depth"])
+        sha = chip_smoke.outputs_sha256(seq_out)
+        seq = chip_smoke.sequence_us(torch, intra_part, steps)
+        for name, recs in chip_smoke.pred_merge_kinds(
+                torch, intra_part, steps).items():
+            for r in recs:
+                print(json.dumps({"root": args.root, "kernel": name, **r,
+                                  "card": card}), flush=True)
+            print(json.dumps({
+                "root": args.root, "kernel": name, "kind": "frame",
+                "launches": sum(r["launches"] for r in recs),
+                "frame_us": sum(r["frame_us"] for r in recs),
+                "card": card}), flush=True)
+        chip_smoke.replay_probe(torch, intra_part, steps)
+        torch.cuda.synchronize()
+        assert chip_smoke.outputs_sha256(seq_out) == sha, "replay differs"
+        floor = (chip_smoke.empty_launch_us(torch)
+                 if hasattr(_build.cuda_lib(), "av1_part_empty") else None)
+        print(json.dumps({
+            "root": args.root, "kernel": "probe", "kind": "sequence",
+            "steps": len(steps), "frame_us": seq,
+            "median_us": float(np.median(seq)), "outputs_sha256": sha,
+            "region_costs_sha256": costs_sha, "empty_launch_us": floor,
+            "card": card}), flush=True)
         kinds = chip_smoke.code_kinds(torch, intra_part, calls)
         for r in kinds:
             print(json.dumps({"root": args.root, "kernel": "part_code", **r,
